@@ -1,0 +1,80 @@
+"""hyperopt_tpu_torch — the PyTorch/CUDA port of ``hyperopt_tpu``.
+
+The same public surface as the JAX package, restricted to what this port
+has so far: ``fmin`` with random search and TPE, the ``hp.*`` space
+language, ``Trials``/``Domain``/``Ctrl`` and the padded history.  Entry
+points run on the CUDA card unless the caller passes ``device="cpu"``;
+TPE's EI scoring runs in the hand-written kernel of
+``hyperopt_tpu_torch/csrc/ei_diff.cu``.  The package imports neither JAX
+nor ``hyperopt_tpu``.
+"""
+
+from . import early_stop, hp, pyll, spaces
+from .algos import rand, tpe
+from .base import (
+    JOB_STATE_CANCEL,
+    JOB_STATE_DONE,
+    JOB_STATE_ERROR,
+    JOB_STATE_NEW,
+    JOB_STATE_RUNNING,
+    JOB_STATES,
+    STATUS_FAIL,
+    STATUS_NEW,
+    STATUS_OK,
+    STATUS_RUNNING,
+    STATUS_STRINGS,
+    STATUS_SUSPENDED,
+    Ctrl,
+    Domain,
+    Trials,
+    trials_from_docs,
+)
+from .exceptions import (
+    AllTrialsFailed,
+    DuplicateLabel,
+    InvalidAnnotatedParameter,
+    InvalidLoss,
+    InvalidResultStatus,
+    InvalidTrial,
+)
+from .fmin import FMinIter, fmin, fmin_pass_expr_memo_ctrl, generate_trials_to_calculate
+from .spaces import space_eval
+
+__version__ = "0.2.0"
+
+__all__ = [
+    "hp",
+    "spaces",
+    "pyll",
+    "early_stop",
+    "fmin",
+    "FMinIter",
+    "fmin_pass_expr_memo_ctrl",
+    "generate_trials_to_calculate",
+    "space_eval",
+    "rand",
+    "tpe",
+    "Trials",
+    "trials_from_docs",
+    "Ctrl",
+    "Domain",
+    "JOB_STATE_NEW",
+    "JOB_STATE_RUNNING",
+    "JOB_STATE_DONE",
+    "JOB_STATE_ERROR",
+    "JOB_STATE_CANCEL",
+    "JOB_STATES",
+    "STATUS_NEW",
+    "STATUS_RUNNING",
+    "STATUS_SUSPENDED",
+    "STATUS_OK",
+    "STATUS_FAIL",
+    "STATUS_STRINGS",
+    "AllTrialsFailed",
+    "DuplicateLabel",
+    "InvalidAnnotatedParameter",
+    "InvalidLoss",
+    "InvalidResultStatus",
+    "InvalidTrial",
+    "__version__",
+]

@@ -1,0 +1,99 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``*.cu`` source under ``csrc/`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into its own shared library with a plain C interface, named
+by the hash of that source: ``build/hyperopt_tpu_torch/lib<stem>_<sha>.so``
+beside the package.  A library that is already there is loaded as it is,
+so a source is compiled once per change.  Nothing here runs at import:
+the first launch builds, and :func:`build_all` starts one ``nvcc`` per
+source at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+__all__ = ["library", "build_all", "NVCC_FLAGS"]
+
+_PKG = pathlib.Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "hyperopt_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+# C signatures: every pointer and the stream are c_void_p, counts c_int
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "ei_diff": {"ei_diff_f32": ([_P] * 8 + [_I, _I, _I, _P], ctypes.c_int)},
+}
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def _target(stem):
+    src = CSRC / f"{stem}.cu"
+    sha = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return src, BUILD_DIR / f"lib{stem}_{sha}.so"
+
+
+def _start(stem, extra_flags=()):
+    """Start ``nvcc`` for one source; None when its library is built."""
+    src, so = _target(stem)
+    if so.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp, str(src)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp, so, cmd
+
+
+def _finish(job):
+    proc, tmp, so, cmd = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing
+    return log
+
+
+def build_all(extra_flags=()):
+    """Compile every source that is not built yet, one ``nvcc`` per source,
+    all started together; returns ``{stem: compiler output}``."""
+    jobs = {stem: _start(stem, extra_flags) for stem in _SIGNATURES}
+    return {stem: _finish(job) for stem, job in jobs.items() if job is not None}
+
+
+@functools.lru_cache(maxsize=None)
+def library(stem):
+    """The loaded library of ``csrc/<stem>.cu`` (built on first use), with
+    ``argtypes``/``restype`` set for each exported function."""
+    job = _start(stem)
+    if job is not None:
+        _finish(job)
+    lib = ctypes.CDLL(str(_target(stem)[1]))
+    for name, (argtypes, restype) in _SIGNATURES[stem].items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib

@@ -1,0 +1,129 @@
+"""Random-search suggester (counterpart of ``hyperopt_tpu/algos/rand.py``).
+
+Each new id folds into a threefry key derived from the seed, and the
+compiled space's ``sample_flat`` draws every parameter for the whole id
+batch at once on the trials' device; one packed ``[B, L]`` matrix comes
+back to the host per ask.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import prng
+
+__all__ = ["suggest", "suggest_async", "AskHandle", "flat_to_new_trial_docs",
+           "seed_to_key", "pack_labels", "unpack_flats", "pad_ids_pow2",
+           "pad_ids_sticky"]
+
+
+class AskHandle:
+    """One dispatched ask: the device work is queued; :meth:`result`
+    performs the (blocking) readback and builds the trial docs."""
+
+    def __init__(self, new_ids, finish):
+        self.new_ids = list(new_ids)
+        self._finish = finish
+        self._docs = None
+
+    def result(self):
+        """Block on the packed proposal matrix and return the trial docs
+        (idempotent)."""
+        if self._finish is not None:
+            self._docs = self._finish()
+            self._finish = None
+        return self._docs
+
+
+def seed_to_key(seed, device):
+    """Full-width key from an integer seed: the low 32 bits seed the key and
+    the high word is folded in (the tick's own derivation)."""
+    lo, hi = prng.seed_words(seed)
+    return prng.fold_in(prng.PRNGKey(lo, device), hi)
+
+
+def flat_to_new_trial_docs(domain, trials, new_ids, flats):
+    """Reference-shaped trial docs from flat per-label host samples;
+    inactive conditional params get empty idxs/vals."""
+    rval = []
+    for new_id, flat in zip(new_ids, flats):
+        active = domain.cs.active_flat(flat)
+        idxs = {}
+        vals = {}
+        for label, info in domain.cs.params.items():
+            if active[label]:
+                v = flat[label]
+                v = int(v) if info.is_int else float(v)
+                idxs[label] = [new_id]
+                vals[label] = [v]
+            else:
+                idxs[label] = []
+                vals[label] = []
+        misc = {"tid": new_id, "cmd": ("domain_attachment", "FMinIter_Domain"),
+                "idxs": idxs, "vals": vals}
+        if domain.workdir is not None:
+            misc["workdir"] = domain.workdir
+        rval.extend(
+            trials.new_trial_docs([new_id], [None], [domain.new_result()], [misc]))
+    return rval
+
+
+def pack_labels(cs, out):
+    """Stack ``{label: value[B]}`` into one ``[B, L]`` float32 matrix in
+    ``cs.labels`` order, so every ask reads back one buffer."""
+    return torch.stack([out[l].to(torch.float32) for l in cs.labels], dim=-1)
+
+
+def unpack_flats(cs, mat, n):
+    """Invert :func:`pack_labels` on host: ``[n, L]`` matrix → flat dicts."""
+    mat = mat.cpu().numpy() if isinstance(mat, torch.Tensor) else np.asarray(mat)
+    return [
+        {
+            l: (int(round(float(mat[i, j]))) if cs.params[l].is_int
+                else float(mat[i, j]))
+            for j, l in enumerate(cs.labels)
+        }
+        for i in range(n)
+    ]
+
+
+def pad_ids_pow2(new_ids, min_bucket=1):
+    """Pad an id batch to a power of two (at least ``min_bucket``) by
+    repeating the last id.  Padding never changes the kept proposals:
+    per-id keys derive from the id value, not its position."""
+    ids = [int(i) & 0xFFFFFFFF for i in new_ids]
+    B = 1
+    while B < max(len(ids), int(min_bucket)):
+        B *= 2
+    return np.asarray(ids + [ids[-1]] * (B - len(ids)), np.int64)
+
+
+def pad_ids_sticky(domain, new_ids):
+    """``pad_ids_pow2`` with a per-domain floor that never shrinks below the
+    widest batch this domain has already asked for."""
+    padded = pad_ids_pow2(new_ids, getattr(domain, "_ids_bucket", 1))
+    domain._ids_bucket = len(padded)
+    return padded
+
+
+def suggest_async(new_ids, domain, trials, seed):
+    """Queue the batched prior draw on the trials' device and return an
+    :class:`AskHandle`; its ``result()`` reads back and builds the docs."""
+    if not len(new_ids):
+        return AskHandle([], lambda: [])
+    dev = trials.device
+    ids = torch.from_numpy(pad_ids_sticky(domain, new_ids)).to(dev)
+    keys = prng.fold_in(seed_to_key(seed, dev), ids)  # one key per id
+    mat = pack_labels(domain.cs, domain.cs.sample_flat(keys))
+
+    def finish():
+        flats = unpack_flats(domain.cs, mat, len(new_ids))
+        return flat_to_new_trial_docs(domain, trials, new_ids, flats)
+
+    return AskHandle(new_ids, finish)
+
+
+def suggest(new_ids, domain, trials, seed):
+    """Draw one prior sample per new id (hyperopt/rand.py sym: suggest)."""
+    return suggest_async(new_ids, domain, trials, seed).result()

@@ -1,0 +1,919 @@
+"""Tree-structured Parzen Estimator on torch (counterpart of
+``hyperopt_tpu/algos/tpe.py``, main path).
+
+One TPE ask is one tick (:func:`_tick`, the counterpart of
+``_get_suggest_jit``): fold the trials finished since the last tick into
+the device-resident padded history, derive a key per new id, and for
+every label fit the adaptive-Parzen below/above mixtures, draw candidates
+from the below mixture by inverse CDF, score EI = below log-density −
+above log-density, select, and pack ``[B, L]`` values for one readback.
+
+Batching is written out where the JAX package uses ``vmap``: keys carry a
+leading id axis ``B``, and the grouped pipelines add a leading label axis
+``G``.  The Parzen fits depend on the history only, so they run once per
+label and every id of the ask shares them; the candidate draws and EI
+scores are ``[G, B, n_EI_candidates]``.  Every un-quantized numeric EI
+score goes through the CUDA kernel ``megakernel.ei_diff``, one launch per
+group covering all its ids and labels.  Component picks are gathers
+(``torch.gather`` after ``searchsorted``) where the JAX package used a
+one-hot matmul, so no matrix product, and hence no TF32 rounding, is
+involved.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .. import megakernel, prng
+from ..spaces import Dist, label_hash
+from ..utils import LRUCache
+from . import rand
+
+__all__ = [
+    "EPS",
+    "suggest",
+    "suggest_async",
+    "adaptive_parzen_normal",
+    "linear_forgetting_weights",
+    "normal_cdf",
+    "lognormal_cdf",
+    "gmm1_sample",
+    "gmm1_lpdf",
+    "lgmm1_sample",
+    "lgmm1_lpdf",
+    "categorical_posterior",
+    "split_below_above",
+    "build_propose",
+    "build_propose_with_scores",
+]
+
+EPS = 1e-12
+_default_prior_weight = 1.0
+_default_n_startup_jobs = 20
+_default_n_EI_candidates = 24
+_default_gamma = 0.25
+_default_linear_forgetting = 25
+
+# f32-safe clip for inverse-CDF inputs (~16 ulp at 1.0 in float32)
+_U_TINY = 1e-7
+_SQRT2 = float(np.float32(math.sqrt(2.0)))
+_F32_MAX = float(np.finfo(np.float32).max)
+
+
+def _f32(v, like):
+    return torch.as_tensor(v, dtype=torch.float32, device=like.device)
+
+
+def _fma(a, b, c):
+    """``a * b + c`` rounded once, as XLA's fused multiply-add computes the
+    JAX package's ``c + a * b``: the float64 product of two float32 values
+    is exact.  It matters where the result feeds a steep function, such as
+    ``ndtri`` near 0 or 1."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _lead(v, nd):
+    """A per-label ``[G]`` tensor shaped to broadcast over ``nd`` dims."""
+    return v.reshape(v.shape[:1] + (1,) * (nd - 1))
+
+
+# ---------------------------------------------------------------------------
+# cdf helpers
+# ---------------------------------------------------------------------------
+
+
+def normal_cdf(x, mu, sigma):
+    z = (x - mu) / (_SQRT2 * sigma)
+    return 0.5 * (1.0 + torch.erf(z))
+
+
+def lognormal_cdf(x, mu, sigma):
+    """CDF at x>=0 of exp(N(mu, sigma)); 0 for x<=0."""
+    x = torch.clamp(x, min=0.0)
+    safe = torch.clamp(x, min=EPS)
+    return torch.where(x > 0, normal_cdf(torch.log(safe), mu, sigma),
+                       torch.zeros_like(x))
+
+
+# ---------------------------------------------------------------------------
+# adaptive Parzen fit
+# ---------------------------------------------------------------------------
+
+
+def linear_forgetting_weights(obs_mask, LF):
+    """Per-slot forgetting weight in insertion order over ``[..., cap]``:
+    the oldest ``N-LF`` live slots ramp linearly from ``1/N`` to 1, the
+    newest ``LF`` weigh 1, padding 0."""
+    mask = obs_mask.to(torch.float32)
+    n = mask.sum(-1, keepdim=True)
+    pos = torch.cumsum(mask, -1) - 1.0
+    n_ramp = n - LF
+    denom = torch.clamp(n_ramp - 1.0, min=1.0)
+    inv_n = 1.0 / torch.clamp(n, min=1.0)
+    ramp = inv_n + pos * (1.0 - inv_n) / denom
+    one = torch.ones_like(ramp)
+    w = torch.where(pos >= n_ramp, one, ramp)
+    w = torch.where(n <= LF, one, w)
+    return w * mask
+
+
+def adaptive_parzen_normal(obs, obs_mask, prior_weight, prior_mu, prior_sigma, LF):
+    """Adaptive Parzen fit over ``[..., cap]`` observations: returns
+    ``(weights, mus, sigmas)`` of length ``cap+1`` sorted by location, the
+    prior inserted at its place with ``prior_sigma``; each observation's
+    sigma is its larger neighbour gap clipped to
+    ``[prior_sigma / min(100, 1 + m), prior_sigma]``; weights use linear
+    forgetting and sum to 1.  Dead slots get weight 0, ``mu=prior_mu``,
+    ``sigma=prior_sigma``.  The sort is stable, as ``jnp.argsort`` is:
+    tied values keep insertion order and their forgetting weights."""
+    cap = obs.shape[-1]
+    obs_mask = obs_mask.to(torch.bool)
+    prior_mu = _f32(prior_mu, obs).expand(obs.shape[:-1])
+    prior_sigma = _f32(prior_sigma, obs).expand(obs.shape[:-1])
+    m = obs_mask.sum(-1, keepdim=True) + 1  # live components incl. prior
+
+    lfw = linear_forgetting_weights(obs_mask, LF)
+    vals_c = torch.cat([torch.where(obs_mask, obs, _f32(_F32_MAX, obs)),
+                        prior_mu[..., None]], -1)
+    wts_c = torch.cat([lfw, torch.full_like(lfw[..., :1], float(prior_weight))], -1)
+    prior_c = torch.zeros(vals_c.shape, dtype=torch.bool, device=obs.device)
+    prior_c[..., cap] = True
+
+    order = torch.argsort(vals_c, dim=-1, stable=True)
+    svals = torch.gather(vals_c, -1, order)
+    swts = torch.gather(wts_c, -1, order)
+    sprior = torch.gather(prior_c, -1, order)
+
+    idx = torch.arange(cap + 1, device=obs.device)
+    prev_gap = svals - torch.cat([svals[..., :1], svals[..., :-1]], -1)
+    next_gap = torch.cat([svals[..., 1:], svals[..., -1:]], -1) - svals
+    prev_ok = (idx >= 1) & (idx < m)
+    next_ok = idx < (m - 1)
+    neg = torch.full_like(svals, -1.0)
+    sigma = torch.maximum(torch.where(prev_ok, prev_gap, neg),
+                          torch.where(next_ok, next_gap, neg))
+    psig = prior_sigma[..., None].expand_as(sigma)
+    sigma = torch.where(m == 1, psig, torch.clamp(sigma, min=0.0))
+
+    minsigma = psig / torch.clamp(1.0 + m.to(torch.float32), max=100.0)
+    sigma = torch.minimum(torch.maximum(sigma, minsigma), psig)
+    sigma = torch.where(sprior, psig, sigma)
+
+    live = idx < m
+    svals = torch.where(live, svals, prior_mu[..., None].expand_as(svals))
+    sigma = torch.where(live, sigma, psig)
+    swts = torch.where(live, swts, torch.zeros_like(swts))
+    swts = swts / swts.sum(-1, keepdim=True)
+    return swts, svals, sigma
+
+
+# ---------------------------------------------------------------------------
+# truncated GMM sampling (inverse-CDF truncation) and log-densities
+# ---------------------------------------------------------------------------
+
+
+def _trunc_masses(weights, mus, sigmas, low, high):
+    """Per-component in-bounds CDF mass and the mixture acceptance
+    probability; ``low``/``high`` are Python floats (±inf = unbounded)."""
+    alpha = (normal_cdf(low, mus, sigmas) if math.isfinite(low)
+             else torch.zeros_like(mus))
+    beta = (normal_cdf(high, mus, sigmas) if math.isfinite(high)
+            else torch.ones_like(mus))
+    mass = torch.clamp(beta - alpha, 0.0, 1.0)
+    p_accept = (weights * mass).sum(-1)
+    return alpha, beta, mass, p_accept
+
+
+def _cdf(w):
+    """Normalized CDF of nonnegative component weights ``[G, m]``; kept
+    non-decreasing so ``searchsorted`` counts ``#{cdf < u}`` exactly."""
+    cdf = torch.cumsum(w, -1)
+    cdf = cdf / torch.clamp(cdf[..., -1:], min=EPS)
+    return torch.cummax(cdf, -1).values
+
+
+def _pick(cdf, u):
+    """Component index per draw ``u[G, ...]``: the number of CDF entries
+    below ``u``, capped at the last component."""
+    G, m = cdf.shape
+    comp = torch.searchsorted(cdf, u.reshape(G, -1).contiguous())
+    return torch.clamp(comp, max=m - 1).reshape(u.shape)
+
+
+def _take(table, comp):
+    """``table[G, m]`` gathered at ``comp[G, ...]``."""
+    G = table.shape[0]
+    return torch.gather(table, 1, comp.reshape(G, -1)).reshape(comp.shape)
+
+
+def _gmm1_sample_bounded(keys, weights, mus, sigmas, low, high, n_samples):
+    """Truncated-mixture draws for labels with finite bounds ``low``/
+    ``high`` ``[G]``: keys ``[G, B, 2]``, tables ``[G, m]`` → ``[G, B, n]``.
+    The component is drawn from the weights reweighted by truncated mass,
+    then ``x = mu + sigma * ndtri(U(alpha, beta))``, clamped into
+    ``[low, nextafter(high, low)]``."""
+    lo, hi = low[:, None], high[:, None]
+    alpha = normal_cdf(lo, mus, sigmas)
+    beta = normal_cdf(hi, mus, sigmas)
+    mass = torch.clamp(beta - alpha, 0.0, 1.0)
+    cdf = _cdf(weights * mass)
+    ks = prng.split(keys)
+    comp = _pick(cdf, prng.uniform(ks[..., 0, :], (n_samples,)))
+    mu_s, sigma_s = _take(mus, comp), _take(sigmas, comp)
+    a_s, b_s = _take(alpha, comp), _take(beta, comp)
+    u0 = prng.uniform(ks[..., 1, :], (n_samples,))
+    u = torch.clamp(_fma(u0, b_s - a_s, a_s), _U_TINY, 1.0 - _U_TINY)
+    x = _fma(sigma_s, torch.special.ndtri(u), mu_s)
+    return torch.minimum(torch.maximum(x, _lead(low, 3)),
+                         _lead(torch.nextafter(high, low), 3))
+
+
+def _gmm1_sample_unbounded(keys, weights, mus, sigmas, n_samples):
+    """Mixture draws for unbounded labels (normal/lognormal priors): keys
+    ``[G, B, 2]``, tables ``[G, m]`` → ``[G, B, n]``; draw-for-draw the
+    bounded sampler at ``alpha=0, beta=1``."""
+    ks = prng.split(keys)
+    comp = _pick(_cdf(weights), prng.uniform(ks[..., 0, :], (n_samples,)))
+    u = torch.clamp(prng.uniform(ks[..., 1, :], (n_samples,)),
+                    _U_TINY, 1.0 - _U_TINY)
+    return _fma(_take(sigmas, comp), torch.special.ndtri(u), _take(mus, comp))
+
+
+def gmm1_sample(keys, weights, mus, sigmas, low, high, q, n_samples):
+    """``n_samples`` draws per key ``[B, 2]`` from one truncated (optionally
+    quantized) mixture ``[m]``; ``low``/``high`` are Python floats."""
+    low, high = float(low), float(high)
+    if q is None and math.isfinite(low) and math.isfinite(high):
+        return _gmm1_sample_bounded(
+            keys[None], weights[None], mus[None], sigmas[None],
+            _f32([low], weights), _f32([high], weights), n_samples)[0]
+    alpha, beta, mass, _ = _trunc_masses(weights, mus, sigmas, low, high)
+    cdf = _cdf((weights * mass)[None])
+    ks = prng.split(keys)
+    comp = _pick(cdf, prng.uniform(ks[..., 0, :], (n_samples,))[None])
+    mu_s, sigma_s = _take(mus[None], comp)[0], _take(sigmas[None], comp)[0]
+    a_s, b_s = _take(alpha[None], comp)[0], _take(beta[None], comp)[0]
+    u0 = prng.uniform(ks[..., 1, :], (n_samples,))
+    u = torch.clamp(_fma(u0, b_s - a_s, a_s), _U_TINY, 1.0 - _U_TINY)
+    x = _fma(sigma_s, torch.special.ndtri(u), mu_s)
+    if math.isfinite(low):
+        x = torch.clamp(x, min=low)
+    if math.isfinite(high):
+        x = torch.clamp(x, max=float(np.nextafter(np.float32(high), np.float32(low))))
+    if q is not None:
+        x = torch.round(x / q) * q
+    return x
+
+
+def lgmm1_sample(keys, weights, mus, sigmas, low, high, q, n_samples):
+    """Truncated lognormal mixture draws: the underlying normal is truncated
+    to the log-space ``[low, high]``, the draw is its exp, then quantized."""
+    x = torch.exp(gmm1_sample(keys, weights, mus, sigmas, low, high, None, n_samples))
+    if q is not None:
+        x = torch.round(x / q) * q
+    return x
+
+
+def _mixture_lse(x, weights, mus, sigmas):
+    """``log sum_i w_i N(x; mu_i, sigma_i)`` for tables ``[m]``, plain torch."""
+    comp = (torch.log(torch.clamp(weights, min=EPS))[:, None]
+            - 0.5 * ((x.reshape(1, -1) - mus[:, None]) / sigmas[:, None]) ** 2
+            - torch.log(sigmas)[:, None] - 0.5 * math.log(2.0 * math.pi))
+    comp = torch.where(weights[:, None] > 0, comp, torch.full_like(comp, -math.inf))
+    return torch.logsumexp(comp, 0).reshape(x.shape)
+
+
+def _q_prob(ub, lb, weights, mus, sigmas, cdf):
+    """Mixture mass of the bins ``[lb, ub]`` (``[..., N]`` against tables
+    ``[..., m]``)."""
+    W, MU, SG = weights[..., None], mus[..., None], sigmas[..., None]
+    ub, lb = ub[..., None, :], lb[..., None, :]
+    return (W * (cdf(ub, MU, SG) - cdf(lb, MU, SG))).sum(-2)
+
+
+def gmm1_lpdf(x, weights, mus, sigmas, low, high, q):
+    """Log-density of one truncated (quantized) mixture ``[m]`` at ``x``;
+    the quantized case integrates each bin ``[x-q/2, x+q/2] ∩ [low, high]``."""
+    low, high = float(low), float(high)
+    _, _, _, p_accept = _trunc_masses(weights, mus, sigmas, low, high)
+    lpa = torch.log(torch.clamp(p_accept, min=EPS))
+    if q is None:
+        out = _mixture_lse(x, weights, mus, sigmas) - lpa
+        return out.masked_fill(~_in_support(x, low, high, False), -math.inf)
+    flat = x.reshape(-1)
+    ub, lb = flat + q / 2, flat - q / 2
+    if math.isfinite(high):
+        ub = torch.clamp(ub, max=high)
+    if math.isfinite(low):
+        lb = torch.clamp(lb, min=low)
+    prob = _q_prob(ub, lb, weights, mus, sigmas, normal_cdf)
+    return (torch.log(torch.clamp(prob, min=EPS)) - lpa).reshape(x.shape)
+
+
+def lgmm1_lpdf(x, weights, mus, sigmas, low, high, q):
+    """Log-density of one truncated lognormal mixture ``[m]``; ``low``/
+    ``high`` are log-space bounds, and the quantized case integrates
+    value-space bins with the lower edge clamped at 0."""
+    low, high = float(low), float(high)
+    _, _, _, p_accept = _trunc_masses(weights, mus, sigmas, low, high)
+    lpa = torch.log(torch.clamp(p_accept, min=EPS))
+    if q is None:
+        logx = torch.log(torch.clamp(x, min=EPS))
+        out = _mixture_lse(logx, weights, mus, sigmas) - logx - lpa
+        return out.masked_fill(~_in_support(x, low, high, True), -math.inf)
+    flat = x.reshape(-1)
+    ub = flat + q / 2
+    lb = torch.clamp(flat - q / 2, min=0.0)
+    if math.isfinite(high):
+        ub = torch.clamp(ub, max=math.exp(high))
+    if math.isfinite(low):
+        lb = torch.clamp(lb, min=math.exp(low))
+    prob = _q_prob(ub, lb, weights, mus, sigmas, lognormal_cdf)
+    return (torch.log(torch.clamp(prob, min=EPS)) - lpa).reshape(x.shape)
+
+
+def _in_support(x, low, high, log_space):
+    """Where the (log-space) truncated density at value ``x`` is finite."""
+    inb = torch.ones(x.shape, dtype=torch.bool, device=x.device)
+    t = x
+    if log_space:
+        inb = x > 0
+        t = torch.log(torch.clamp(x, min=EPS))
+    if math.isfinite(low):
+        inb = inb & (t >= low)
+    if math.isfinite(high):
+        inb = inb & (t < high)
+    return inb
+
+
+def _q_lpdf_group(x, weights, mus, sigmas, lo, hi, q, islog, bounded,
+                  has_log=True):
+    """Quantized-bin log-density for a group: ``x[G, ...]`` against tables
+    ``[G, m]`` and per-label statics ``[G]``, bin for bin the per-label
+    q-paths (normal cdf on the bounded support for linear labels,
+    lognormal cdf with the lower edge at 0 for log labels)."""
+    G = x.shape[0]
+    flat = x.reshape(G, -1)
+    q2 = (q / 2)[:, None]
+    ub, lb = flat + q2, flat - q2
+    if bounded:
+        ubn, lbn = torch.minimum(ub, hi[:, None]), torch.maximum(lb, lo[:, None])
+    else:
+        ubn, lbn = ub, lb
+    prob = _q_prob(ubn, lbn, weights, mus, sigmas, normal_cdf)
+    if has_log:
+        lbl = torch.clamp(lb, min=0.0)
+        if bounded:
+            ubl = torch.minimum(ub, torch.exp(hi)[:, None])
+            lbl = torch.maximum(lbl, torch.exp(lo)[:, None])
+        else:
+            ubl = ub
+        pl = _q_prob(ubl, lbl, weights, mus, sigmas, lognormal_cdf)
+        prob = torch.where(islog[:, None], pl, prob)
+    p_accept = _p_accept_group(weights, mus, sigmas, lo, hi, bounded)
+    out = (torch.log(torch.clamp(prob, min=EPS))
+           - torch.log(torch.clamp(p_accept, min=EPS))[:, None])
+    return out.reshape(x.shape)
+
+
+def _p_accept_group(weights, mus, sigmas, lo, hi, bounded):
+    """Each label's in-bounds mixture mass ``[G]`` (``sum(weights)`` for an
+    unbounded group)."""
+    if not bounded:
+        return weights.sum(-1)
+    alpha = normal_cdf(lo[:, None], mus, sigmas)
+    beta = normal_cdf(hi[:, None], mus, sigmas)
+    return (weights * torch.clamp(beta - alpha, 0.0, 1.0)).sum(-1)
+
+
+def _ei_kernel(x_t, below, above, p_b, p_a):
+    """EI of t-space points ``x_t[G, ...]`` under the group's below/above
+    tables ``(w, mu, sigma)`` ``[G, m]``, through ``megakernel.ei_diff``
+    (one launch for every id and label of the group), plus the truncation
+    normalizers ``-log p_b + log p_a`` ``[G]``."""
+    G = x_t.shape[0]
+    raw = megakernel.ei_diff(x_t.reshape(G, -1).contiguous(), *below, *above)
+    nd = x_t.dim()
+    return (raw.reshape(x_t.shape)
+            - _lead(torch.log(torch.clamp(p_b, min=EPS)), nd)
+            + _lead(torch.log(torch.clamp(p_a, min=EPS)), nd))
+
+
+def _nan_to_neg_inf(ei):
+    # -inf − -inf must never win the argmax
+    return ei.masked_fill(torch.isnan(ei), -math.inf)
+
+
+# ---------------------------------------------------------------------------
+# categorical / randint posterior and the below/above split
+# ---------------------------------------------------------------------------
+
+
+def categorical_posterior(obs, obs_mask, prior_p, prior_weight, LF):
+    """Pseudocount-smoothed posterior over ``K`` buckets for ``obs[..., cap]``
+    and ``prior_p[..., K]``: forgetting-weighted counts plus
+    ``K * prior_weight * prior_p``, normalized.  Out-of-range observations
+    count nowhere."""
+    K = prior_p.shape[-1]
+    lfw = linear_forgetting_weights(obs_mask, LF)
+    onehot = (obs[..., None] == torch.arange(K, device=obs.device)).to(torch.float32)
+    counts = (onehot * lfw[..., None]).sum(-2)
+    pseudo = counts + K * prior_weight * prior_p
+    return pseudo / pseudo.sum(-1, keepdim=True)
+
+
+def split_below_above(losses, has_loss, gamma, LF):
+    """Boolean masks ``[cap]`` of the best ``min(ceil(gamma*sqrt(N)), LF)``
+    trials vs the rest, over trials that reported a loss; ties keep
+    insertion order (stable sort)."""
+    cap = losses.shape[0]
+    N = has_loss.sum().to(torch.float32)
+    n_below = torch.clamp(torch.ceil(gamma * torch.sqrt(N)), max=float(LF))
+    keyed = torch.where(has_loss, losses, _f32(_F32_MAX, losses))
+    order = torch.argsort(keyed, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(cap, device=losses.device)
+    below = (rank < n_below) & has_loss
+    return below, has_loss & ~below
+
+
+# ---------------------------------------------------------------------------
+# per-family proposals
+# ---------------------------------------------------------------------------
+
+
+def _parzen_from(dist: Dist):
+    """Static (prior_mu, prior_sigma, low, high, q, log_space) of a numeric
+    family."""
+    fam, p = dist.family, dist.params
+    inf = float("inf")
+    if fam == "uniform":
+        low, high = p
+        return 0.5 * (low + high), high - low, low, high, None, False
+    if fam == "quniform":
+        low, high, q = p
+        return 0.5 * (low + high), high - low, low, high, q, False
+    if fam == "uniformint":
+        # the reference lowers hp.uniformint to quniform(low-0.5, high+0.5, q=1)
+        low, high = p[0] - 0.5, p[1] + 0.5
+        return 0.5 * (low + high), high - low, low, high, 1.0, False
+    if fam == "loguniform":
+        low, high = p
+        return 0.5 * (low + high), high - low, low, high, None, True
+    if fam == "qloguniform":
+        low, high, q = p
+        return 0.5 * (low + high), high - low, low, high, q, True
+    if fam == "normal":
+        mu, sigma = p
+        return mu, sigma, -inf, inf, None, False
+    if fam == "qnormal":
+        mu, sigma, q = p
+        return mu, sigma, -inf, inf, q, False
+    if fam == "lognormal":
+        mu, sigma = p
+        return mu, sigma, -inf, inf, None, True
+    if fam == "qlognormal":
+        mu, sigma, q = p
+        return mu, sigma, -inf, inf, q, True
+    raise ValueError(f"no parzen prior for family {dist.family!r}")
+
+
+def _stack_parzen_statics(parz):
+    """Per-label ``_parzen_from`` tuples stacked into the group statics
+    (unbounded groups never read low/high, so 0.0 keeps them finite;
+    unquantized labels carry q=1.0)."""
+    return {
+        "prior_mu": np.asarray([p[0] for p in parz], np.float32),
+        "prior_sigma": np.asarray([p[1] for p in parz], np.float32),
+        "low": np.asarray([p[2] if math.isfinite(p[2]) else 0.0 for p in parz],
+                          np.float32),
+        "high": np.asarray([p[3] if math.isfinite(p[3]) else 0.0 for p in parz],
+                           np.float32),
+        "q": np.asarray([p[4] if p[4] is not None else 1.0 for p in parz],
+                        np.float32),
+        "islog": np.asarray([p[5] for p in parz], bool),
+    }
+
+
+def _prior_probs(dist: Dist) -> np.ndarray:
+    """Static prior bucket probabilities for the discrete families."""
+    if dist.family == "categorical":
+        p = np.asarray(dist.params, np.float32)
+        return p / p.sum()
+    if dist.family == "randint":
+        low, high = dist.params
+        K = int(high) - int(low)
+        return np.full(K, 1.0 / K, np.float32)
+    raise ValueError(f"not a discrete family: {dist.family!r}")
+
+
+def _gather_last(v, i):
+    return torch.gather(v, -1, i[..., None])[..., 0]
+
+
+def _select_candidate(keys, samples, ei, cfg):
+    """Pick one candidate per key from ``samples/ei[..., n]``: the EI
+    argmax (first maximum), or with ``ei_select="softmax"`` a Gumbel-max
+    draw ``∝ softmax(EI / ei_tau)``."""
+    if cfg.get("ei_select", "argmax") == "softmax":
+        tau = float(cfg.get("ei_tau", 1.0))
+        u = prng.uniform(prng.fold_in(keys, 0x5E1EC7), (ei.shape[-1],),
+                         _U_TINY, 1.0 - _U_TINY)
+        i = torch.argmax(ei / tau - torch.log(-torch.log(u)), dim=-1)
+    else:
+        i = torch.argmax(ei, dim=-1)
+    return _gather_last(samples, i), _gather_last(ei, i)
+
+
+def _mix_prior(keys, cfg, val, ei_sel, draw, score):
+    """With probability ``cfg['prior_eps']`` replace the selected candidate
+    by a fresh prior draw scored under the same models:
+    ``fold_in(key, 0x9B10B)`` feeds the draw and ``fold_in(key, 0xE9510)``
+    the take-gate, for the grouped and per-label paths alike.
+    ``draw(keys) -> [...]``; ``score(x[..., 1]) -> [..., 1]``."""
+    eps = float(cfg.get("prior_eps", 0.0))
+    if eps <= 0.0:
+        return val, ei_sel
+    xp = draw(prng.fold_in(keys, 0x9B10B))
+    ei_p = score(xp[..., None])[..., 0]
+    take = prng.uniform(prng.fold_in(keys, 0xE9510), ()) < eps
+    return torch.where(take, xp.to(val.dtype), val), torch.where(take, ei_p, ei_sel)
+
+
+def _prior_draw_numeric(keys, prior_mu, prior_sigma, low, high, q, log_space):
+    """One draw per key from the search-space prior of a numeric family
+    (static Python bounds)."""
+    low, high = float(low), float(high)
+    if math.isfinite(low) and math.isfinite(high):
+        u = prng.uniform(keys, (), 0.0, 1.0 - _U_TINY)
+        z = _fma(u, _f32(high - low, u), _f32(low, u))
+    else:
+        n = prng.normal(keys, ())
+        z = _fma(_f32(prior_sigma, n), n, _f32(prior_mu, n))
+    x = torch.exp(z) if log_space else z
+    if q is not None:
+        x = torch.round(x / q) * q
+    return x
+
+
+def _fit_pair(obs, below, above, cfg, prior_mu, prior_sigma):
+    fit = lambda mask: adaptive_parzen_normal(  # noqa: E731
+        obs, mask, cfg["prior_weight"], prior_mu, prior_sigma, cfg["LF"])
+    return fit(below), fit(above)
+
+
+def _propose_numeric(keys, dist, vals, below_mask, above_mask, cfg, raw=False):
+    """One numeric label for keys ``[B, 2]``: fit both mixtures, draw
+    ``n_EI_candidates`` from the below one, score EI, select; returns
+    ``(value[B], ei[B])``, or with ``raw=True`` the candidate pool
+    ``(samples[B, n], ei[B, n])``."""
+    prior_mu, prior_sigma, low, high, q, log_space = _parzen_from(dist)
+    obs = torch.log(torch.clamp(vals, min=EPS)) if log_space else vals
+    tb, ta = _fit_pair(obs[None], below_mask[None], above_mask[None], cfg,
+                       prior_mu, prior_sigma)
+    wb, mb, sb = (t[0] for t in tb)
+    wa, ma, sa = (t[0] for t in ta)
+    sampler = lgmm1_sample if log_space else gmm1_sample
+    samples = sampler(keys, wb, mb, sb, low, high, q, cfg["n_EI_candidates"])
+    if q is None:
+        p_b = _trunc_masses(wb, mb, sb, low, high)[3][None]
+        p_a = _trunc_masses(wa, ma, sa, low, high)[3][None]
+
+        def score(xs):
+            x_t = torch.log(torch.clamp(xs, min=EPS)) if log_space else xs
+            ei = _ei_kernel(x_t[None], tb, ta, p_b, p_a)[0]
+            return ei.masked_fill(~_in_support(xs, low, high, log_space), -math.inf)
+    else:
+        lpdf = lgmm1_lpdf if log_space else gmm1_lpdf
+
+        def score(xs):
+            return (lpdf(xs, wb, mb, sb, low, high, q)
+                    - lpdf(xs, wa, ma, sa, low, high, q))
+
+    ei = _nan_to_neg_inf(score(samples))
+    if raw:
+        return samples, ei
+    val, ei_sel = _select_candidate(keys, samples, ei, cfg)
+    return _mix_prior(
+        keys, cfg, val, ei_sel,
+        lambda kp: _prior_draw_numeric(kp, prior_mu, prior_sigma, low, high,
+                                       q, log_space),
+        score)
+
+
+def _propose_numeric_group(keys, obs, below, above, statics, cfg,
+                           quantized, bounded, has_log=True):
+    """The numeric pipeline for a GROUP of labels sharing a (quantized?,
+    bounded?) shape: keys ``[G, B, 2]``, history ``[G, cap]``, statics
+    ``[G]``; returns ``(value[G, B], ei[G, B])``.  Per label it is the math
+    of :func:`_propose_numeric`, run in z-space (log space for log labels;
+    the log-density's Jacobian cancels inside EI), with quantization in
+    value space."""
+    islog, q = statics["islog"], statics["q"]
+    lo, hi = statics["low"], statics["high"]
+
+    def to_value(z):
+        if not has_log:
+            return z
+        return torch.where(_lead(islog, z.dim()), torch.exp(z), z)
+
+    obs_z = (torch.where(islog[:, None], torch.log(torch.clamp(obs, min=EPS)), obs)
+             if has_log else obs)
+    tb, ta = _fit_pair(obs_z, below, above, cfg, statics["prior_mu"],
+                       statics["prior_sigma"])
+    n_cand = cfg["n_EI_candidates"]
+    if bounded:
+        z = _gmm1_sample_bounded(keys, *tb, lo, hi, n_cand)
+    else:
+        z = _gmm1_sample_unbounded(keys, *tb, n_cand)
+
+    if quantized:
+        sel = torch.round(to_value(z) / _lead(q, 3)) * _lead(q, 3)
+
+        def score(xs):
+            return (_q_lpdf_group(xs, *tb, lo, hi, q, islog, bounded, has_log)
+                    - _q_lpdf_group(xs, *ta, lo, hi, q, islog, bounded, has_log))
+    else:
+        sel = z
+        p_b = _p_accept_group(*tb, lo, hi, bounded)
+        p_a = _p_accept_group(*ta, lo, hi, bounded)
+
+        def score(xs):
+            ei = _ei_kernel(xs, tb, ta, p_b, p_a)
+            if not bounded:
+                return ei
+            nd = xs.dim()
+            inb = (xs >= _lead(lo, nd)) & (xs < _lead(hi, nd))
+            return ei.masked_fill(~inb, -math.inf)
+
+    ei = _nan_to_neg_inf(score(sel))
+    val, ei_sel = _select_candidate(keys, sel, ei, cfg)
+
+    def draw(kp):
+        if bounded:
+            u = prng.uniform(kp, (), 0.0, 1.0 - _U_TINY)
+            zp = _fma(u, (hi - lo)[:, None], lo[:, None])
+        else:
+            zp = _fma(statics["prior_sigma"][:, None], prng.normal(kp, ()),
+                      statics["prior_mu"][:, None])
+        if quantized:
+            return torch.round(to_value(zp) / q[:, None]) * q[:, None]
+        return zp
+
+    val, ei_out = _mix_prior(keys, cfg, val, ei_sel, draw, score)
+    if not quantized:
+        val = to_value(val)
+    return val, ei_out
+
+
+def _prior_draw_discrete(keys, prior_p):
+    """One inverse-CDF bucket draw per key ``[G, B, 2]`` from the discrete
+    prior ``[G, K]``."""
+    return _pick(_cdf(prior_p), prng.uniform(keys, ()))
+
+
+def _propose_discrete_group(keys, obs, below, above, prior_ps, offsets, cfg, raw=False):
+    """The discrete pipeline for a GROUP of labels sharing one bucket count
+    ``K``: keys ``[G, B, 2]``, history ``[G, cap]``, priors ``[G, K]``,
+    randint offsets ``[G]``; returns ``(value[G, B], ei[G, B])``, or with
+    ``raw=True`` the candidate pools ``[G, B, n]``."""
+    obs_i = obs.to(torch.int64) - offsets[:, None]
+    pb = categorical_posterior(obs_i, below, prior_ps, cfg["prior_weight"], cfg["LF"])
+    pa = categorical_posterior(obs_i, above, prior_ps, cfg["prior_weight"], cfg["LF"])
+    samples = _pick(_cdf(pb), prng.uniform(keys, (cfg["n_EI_candidates"],)))
+    # clamped logs: a zero-probability bucket must not turn EI into NaN
+    lpb = torch.log(torch.clamp(pb, min=EPS))
+    lpa = torch.log(torch.clamp(pa, min=EPS))
+    ei = _nan_to_neg_inf(_take(lpb, samples) - _take(lpa, samples))
+    if raw:
+        return samples + _lead(offsets, 3), ei
+    val, ei_sel = _select_candidate(keys, samples, ei, cfg)
+    diff = lpb - lpa
+    val, ei_out = _mix_prior(
+        keys, cfg, val, ei_sel,
+        lambda kp: _prior_draw_discrete(kp, prior_ps),
+        lambda xs: _take(diff, xs))
+    return val + offsets[:, None], ei_out
+
+
+def _propose_discrete(keys, dist, vals, below_mask, above_mask, cfg, raw=False):
+    """One categorical/randint label for keys ``[B, 2]``: the group
+    pipeline at width one.  Returns ``(value[B], ei[B])``, or with
+    ``raw=True`` the candidate pool ``(samples[B, n], ei[B, n])``."""
+    prior_p = torch.as_tensor(_prior_probs(dist), device=vals.device)[None]
+    offset = int(dist.params[0]) if dist.family == "randint" else 0
+    offsets = torch.tensor([offset], device=vals.device)
+    val, ei = _propose_discrete_group(keys[None], vals[None], below_mask[None],
+                                      above_mask[None], prior_p, offsets, cfg, raw=raw)
+    return val[0], ei[0]
+
+
+def _read_vals(history, label):
+    """float32 view of one label's history column (the read boundary;
+    the port stores float32 only)."""
+    return history["vals"][label].to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# proposal steps and the tick
+# ---------------------------------------------------------------------------
+
+
+def build_propose_with_scores(cs, cfg, group=True):
+    """One proposal step ``propose(history, keys[B, 2]) -> {label: (value[B],
+    ei[B])}`` for a compiled space.
+
+    ``group=True`` routes labels through per-GROUP pipelines: numeric
+    labels sharing a (quantized?, bounded?) shape, discrete labels sharing
+    a bucket count; a family with a single label keeps the per-label
+    pipeline.  ``group=False`` runs every label on its own.  Same math and
+    same per-label keys either way."""
+    by_gkey = {}
+    if group:
+        for l in cs.labels:
+            dist = cs.params[l].dist
+            if dist.family in ("categorical", "randint"):
+                gkey = ("disc", len(_prior_probs(dist)))
+            else:
+                _, _, low, high, q, _ = _parzen_from(dist)
+                gkey = ("num", q is not None,
+                        math.isfinite(low) and math.isfinite(high))
+            by_gkey.setdefault(gkey, []).append(l)
+        by_gkey = {k: ls for k, ls in by_gkey.items() if len(ls) >= 2}
+    grouped = {l for ls in by_gkey.values() for l in ls}
+
+    numeric_groups = []  # (labels, quantized, bounded, has_log, statics)
+    disc_groups = []     # (labels, prior_ps[G, K], offsets[G])
+    for gkey, ls in by_gkey.items():
+        if gkey[0] == "disc":
+            prior_ps = np.stack([_prior_probs(cs.params[l].dist) for l in ls])
+            offsets = np.asarray(
+                [int(cs.params[l].dist.params[0])
+                 if cs.params[l].dist.family == "randint" else 0 for l in ls],
+                np.int64)
+            disc_groups.append((ls, prior_ps, offsets))
+        else:
+            parz = [_parzen_from(cs.params[l].dist) for l in ls]
+            numeric_groups.append((ls, gkey[1], gkey[2], any(p[5] for p in parz),
+                                   _stack_parzen_statics(parz)))
+    hashes = {l: label_hash(l) for l in cs.labels}
+    on_device = {}  # device -> group constants as tensors there
+
+    def constants(dev):
+        c = on_device.get(dev)
+        if c is None:
+            t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+            c = on_device[dev] = {
+                "num": [{k: t(v) for k, v in g[4].items()} for g in numeric_groups],
+                "disc": [(t(g[1]), t(g[2])) for g in disc_groups],
+                "hash": {ls[0]: t([hashes[l] for l in ls])
+                         for ls in [g[0] for g in numeric_groups + disc_groups]},
+            }
+        return c
+
+    def propose(history, keys):
+        c = constants(keys.device)
+        below, above = split_below_above(
+            history["losses"].to(torch.float32), history["has_loss"],
+            cfg["gamma"], cfg["LF"])
+        out = {}
+
+        def stacked(ls):
+            gkeys = prng.fold_in(keys[None, :, :], c["hash"][ls[0]][:, None])
+            obs = torch.stack([_read_vals(history, l) for l in ls])
+            act = torch.stack([history["active"][l] for l in ls])
+            return gkeys, obs, below[None, :] & act, above[None, :] & act
+
+        for (ls, quantized, bounded, has_log, _), statics in zip(numeric_groups, c["num"]):
+            val, ei = _propose_numeric_group(*stacked(ls), statics, cfg,
+                                             quantized, bounded, has_log)
+            for i, l in enumerate(ls):
+                out[l] = (val[i], ei[i])
+        for (ls, _, _), (prior_ps, offsets) in zip(disc_groups, c["disc"]):
+            val, ei = _propose_discrete_group(*stacked(ls), prior_ps, offsets, cfg)
+            for i, l in enumerate(ls):
+                out[l] = (val[i], ei[i])
+        for label in cs.labels:
+            if label in grouped:
+                continue
+            dist = cs.params[label].dist
+            active = history["active"][label]
+            k = prng.fold_in(keys, hashes[label])
+            fn = (_propose_discrete if dist.family in ("categorical", "randint")
+                  else _propose_numeric)
+            out[label] = fn(k, dist, _read_vals(history, label),
+                            below & active, above & active, cfg)
+        return out
+
+    return propose
+
+
+def build_propose(cs, cfg, group=True):
+    """``propose(history, keys[B, 2]) -> {label: value[B]}``; see
+    :func:`build_propose_with_scores`."""
+    scored = build_propose_with_scores(cs, cfg, group=group)
+
+    def propose(history, keys):
+        return {l: v for l, (v, _) in scored(history, keys).items()}
+
+    return propose
+
+
+def _apply_rows(labels, history, rows):
+    """Fold packed trial rows (``PaddedHistory._pack_row`` layout) into the
+    device history in place, one ``index_put_`` per array; every row
+    targets its own slot."""
+    L = len(labels)
+    idx = rows[:, 2 * L + 2].to(torch.int64)
+    for j, l in enumerate(labels):
+        history["vals"][l].index_put_((idx,), rows[:, j].to(history["vals"][l].dtype))
+        history["active"][l].index_put_((idx,), rows[:, L + j] > 0.5)
+    history["losses"].index_put_((idx,), rows[:, 2 * L].to(history["losses"].dtype))
+    history["has_loss"].index_put_((idx,), rows[:, 2 * L + 1] > 0.5)
+    return history
+
+
+def _tick(cs, propose, history, rows, seed, ids):
+    """One ask→tell tick on the history's device: fold ``rows`` in place,
+    derive ``fold_in(fold_in(PRNGKey(lo), hi), id)`` per id, propose, and
+    pack ``[B, L]``."""
+    _apply_rows(cs.labels, history, rows)
+    keys = prng.fold_in(rand.seed_to_key(seed, ids.device), ids)
+    return rand.pack_labels(cs, propose(history, keys))
+
+
+# (space signature, cfg) -> proposal step; its host-side group tables
+# and per-device constants are built once per space
+_propose_cache = LRUCache(32)
+
+
+def _get_propose(cs, cfg):
+    key = (cs.signature(), tuple(sorted(cfg.items())))
+    fn = _propose_cache.get(key)
+    if fn is None:
+        fn = build_propose(cs, cfg)
+        _propose_cache.put(key, fn)
+    return fn
+
+
+def suggest_async(
+    new_ids,
+    domain,
+    trials,
+    seed,
+    prior_weight=_default_prior_weight,
+    n_startup_jobs=_default_n_startup_jobs,
+    n_EI_candidates=_default_n_EI_candidates,
+    gamma=_default_gamma,
+    linear_forgetting=_default_linear_forgetting,
+    ei_select="argmax",
+    ei_tau=1.0,
+    prior_eps=0.0,
+    verbose=False,
+):
+    """Queue one tick on the trials' device and return an
+    :class:`~hyperopt_tpu_torch.algos.rand.AskHandle` whose ``result()``
+    reads the packed proposals back and builds the trial docs.  The first
+    ``n_startup_jobs`` trials are prior draws (``rand.suggest_async``)."""
+    if not len(new_ids):
+        return rand.AskHandle([], lambda: [])
+    if len(trials.trials) < n_startup_jobs:
+        return rand.suggest_async(new_ids, domain, trials, seed)
+
+    cfg = {
+        "prior_weight": float(prior_weight),
+        "n_EI_candidates": int(n_EI_candidates),
+        "gamma": float(gamma),
+        "LF": int(linear_forgetting),
+        "ei_select": str(ei_select),
+        "ei_tau": float(ei_tau),
+        "prior_eps": float(prior_eps),
+    }
+    cs = domain.cs
+    propose = _get_propose(cs, cfg)
+    ph = trials.history_object(cs.labels)
+    ids = torch.from_numpy(rand.pad_ids_sticky(domain, new_ids)).to(ph.device)
+    dev, rows = ph.device_state()
+    try:
+        mat = _tick(cs, propose, dev, rows, seed, ids)
+    except BaseException:
+        # a half-applied in-place fold: rebuild the mirror from host next time
+        ph.abandon_device()
+        raise
+    ph.commit_device()
+
+    def finish():
+        flats = rand.unpack_flats(cs, mat, len(new_ids))
+        return rand.flat_to_new_trial_docs(domain, trials, new_ids, flats)
+
+    return rand.AskHandle(new_ids, finish)
+
+
+def suggest(new_ids, domain, trials, seed, **kwargs):
+    """Propose new trials by TPE (hyperopt/tpe.py sym: suggest):
+    ``suggest_async`` plus an immediate ``result()``.  Tune with
+    ``functools.partial(tpe.suggest, gamma=..., n_EI_candidates=...)``."""
+    return suggest_async(new_ids, domain, trials, seed, **kwargs).result()

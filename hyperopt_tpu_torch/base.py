@@ -1,0 +1,541 @@
+"""Core runtime: trial documents, the trial store, Domain, Ctrl, and the
+padded history (counterpart of ``hyperopt_tpu/base.py``).
+
+``Trials`` keeps the reference's list-of-documents API and folds finished
+trials into a ``PaddedHistory``: per label ``vals[f32, cap]`` and
+``active[bool, cap]`` plus ``losses``/``has_loss``, with power-of-two
+capacity buckets.  The numpy arrays are the source of truth; the device
+mirror is a dict of torch tensors on the trials' device that each TPE tick
+updates in place (``index_put_``) with the rows finished since the last
+tick.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ._env import parse_hist_dtype, resolve_device
+from .exceptions import (
+    AllTrialsFailed,
+    InvalidLoss,
+    InvalidResultStatus,
+    InvalidTrial,
+    StaleHistoryError,
+)
+from .spaces import CompiledSpace, as_expr, compile_space
+from .utils import coarse_utcnow
+
+__all__ = [
+    "JOB_STATE_NEW",
+    "JOB_STATE_RUNNING",
+    "JOB_STATE_DONE",
+    "JOB_STATE_ERROR",
+    "JOB_STATE_CANCEL",
+    "JOB_STATES",
+    "STATUS_NEW",
+    "STATUS_RUNNING",
+    "STATUS_SUSPENDED",
+    "STATUS_OK",
+    "STATUS_FAIL",
+    "STATUS_STRINGS",
+    "miscs_to_idxs_vals",
+    "spec_from_misc",
+    "Trials",
+    "trials_from_docs",
+    "Ctrl",
+    "Domain",
+    "PaddedHistory",
+    "coarse_utcnow",
+]
+
+JOB_STATE_NEW = 0
+JOB_STATE_RUNNING = 1
+JOB_STATE_DONE = 2
+JOB_STATE_ERROR = 3
+JOB_STATE_CANCEL = 4
+JOB_STATES = [JOB_STATE_NEW, JOB_STATE_RUNNING, JOB_STATE_DONE, JOB_STATE_ERROR, JOB_STATE_CANCEL]
+
+STATUS_NEW = "new"
+STATUS_RUNNING = "running"
+STATUS_SUSPENDED = "suspended"
+STATUS_OK = "ok"
+STATUS_FAIL = "fail"
+STATUS_STRINGS = (STATUS_NEW, STATUS_RUNNING, STATUS_SUSPENDED, STATUS_OK, STATUS_FAIL)
+
+# Smallest padded-history capacity bucket (the JAX package's _MIN_CAP).
+_MIN_CAP = 128
+
+
+def miscs_to_idxs_vals(miscs, keys=None):
+    """Gather per-label sparse (idxs, vals) from trial misc documents."""
+    if keys is None:
+        if len(miscs) == 0:
+            raise ValueError("cannot infer keys from empty miscs")
+        keys = list(miscs[0]["idxs"].keys())
+    idxs = {k: [] for k in keys}
+    vals = {k: [] for k in keys}
+    for m in miscs:
+        for k in keys:
+            t = m["idxs"].get(k, [])
+            v = m["vals"].get(k, [])
+            if len(t) != len(v):
+                raise InvalidTrial(f"idxs/vals length mismatch for {k!r}")
+            idxs[k].extend(t)
+            vals[k].extend(v)
+    return idxs, vals
+
+
+def spec_from_misc(misc):
+    """Flat ``{label: value}`` config from one misc; inactive conditional
+    params are absent."""
+    spec = {}
+    for k, v in misc["vals"].items():
+        if len(v) == 0:
+            continue
+        if len(v) == 1:
+            spec[k] = v[0]
+        else:
+            raise InvalidTrial(f"multiple values for {k} in one trial")
+    return spec
+
+
+def _validate_trial_doc(doc):
+    required = ("tid", "spec", "result", "misc", "state", "exp_key", "owner", "version")
+    for k in required:
+        if k not in doc:
+            raise InvalidTrial(f"trial document missing key {k!r}: {sorted(doc)}")
+    if doc["state"] not in JOB_STATES:
+        raise InvalidTrial(f"invalid state {doc['state']!r}")
+    misc = doc["misc"]
+    for k in ("tid", "cmd", "idxs", "vals"):
+        if k not in misc:
+            raise InvalidTrial(f"trial misc missing key {k!r}")
+    if misc["tid"] != doc["tid"]:
+        raise InvalidTrial(f"tid mismatch: {misc['tid']} != {doc['tid']}")
+    return doc
+
+
+def _bucket_cap(n: int) -> int:
+    """Smallest power-of-two bucket ≥ n (min _MIN_CAP)."""
+    cap = _MIN_CAP
+    while cap < n:
+        cap *= 2
+    return cap
+
+
+class PaddedHistory:
+    """Dense, padded structure-of-arrays view of trial history.
+
+    Per label ``vals[cap]``/``active[cap]``, plus ``losses[cap]`` (``+inf``
+    in padding) and ``has_loss[cap]``; ``n`` rows are live.  The numpy
+    arrays are authoritative (appends, pickling); :meth:`device_state`
+    hands a tick the device mirror plus the packed rows it has not folded
+    yet, and the tick folds them in place (``tpe._apply_rows``) before
+    :meth:`commit_device` marks them synced.
+    """
+
+    # pending rows fold in one vectorized scatter per array; past this
+    # many the mirror is re-uploaded instead
+    _MAX_FOLD_ROWS = 16
+
+    def __init__(self, labels, device=None):
+        parse_hist_dtype()  # float32 storage only: raises for anything else
+        self.labels = tuple(labels)
+        self.device = resolve_device(device)
+        self.n = 0
+        self.cap = _MIN_CAP
+        self._vals = {l: np.zeros(self.cap, np.float32) for l in self.labels}
+        self._active = {l: np.zeros(self.cap, bool) for l in self.labels}
+        self._losses = np.full(self.cap, np.inf, np.float32)
+        self._has_loss = np.zeros(self.cap, bool)
+        self._dev = None
+        self._dev_synced = 0
+        self._pending = None  # row count handed to a tick not yet committed
+
+    def _grow(self, need):
+        new_cap = _bucket_cap(need)
+        if new_cap <= self.cap:
+            return
+        pad = new_cap - self.cap
+        for l in self.labels:
+            self._vals[l] = np.concatenate([self._vals[l], np.zeros(pad, np.float32)])
+            self._active[l] = np.concatenate([self._active[l], np.zeros(pad, bool)])
+        self._losses = np.concatenate([self._losses, np.full(pad, np.inf, np.float32)])
+        self._has_loss = np.concatenate([self._has_loss, np.zeros(pad, bool)])
+        self.cap = new_cap
+        self._dev = None  # shapes changed: full re-upload at next use
+
+    def append(self, flat_vals: dict, loss):
+        """Record one finished trial (flat {label: value}; absent = inactive)."""
+        self._grow(self.n + 1)
+        i = self.n
+        for l in self.labels:
+            if l in flat_vals and flat_vals[l] is not None:
+                self._vals[l][i] = float(flat_vals[l])
+                self._active[l][i] = True
+        if loss is not None and math.isfinite(float(loss)):
+            self._losses[i] = float(loss)
+            self._has_loss[i] = True
+        self.n += 1
+
+    def _pack_row(self, i):
+        L = len(self.labels)
+        row = np.empty(2 * L + 3, np.float32)
+        for j, l in enumerate(self.labels):
+            row[j] = self._vals[l][i]
+            row[L + j] = 1.0 if self._active[l][i] else 0.0
+        row[2 * L] = self._losses[i]
+        row[2 * L + 1] = 1.0 if self._has_loss[i] else 0.0
+        row[2 * L + 2] = float(i)  # cap ≤ 2^24: exact in f32
+        return row
+
+    def pack_rows(self, start):
+        """``[n - start, 2L+3]`` float32 rows for trials ``start..n`` in the
+        ``_pack_row`` layout."""
+        rows = np.zeros((self.n - start, 2 * len(self.labels) + 3), np.float32)
+        for j, i in enumerate(range(start, self.n)):
+            rows[j] = self._pack_row(i)
+        return rows
+
+    def _full_upload(self):
+        dev = self.device
+        self._dev = {
+            "vals": {l: torch.tensor(self._vals[l], device=dev) for l in self.labels},
+            "active": {l: torch.tensor(self._active[l], device=dev) for l in self.labels},
+            "losses": torch.tensor(self._losses, device=dev),
+            "has_loss": torch.tensor(self._has_loss, device=dev),
+        }
+        self._dev_synced = self.n
+
+    def device_state(self):
+        """``(dev, rows)`` for one tick: the device mirror as of the last
+        commit and a ``[K, 2L+3]`` float32 tensor of the K rows it lacks
+        (no padding rows: an eager fold has no shape to keep stable).
+        The tick folds ``rows`` into ``dev`` in place and then calls
+        :meth:`commit_device` (or :meth:`abandon_device` if it failed)."""
+        if self._pending is not None:
+            raise StaleHistoryError(
+                "PaddedHistory.device_state: the previous tick neither "
+                "committed (commit_device) nor abandoned (abandon_device) "
+                "its update of the device mirror")
+        if self._dev is None or self.n - self._dev_synced > self._MAX_FOLD_ROWS:
+            self._full_upload()
+        rows = torch.from_numpy(self.pack_rows(self._dev_synced)).to(self.device)
+        self._pending = self.n
+        return self._dev, rows
+
+    def commit_device(self):
+        """Mark the rows handed out by :meth:`device_state` as folded."""
+        self._dev_synced, self._pending = self._pending, None
+
+    def abandon_device(self):
+        """Drop the mirror after a failed tick; the next one re-uploads."""
+        self._dev = None
+        self._pending = None
+
+    def device_view(self):
+        """The device mirror with every row folded in (re-uploaded when rows
+        are pending), plus ``n`` and ``cap``."""
+        if self._pending is not None:
+            raise StaleHistoryError("PaddedHistory.device_view during an "
+                                    "uncommitted tick")
+        if self._dev is None or self._dev_synced < self.n:
+            self._full_upload()
+        return {**self._dev, "n": self.n, "cap": self.cap}
+
+
+class Ctrl:
+    """Control object handed to low-level objectives
+    (hyperopt/base.py sym: Ctrl)."""
+
+    def __init__(self, trials, current_trial=None):
+        self.trials = trials
+        self.current_trial = current_trial
+
+    @property
+    def attachments(self):
+        return self.trials.attachments
+
+    def checkpoint(self, result=None):
+        if self.current_trial is None:
+            return
+        if result is not None:
+            self.current_trial["result"] = result
+
+    def inject_results(self, specs, results, miscs, new_tids=None):
+        if new_tids is None:
+            new_tids = self.trials.new_trial_ids(len(specs))
+        docs = self.trials.new_trial_docs(new_tids, specs, results, miscs)
+        for doc in docs:
+            doc["state"] = JOB_STATE_DONE
+        return self.trials.insert_trial_docs(docs)
+
+
+class Trials:
+    """In-memory trial store, document-compatible with the reference
+    (hyperopt/base.py sym: Trials), plus the padded history its
+    suggesters read.  ``device`` is where that history lives and where
+    the suggesters run: CUDA unless ``device="cpu"``."""
+
+    asynchronous = False
+
+    def __init__(self, exp_key=None, refresh=True, device=None):
+        self.device = resolve_device(device)
+        self._ids = set()
+        self._dynamic_trials = []
+        self._exp_key = exp_key
+        self.attachments = {}
+        self._history = None
+        self._history_synced = 0
+        self._history_pending = []
+        if refresh:
+            self.refresh()
+
+    def __len__(self):
+        return len(self._trials)
+
+    def __iter__(self):
+        return iter(self._trials)
+
+    def __getitem__(self, item):
+        return self._trials[item]
+
+    def refresh(self):
+        if self._exp_key is None:
+            self._trials = [d for d in self._dynamic_trials if d["state"] != JOB_STATE_ERROR]
+        else:
+            self._trials = [
+                d for d in self._dynamic_trials
+                if d["state"] != JOB_STATE_ERROR and d["exp_key"] == self._exp_key
+            ]
+        self._ids.update(d["tid"] for d in self._dynamic_trials)
+
+    def insert_trial_doc(self, doc):
+        doc = _validate_trial_doc(doc)
+        self._dynamic_trials.append(doc)
+        return doc["tid"]
+
+    def insert_trial_docs(self, docs):
+        return [self.insert_trial_doc(d) for d in docs]
+
+    def delete_all(self):
+        self._dynamic_trials = []
+        self._ids = set()
+        self.attachments = {}
+        self._history = None
+        self._history_synced = 0
+        self._history_pending = []
+        self.refresh()
+
+    def new_trial_ids(self, n):
+        aa = len(self._ids)
+        rval = list(range(aa, aa + n))
+        self._ids.update(rval)
+        return rval
+
+    def new_trial_docs(self, tids, specs, results, miscs):
+        rval = []
+        for tid, spec, result, misc in zip(tids, specs, results, miscs):
+            rval.append({
+                "state": JOB_STATE_NEW,
+                "tid": tid,
+                "spec": spec,
+                "result": result,
+                "misc": misc,
+                "exp_key": self._exp_key,
+                "owner": None,
+                "version": 0,
+                "book_time": None,
+                "refresh_time": None,
+            })
+        return rval
+
+    @property
+    def trials(self):
+        return self._trials
+
+    @property
+    def tids(self):
+        return [d["tid"] for d in self._trials]
+
+    @property
+    def specs(self):
+        return [d["spec"] for d in self._trials]
+
+    @property
+    def results(self):
+        return [d["result"] for d in self._trials]
+
+    @property
+    def miscs(self):
+        return [d["misc"] for d in self._trials]
+
+    @property
+    def idxs_vals(self):
+        return miscs_to_idxs_vals(self.miscs)
+
+    @property
+    def idxs(self):
+        return self.idxs_vals[0]
+
+    @property
+    def vals(self):
+        return self.idxs_vals[1]
+
+    def losses(self, bandit=None):
+        return [r.get("loss") for r in self.results]
+
+    def statuses(self, bandit=None):
+        return [r.get("status") for r in self.results]
+
+    def count_by_state_synced(self, arg, trials=None):
+        if trials is None:
+            trials = self._trials
+        if isinstance(arg, int):
+            return sum(1 for d in trials if d["state"] == arg)
+        return sum(1 for d in trials if d["state"] in arg)
+
+    def count_by_state_unsynced(self, arg):
+        if self._exp_key is not None:
+            exp_trials = [d for d in self._dynamic_trials if d["exp_key"] == self._exp_key]
+        else:
+            exp_trials = self._dynamic_trials
+        return self.count_by_state_synced(arg, trials=exp_trials)
+
+    @property
+    def best_trial(self):
+        candidates = [
+            d for d in self._trials
+            if d["result"].get("status") == STATUS_OK and d["result"].get("loss") is not None
+        ]
+        if not candidates:
+            raise AllTrialsFailed()
+        return min(candidates, key=lambda d: d["result"]["loss"])
+
+    @property
+    def argmin(self):
+        return spec_from_misc(self.best_trial["misc"])
+
+    def history_object(self, labels):
+        """Fold DONE trials into the padded history and return it.
+
+        Settled docs fold as soon as they are seen; NEW/RUNNING ones wait in
+        a pending list revisited on every call, so fold order is completion
+        order."""
+        if self._history is None or self._history.labels != tuple(labels):
+            self._history = PaddedHistory(labels, self.device)
+            self._history_synced = 0
+            self._history_pending = []
+        docs = self._dynamic_trials
+
+        def fold(doc):
+            if doc["state"] != JOB_STATE_DONE:
+                return
+            result = doc["result"]
+            loss = result.get("loss") if result.get("status") == STATUS_OK else None
+            self._history.append(spec_from_misc(doc["misc"]), loss)
+
+        still_pending = []
+        for doc in self._history_pending:
+            if doc["state"] in (JOB_STATE_NEW, JOB_STATE_RUNNING):
+                still_pending.append(doc)
+            else:
+                fold(doc)
+        self._history_pending = still_pending
+        while self._history_synced < len(docs):
+            doc = docs[self._history_synced]
+            self._history_synced += 1
+            if doc["state"] in (JOB_STATE_NEW, JOB_STATE_RUNNING):
+                self._history_pending.append(doc)
+            else:
+                fold(doc)
+        return self._history
+
+    # pickle: drop the history (rebuilt lazily) and the live Domain
+    # attachment, which closes over the user objective
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state["_history"] = None
+        state["_history_synced"] = 0
+        state["_history_pending"] = []
+        attachments = dict(state.get("attachments", {}))
+        attachments.pop("FMinIter_Domain", None)
+        state["attachments"] = attachments
+        return state
+
+
+def trials_from_docs(docs, validate=True, **kwargs):
+    """Build Trials from documents (hyperopt/base.py sym: trials_from_docs);
+    ``kwargs`` go to :class:`Trials` (``device=`` among them)."""
+    rval = Trials(**kwargs)
+    if validate:
+        for doc in docs:
+            _validate_trial_doc(doc)
+    rval._dynamic_trials = list(docs)
+    rval.refresh()
+    return rval
+
+
+class Domain:
+    """Binds objective + compiled search space
+    (hyperopt/base.py sym: Domain.__init__, Domain.evaluate)."""
+
+    def __init__(self, fn, expr, workdir=None, pass_expr_memo_ctrl=None,
+                 name=None, loss_target=None):
+        self.fn = fn
+        self.space = expr
+        self.expr = as_expr(expr)
+        self.cs: CompiledSpace = compile_space(expr)
+        self.params = self.cs.params
+        self.workdir = workdir
+        self.name = name
+        self.loss_target = loss_target
+        self.pass_expr_memo_ctrl = bool(
+            pass_expr_memo_ctrl if pass_expr_memo_ctrl is not None
+            else getattr(fn, "fmin_pass_expr_memo_ctrl", False)
+        )
+
+    @property
+    def labels(self):
+        return self.cs.labels
+
+    def evaluate(self, config, ctrl, attach_attachments=True):
+        """Run the objective on one flat config."""
+        if self.pass_expr_memo_ctrl:
+            rval = self.fn(expr=self.expr, memo=dict(config), ctrl=ctrl)
+        else:
+            rval = self.fn(self.cs.assemble(config))
+
+        if isinstance(rval, (float, int, np.floating, np.integer)) or (
+            isinstance(rval, (np.ndarray, torch.Tensor)) and np.ndim(rval) == 0
+        ):
+            loss = float(rval)
+            if math.isnan(loss):
+                raise InvalidLoss(f"objective returned NaN for config {config}")
+            dict_rval = {"loss": loss, "status": STATUS_OK}
+        else:
+            dict_rval = dict(rval)
+            status = dict_rval.get("status")
+            if status not in STATUS_STRINGS:
+                raise InvalidResultStatus(f"invalid status {status!r}")
+            if status == STATUS_OK:
+                if "loss" not in dict_rval:
+                    raise InvalidLoss("ok result without loss")
+                loss = float(dict_rval["loss"])
+                if math.isnan(loss):
+                    raise InvalidLoss(f"objective returned NaN for config {config}")
+                dict_rval["loss"] = loss
+
+        if attach_attachments and ctrl is not None:
+            attachments = dict_rval.pop("attachments", {})
+            if ctrl.current_trial is not None:
+                tid = ctrl.current_trial["tid"]
+                for k, v in attachments.items():
+                    ctrl.trials.attachments[f"ATTACH::{tid}::{k}"] = v
+        return dict_rval
+
+    def new_result(self):
+        return {"status": STATUS_NEW}

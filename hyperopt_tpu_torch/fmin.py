@@ -1,0 +1,399 @@
+"""``fmin`` and its ask→tell loop (counterpart of
+``hyperopt_tpu/fmin.py``; parity target ``hyperopt/fmin.py`` sym: fmin,
+FMinIter, space_eval, generate_trials_to_calculate,
+fmin_pass_expr_memo_ctrl).
+
+The loop is host-side control; the suggesters run on the trials' device,
+which is the CUDA card unless the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import functools
+import logging
+import os
+import pickle
+import time
+
+import numpy as np
+
+from . import progress as progress_mod
+from ._env import not_ported, resolve_device
+from .base import (
+    Ctrl,
+    Domain,
+    JOB_STATE_DONE,
+    JOB_STATE_ERROR,
+    JOB_STATE_NEW,
+    JOB_STATE_RUNNING,
+    STATUS_OK,
+    Trials,
+    spec_from_misc,
+    trials_from_docs,
+)
+from .exceptions import AllTrialsFailed
+from .spaces import space_eval  # noqa: F401  (re-export, reference parity)
+from .utils import coarse_utcnow
+
+__all__ = [
+    "fmin",
+    "FMinIter",
+    "space_eval",
+    "fmin_pass_expr_memo_ctrl",
+    "generate_trials_to_calculate",
+]
+
+logger = logging.getLogger(__name__)
+
+
+def fmin_pass_expr_memo_ctrl(f):
+    """Decorator: objective wants (expr, memo, ctrl) instead of a sampled point."""
+    f.fmin_pass_expr_memo_ctrl = True
+    return f
+
+
+def generate_trial(tid, space_points):
+    """One NEW trial doc pinning explicit hyperparameter values."""
+    variables = space_points.keys()
+    return {
+        "state": JOB_STATE_NEW,
+        "tid": tid,
+        "spec": None,
+        "result": {"status": "new"},
+        "misc": {
+            "tid": tid,
+            "cmd": ("domain_attachment", "FMinIter_Domain"),
+            "idxs": {v: [tid] for v in variables},
+            "vals": {v: [space_points[v]] for v in variables},
+        },
+        "exp_key": None,
+        "owner": None,
+        "version": 0,
+        "book_time": None,
+        "refresh_time": None,
+    }
+
+
+def generate_trials_to_calculate(points, device=None):
+    """Trials pre-loaded with explicit points (``points_to_evaluate``)."""
+    return trials_from_docs([generate_trial(tid, x) for tid, x in enumerate(points)],
+                            device=device)
+
+
+class FMinIter:
+    """The ask→tell loop: ask the suggester for new trials, insert them,
+    evaluate them in-process, check the stop conditions, optionally
+    checkpoint.  ``lookahead=N`` keeps up to N asks in flight, dispatched
+    before the current trials evaluate (pending trials contribute no loss
+    to the posterior); ``lookahead=0`` is the synchronous loop."""
+
+    catch_eval_exceptions = False
+    pickle_protocol = -1
+
+    def __init__(self, algo, domain, trials, rstate, max_queue_len=None,
+                 max_evals=float("inf"), timeout=None, loss_threshold=None,
+                 show_progressbar=True, early_stop_fn=None, trials_save_file="",
+                 lookahead=0):
+        self.algo = algo
+        self.domain = domain
+        self.trials = trials
+        self.rstate = rstate
+        self.max_queue_len = 1 if max_queue_len is None else max_queue_len
+        if self.max_queue_len != float("inf"):
+            from .algos.rand import pad_ids_pow2
+
+            b = len(pad_ids_pow2([0], min_bucket=min(int(self.max_queue_len), 64)))
+            domain._ids_bucket = max(getattr(domain, "_ids_bucket", 1), b)
+        self.max_evals = max_evals
+        self.timeout = timeout
+        self.loss_threshold = loss_threshold
+        self.start_time = time.time()
+        self.early_stop_fn = early_stop_fn
+        self.trials_save_file = trials_save_file
+        self.show_progressbar = show_progressbar
+        self.early_stop_args = []
+        self.lookahead = int(lookahead)
+        if self.lookahead < 0:
+            raise ValueError(f"lookahead must be >= 0, got {lookahead}")
+        self._algo_async = self._resolve_async_algo()
+        if self.lookahead > 0 and self._algo_async is None:
+            raise ValueError(
+                "lookahead > 0 requires a suggester with an async "
+                "dispatch/readback split (tpe.suggest or rand.suggest, "
+                "optionally functools.partial-tuned)")
+        trials.attachments["FMinIter_Domain"] = domain
+
+    def _resolve_async_algo(self):
+        """An ``(ids, domain, trials, seed) -> AskHandle`` dispatcher when
+        the algo is tpe.suggest or rand.suggest (possibly
+        ``functools.partial``-tuned), else None."""
+        from .algos import rand as _rand
+        from .algos import tpe as _tpe
+
+        algo, kwargs = self.algo, {}
+        while isinstance(algo, functools.partial):
+            if algo.args:
+                return None
+            for k, v in (algo.keywords or {}).items():
+                kwargs.setdefault(k, v)
+            algo = algo.func
+        if algo is _tpe.suggest:
+            return lambda ids, dom, tr, s: _tpe.suggest_async(ids, dom, tr, s, **kwargs)
+        if algo is _rand.suggest and not kwargs:
+            return _rand.suggest_async
+        return None
+
+    def serial_evaluate(self, N=-1):
+        """Evaluate queued NEW trials in-process."""
+        for trial in self.trials._dynamic_trials:
+            if trial["state"] != JOB_STATE_NEW:
+                continue
+            trial["state"] = JOB_STATE_RUNNING
+            trial["book_time"] = coarse_utcnow()
+            spec = spec_from_misc(trial["misc"])
+            ctrl = Ctrl(self.trials, current_trial=trial)
+            try:
+                result = self.domain.evaluate(spec, ctrl)
+            except Exception as e:
+                logger.error("job exception: %s", e)
+                trial["state"] = JOB_STATE_ERROR
+                trial["misc"]["error"] = (str(type(e)), str(e))
+                trial["refresh_time"] = coarse_utcnow()
+                if not self.catch_eval_exceptions:
+                    self.trials.refresh()
+                    raise
+            else:
+                trial["state"] = JOB_STATE_DONE
+                trial["result"] = result
+                trial["refresh_time"] = coarse_utcnow()
+            N -= 1
+            if N == 0:
+                break
+        self.trials.refresh()
+
+    def run(self, N, block_until_done=True):
+        trials = self.trials
+        algo = self.algo
+        async_algo = self._algo_async
+        inflight = []  # speculative AskHandles, FIFO, scoped to this run
+        n_queued = 0
+
+        def get_queue_len():
+            return trials.count_by_state_unsynced(JOB_STATE_NEW)
+
+        def get_n_done():
+            return trials.count_by_state_unsynced(JOB_STATE_DONE)
+
+        def get_n_unfinished():
+            return trials.count_by_state_unsynced([JOB_STATE_NEW, JOB_STATE_RUNNING])
+
+        def next_seed():
+            return (self.rstate.integers(2**31 - 1)
+                    if hasattr(self.rstate, "integers")
+                    else self.rstate.randint(2**31 - 1))
+
+        stopped = False
+        n_reported = get_n_done()
+        with progress_mod.get_progress_callback(self.show_progressbar)(
+            initial=n_reported, total=self.max_evals
+        ) as progress_ctx:
+            all_trials_complete = False
+            best_loss = float("inf")
+
+            def land(new_trials):
+                """Insert freshly-asked docs; False = suggester is done."""
+                nonlocal n_queued, qlen, stopped
+                if not len(new_trials):
+                    stopped = True
+                    return False
+                trials.insert_trial_docs(new_trials)
+                trials.refresh()
+                n_queued += len(new_trials)
+                qlen = get_queue_len()
+                return True
+
+            while n_queued < N or (block_until_done and not all_trials_complete):
+                qlen = get_queue_len()
+                while inflight and qlen < self.max_queue_len and n_queued < N:
+                    if not land(inflight.pop(0).result()):
+                        break
+                while qlen < self.max_queue_len and n_queued < N and not stopped:
+                    n_to_enqueue = min(self.max_queue_len - qlen, N - n_queued)
+                    new_ids = trials.new_trial_ids(n_to_enqueue)
+                    trials.refresh()
+                    if async_algo is not None:
+                        new_trials = async_algo(new_ids, self.domain, trials,
+                                                next_seed()).result()
+                    else:
+                        new_trials = algo(new_ids, self.domain, trials, next_seed())
+                    if len(new_trials) > len(new_ids):
+                        raise ValueError("suggester returned more trials than ids")
+                    if not land(new_trials):
+                        break
+
+                if self.lookahead and async_algo is not None and not stopped:
+                    while len(inflight) < self.lookahead:
+                        k = min(self.max_queue_len,
+                                N - n_queued - sum(len(h.new_ids) for h in inflight))
+                        if not (k >= 1 and k != float("inf")):
+                            break
+                        new_ids = trials.new_trial_ids(int(k))
+                        trials.refresh()
+                        inflight.append(async_algo(new_ids, self.domain, trials,
+                                                   next_seed()))
+
+                self.serial_evaluate()
+                trials.refresh()
+                if self.trials_save_file != "":
+                    self._save_trials()
+
+                if self.early_stop_fn is not None:
+                    stop, kwargs = self.early_stop_fn(trials, *self.early_stop_args)
+                    self.early_stop_args = kwargs
+                    if stop:
+                        logger.info("Early stop triggered")
+                        stopped = True
+
+                ok_losses = [r["loss"] for r in trials.results
+                             if r.get("status") == STATUS_OK and r.get("loss") is not None]
+                if ok_losses:
+                    best_loss = min(best_loss, min(ok_losses))
+                    progress_ctx.postfix = progress_mod.format_postfix(best_loss)
+                n_done_now = get_n_done()
+                progress_ctx.update(n_done_now - n_reported)
+                n_reported = n_done_now
+
+                if self.timeout is not None and time.time() - self.start_time >= self.timeout:
+                    stopped = True
+                if self.loss_threshold is not None and best_loss <= self.loss_threshold:
+                    stopped = True
+
+                all_trials_complete = get_n_unfinished() == 0
+                if stopped and (not block_until_done or all_trials_complete):
+                    break
+                if stopped and block_until_done:
+                    self.serial_evaluate()
+                    break
+
+    def _save_trials(self):
+        """Checkpoint trials atomically: write a temp file, then rename."""
+        payload = pickle.dumps(self.trials, protocol=self.pickle_protocol)
+        tmp = self.trials_save_file + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(payload)
+        os.replace(tmp, self.trials_save_file)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        self.run(1, block_until_done=False)
+        if len(self.trials) >= self.max_evals:
+            raise StopIteration()
+        return self.trials
+
+    def exhaust(self):
+        n_done = len(self.trials)
+        self.run(self.max_evals - n_done, block_until_done=False)
+        self.trials.refresh()
+        return self
+
+
+def fmin(
+    fn,
+    space,
+    algo=None,
+    max_evals=None,
+    timeout=None,
+    loss_threshold=None,
+    trials=None,
+    rstate=None,
+    pass_expr_memo_ctrl=None,
+    catch_eval_exceptions=False,
+    verbose=False,
+    return_argmin=True,
+    points_to_evaluate=None,
+    max_queue_len=None,
+    show_progressbar=True,
+    early_stop_fn=None,
+    trials_save_file="",
+    device_loop=False,
+    obs=None,
+    obs_http=None,
+    profile=None,
+    lookahead=0,
+    compile_cache=None,
+    device=None,
+):
+    """Minimize ``fn`` over ``space`` (hyperopt/fmin.py sym: fmin).
+
+    Runs on the CUDA card unless ``device="cpu"`` (or a ``trials`` built
+    for the CPU) is given; with no card and no such request it raises.
+    ``rstate`` defaults to ``HYPEROPT_FMIN_SEED`` when set; ``verbose`` is
+    accepted for the reference's signature and unused.  The JAX
+    package's ``device_loop``, ``obs``, ``obs_http``, ``profile`` and
+    ``compile_cache`` options are not ported yet and raise."""
+    if device_loop:
+        raise not_ported("fmin(device_loop=...)", 9)
+    for name, value in (("obs", obs), ("obs_http", obs_http),
+                        ("profile", profile), ("compile_cache", compile_cache)):
+        if value is not None:
+            raise not_ported(f"fmin({name}=...)", 14)
+    if algo is None:
+        from .algos import tpe
+
+        algo = tpe.suggest
+
+    if rstate is None:
+        env_rseed = os.environ.get("HYPEROPT_FMIN_SEED", "")
+        rstate = np.random.default_rng(int(env_rseed) if env_rseed else None)
+    elif isinstance(rstate, (int, np.integer)):
+        rstate = np.random.default_rng(int(rstate))
+
+    validate_timeout(timeout)
+    validate_loss_threshold(loss_threshold)
+
+    if trials_save_file != "" and trials is None and os.path.exists(trials_save_file):
+        with open(trials_save_file, "rb") as f:
+            trials = pickle.load(f)
+
+    if trials is None:
+        if points_to_evaluate is None:
+            trials = Trials(device=device)
+        else:
+            if not isinstance(points_to_evaluate, list):
+                raise TypeError("points_to_evaluate must be a list of dicts")
+            trials = generate_trials_to_calculate(points_to_evaluate, device=device)
+    elif device is not None and resolve_device(device) != trials.device:
+        raise ValueError(f"fmin(device={device!r}) but trials live on {trials.device}")
+
+    domain = Domain(fn, space, pass_expr_memo_ctrl=pass_expr_memo_ctrl)
+    rval = FMinIter(
+        algo, domain, trials,
+        max_evals=max_evals if max_evals is not None else float("inf"),
+        timeout=timeout, loss_threshold=loss_threshold, rstate=rstate,
+        max_queue_len=max_queue_len,
+        show_progressbar=show_progressbar, early_stop_fn=early_stop_fn,
+        trials_save_file=trials_save_file, lookahead=lookahead,
+    )
+    rval.catch_eval_exceptions = catch_eval_exceptions
+    rval.exhaust()
+
+    if return_argmin:
+        if len(trials.trials) == 0:
+            raise AllTrialsFailed(
+                "There are no evaluation tasks, cannot return argmin of task losses.")
+        return trials.argmin
+    return None
+
+
+def validate_timeout(timeout):
+    if timeout is not None and (timeout <= 0 or isinstance(timeout, bool)):
+        raise Exception(f"The timeout argument should be None or a positive value. Given value: {timeout}")
+
+
+def validate_loss_threshold(loss_threshold):
+    if loss_threshold is not None and not isinstance(loss_threshold, (int, float)):
+        raise Exception(
+            f"The loss_threshold argument should be None or a numeric value. Given value: {loss_threshold}"
+        )

@@ -1,0 +1,529 @@
+"""Typed search-space IR and its batched prior sampler on torch.
+
+Counterpart of ``hyperopt_tpu/spaces.py``.  A space is a small static
+expression tree (``Param`` leaves, ``Choice`` branch points, arithmetic
+``Op`` nodes, containers, literals).  ``CompiledSpace.sample_flat`` draws
+every parameter for a batch of keys ``[B, 2]`` at once; conditional
+parameters are drawn unconditionally and an active mask per label is
+derived from the drawn choice indices, as in the JAX package.
+
+RNG: each label folds a stable CRC32 hash into the per-trial key, so every
+draw is a function of (seed, trial id, label) only and matches the JAX
+package's ``draw_dist`` bit for bit where the draw needs no transcendental
+(uniform families, randint); normal and categorical draws match to a few
+ulp (``erfinv``/``log``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import zlib
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from . import prng
+from ._env import resolve_device
+from .exceptions import DuplicateLabel, InvalidAnnotatedParameter
+
+__all__ = [
+    "Expr",
+    "Literal",
+    "Op",
+    "Container",
+    "Param",
+    "Choice",
+    "Dist",
+    "ParamInfo",
+    "CompiledSpace",
+    "as_expr",
+    "compile_space",
+    "draw_dist",
+    "draw_dist_group",
+    "sample",
+    "space_eval",
+    "label_hash",
+    "rng_to_key",
+]
+
+# Families whose flat value is integral: branch indices and ints.
+INT_FAMILIES = frozenset({"randint", "uniformint", "categorical"})
+
+
+def label_hash(label: str) -> int:
+    """Stable 31-bit hash of a parameter label, used to fold RNG keys."""
+    return zlib.crc32(label.encode("utf-8")) & 0x7FFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# Expression tree
+# ---------------------------------------------------------------------------
+
+
+class Expr:
+    """Base class for space expressions; supports the arithmetic dunders of
+    the reference's ``Apply`` so ``hp.uniform('x', 0, 1) + 1`` works."""
+
+    def __add__(self, other):
+        return Op("add", (self, as_expr(other)))
+
+    def __radd__(self, other):
+        return Op("add", (as_expr(other), self))
+
+    def __sub__(self, other):
+        return Op("sub", (self, as_expr(other)))
+
+    def __rsub__(self, other):
+        return Op("sub", (as_expr(other), self))
+
+    def __mul__(self, other):
+        return Op("mul", (self, as_expr(other)))
+
+    def __rmul__(self, other):
+        return Op("mul", (as_expr(other), self))
+
+    def __truediv__(self, other):
+        return Op("truediv", (self, as_expr(other)))
+
+    def __rtruediv__(self, other):
+        return Op("truediv", (as_expr(other), self))
+
+    def __floordiv__(self, other):
+        return Op("floordiv", (self, as_expr(other)))
+
+    def __pow__(self, other):
+        return Op("pow", (self, as_expr(other)))
+
+    def __rpow__(self, other):
+        return Op("pow", (as_expr(other), self))
+
+    def __neg__(self):
+        return Op("neg", (self,))
+
+    def __abs__(self):
+        return Op("abs", (self,))
+
+    def __getitem__(self, idx):
+        return Op("getitem", (self, as_expr(idx)))
+
+
+@dataclasses.dataclass(frozen=True)
+class Literal(Expr):
+    """A constant embedded in the space."""
+
+    value: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class Op(Expr):
+    """A pure elementwise operation over sub-expressions."""
+
+    op: str
+    args: tuple
+
+    def __post_init__(self):
+        if self.op not in _OP_TABLE:
+            raise InvalidAnnotatedParameter(f"unknown op {self.op!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Container(Expr):
+    """dict / list / tuple of sub-expressions."""
+
+    kind: str  # 'dict' | 'list' | 'tuple'
+    keys: tuple  # dict keys ('' entries for list/tuple)
+    children: tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class Dist(Expr):
+    """A distribution spec: family name + flat numeric params."""
+
+    family: str
+    params: tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class Param(Expr):
+    """A labeled hyperparameter."""
+
+    label: str
+    dist: Dist
+    cast: str = "float"  # 'float' | 'int'
+
+
+@dataclasses.dataclass(frozen=True)
+class Choice(Expr):
+    """A conditional branch point: ``hp.choice`` / ``hp.pchoice``.  The
+    selector is itself a parameter (randint for choice, categorical for
+    pchoice) and the options are sub-expressions."""
+
+    label: str
+    options: tuple
+    p: tuple | None = None
+
+    @property
+    def selector_dist(self) -> Dist:
+        n = len(self.options)
+        if self.p is None:
+            return Dist("randint", (0.0, float(n)))
+        return Dist("categorical", tuple(float(x) for x in self.p))
+
+
+def as_expr(obj: Any) -> Expr:
+    """Convert a python structure into an Expr."""
+    if isinstance(obj, Expr):
+        return obj
+    if isinstance(obj, dict):
+        keys = tuple(sorted(obj.keys()))
+        return Container("dict", keys, tuple(as_expr(obj[k]) for k in keys))
+    if isinstance(obj, (list, tuple)):
+        kind = "list" if isinstance(obj, list) else "tuple"
+        return Container(kind, tuple("" for _ in obj), tuple(as_expr(o) for o in obj))
+    return Literal(obj)
+
+
+_OP_TABLE: dict[str, Callable] = {
+    "add": lambda a, b: a + b,
+    "sub": lambda a, b: a - b,
+    "mul": lambda a, b: a * b,
+    "truediv": lambda a, b: a / b,
+    "floordiv": lambda a, b: a // b,
+    "pow": lambda a, b: a**b,
+    "neg": lambda a: -a,
+    "abs": lambda a: abs(a),
+    "getitem": lambda a, i: a[i],
+    "exp": np.exp,
+    "log": np.log,
+    "sqrt": np.sqrt,
+    "sin": np.sin,
+    "cos": np.cos,
+    "tan": np.tan,
+    "maximum": np.maximum,
+    "minimum": np.minimum,
+}
+
+
+def _make_unary(name):
+    def f(x):
+        return Op(name, (as_expr(x),))
+
+    f.__name__ = name
+    return f
+
+
+def _make_binary(name):
+    def f(a, b):
+        return Op(name, (as_expr(a), as_expr(b)))
+
+    f.__name__ = name
+    return f
+
+
+exp = _make_unary("exp")
+log = _make_unary("log")
+sqrt = _make_unary("sqrt")
+sin = _make_unary("sin")
+cos = _make_unary("cos")
+tan = _make_unary("tan")
+maximum = _make_binary("maximum")
+minimum = _make_binary("minimum")
+
+
+# ---------------------------------------------------------------------------
+# Compilation
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamInfo:
+    """One hyperparameter: its distribution, cast and activation path
+    ``((choice_label, branch_index), ...)``."""
+
+    label: str
+    dist: Dist
+    cast: str
+    conditions: tuple
+
+    @property
+    def is_int(self) -> bool:
+        return self.dist.family in INT_FAMILIES or self.cast == "int"
+
+
+class CompiledSpace:
+    """A search space lowered to a param table plus batched samplers:
+
+    * ``sample_flat(keys[B, 2]) -> {label: tensor[B]}`` — draw every parameter.
+    * ``active_flat(flat) -> {label: bool}`` — activation masks.
+    * ``assemble(flat)`` — rebuild the user-facing structure (host).
+    """
+
+    def __init__(self, expr: Expr):
+        self.expr = expr
+        self.params: dict[str, ParamInfo] = {}
+        self._collect(expr, ())
+        self.labels: tuple[str, ...] = tuple(self.params.keys())
+
+    def signature(self):
+        """Canonical hashable key of the param table; the suggesters key
+        their per-space caches on it."""
+        sig = getattr(self, "_signature", None)
+        if sig is None:
+            sig = self._signature = tuple(
+                (i.label, i.dist.family, i.dist.params, i.cast, i.conditions)
+                for i in self.params.values()
+            )
+        return sig
+
+    def _add_param(self, label: str, dist: Dist, cast: str, conditions: tuple):
+        if not isinstance(label, str):
+            raise InvalidAnnotatedParameter(f"label must be a string: {label!r}")
+        if label in self.params:
+            raise DuplicateLabel(label)
+        info = ParamInfo(label, dist, cast, conditions)
+        if info.is_int:
+            _check_f32_exact_int(info)
+        self.params[label] = info
+
+    def _collect(self, node: Expr, conditions: tuple):
+        if isinstance(node, Param):
+            self._add_param(node.label, node.dist, node.cast, conditions)
+        elif isinstance(node, Choice):
+            self._add_param(node.label, node.selector_dist, "int", conditions)
+            for i, opt in enumerate(node.options):
+                self._collect(opt, conditions + ((node.label, i),))
+        elif isinstance(node, Op):
+            for a in node.args:
+                self._collect(a, conditions)
+        elif isinstance(node, Container):
+            for c in node.children:
+                self._collect(c, conditions)
+        elif not isinstance(node, Literal):
+            raise InvalidAnnotatedParameter(f"not a space expression: {node!r}")
+
+    def _sample_groups(self):
+        """Labels grouped for batched prior draws: same family (and, for
+        categorical, same bucket count); order follows ``self.labels``."""
+        groups = getattr(self, "_sample_groups_cache", None)
+        if groups is None:
+            groups = {}
+            for label, info in self.params.items():
+                fam = info.dist.family
+                gkey = (fam, len(info.dist.params)) if fam == "categorical" else fam
+                groups.setdefault(gkey, []).append(label)
+            self._sample_groups_cache = groups
+        return groups
+
+    def sample_flat(self, keys) -> dict:
+        """Draw every parameter for each key of ``keys[B, 2]``.
+
+        Same-family labels draw through one batched call
+        (:func:`draw_dist_group`) that is bitwise identical per label to
+        :func:`draw_dist` (same ``fold_in`` keys, same formulas)."""
+        out = {}
+        for _, labels in self._sample_groups().items():
+            if len(labels) == 1:
+                label = labels[0]
+                k = prng.fold_in(keys, label_hash(label))
+                out[label] = draw_dist(self.params[label].dist, k)
+                continue
+            hashes = torch.tensor([label_hash(l) for l in labels],
+                                  dtype=torch.int64, device=keys.device)
+            gkeys = prng.fold_in(keys[None, :, :], hashes[:, None])  # [G, B, 2]
+            vals = draw_dist_group([self.params[l].dist for l in labels], gkeys)
+            for i, label in enumerate(labels):
+                out[label] = vals[i]
+        return {label: out[label] for label in self.labels}
+
+    def active_flat(self, flat: dict) -> dict:
+        """Activation per label, from the drawn choice indices: Python bools
+        for host values, bool tensors for tensor values."""
+        out = {}
+        for label, info in self.params.items():
+            act = True
+            for (clabel, idx) in info.conditions:
+                act = act & (flat[clabel] == idx)
+            out[label] = bool(act) if isinstance(act, (bool, np.bool_)) else act
+        return out
+
+    def assemble(self, flat: dict):
+        """Rebuild the user-facing structure from flat per-label host
+        values, picking each choice's branch by its index."""
+
+        def rec(node: Expr):
+            if isinstance(node, Literal):
+                return node.value
+            if isinstance(node, Param):
+                v = flat[node.label]
+                if hasattr(v, "item"):
+                    v = v.item()
+                if node.cast == "int":
+                    v = int(round(v))
+                return v
+            if isinstance(node, Choice):
+                idx = flat[node.label]
+                idx = int(idx.item()) if hasattr(idx, "item") else int(idx)
+                return rec(node.options[idx])
+            if isinstance(node, Op):
+                return _OP_TABLE[node.op](*(rec(a) for a in node.args))
+            if isinstance(node, Container):
+                vals = [rec(c) for c in node.children]
+                if node.kind == "dict":
+                    return dict(zip(node.keys, vals))
+                return vals if node.kind == "list" else tuple(vals)
+            raise InvalidAnnotatedParameter(f"not a space expression: {node!r}")
+
+        return rec(self.expr)
+
+    def sample(self, key):
+        """One structured sample on host from one key ``[2]``."""
+        flat = self.sample_flat(key[None, :])
+        return self.assemble({l: v[0].item() for l, v in flat.items()})
+
+
+_F32_EXACT = 2 ** 24
+
+
+def _check_f32_exact_int(info: ParamInfo):
+    """Integer values ride a packed float32 proposal matrix
+    (``rand.pack_labels``); reject ranges a float32 cannot hold exactly."""
+    fam, p = info.dist.family, info.dist.params
+    if fam in ("randint", "uniformint", "quniform"):
+        bound = max(abs(float(p[0])), abs(float(p[1])))
+    elif fam == "qloguniform":
+        bound = math.exp(float(p[1]))
+    else:
+        return
+    if bound >= _F32_EXACT:
+        raise InvalidAnnotatedParameter(
+            f"{info.label!r}: integer range |{bound:.3g}| >= 2**24 cannot survive "
+            f"the float32 proposal readback exactly; shift/scale the space "
+            f"(e.g. sample an offset) to keep integer magnitudes below 2**24"
+        )
+
+
+def compile_space(space: Any) -> CompiledSpace:
+    return CompiledSpace(as_expr(space))
+
+
+# ---------------------------------------------------------------------------
+# Distribution draws — semantics of hyperopt/pyll/stochastic.py
+# ---------------------------------------------------------------------------
+
+
+def _qround(x, q):
+    return torch.round(x / q) * q
+
+
+def draw_dist(dist: Dist, key, shape=()):
+    """Draw ``[..., *shape]`` from one distribution node for keys
+    ``[..., 2]``; the JAX package's ``draw_dist`` per key."""
+    fam, p = dist.family, dist.params
+    if fam == "uniform":
+        return prng.uniform(key, shape, p[0], p[1])
+    if fam == "quniform":
+        return _qround(prng.uniform(key, shape, p[0], p[1]), p[2])
+    if fam == "loguniform":
+        return torch.exp(prng.uniform(key, shape, p[0], p[1]))
+    if fam == "qloguniform":
+        return _qround(torch.exp(prng.uniform(key, shape, p[0], p[1])), p[2])
+    if fam == "normal":
+        return p[0] + p[1] * prng.normal(key, shape)
+    if fam == "qnormal":
+        return _qround(p[0] + p[1] * prng.normal(key, shape), p[2])
+    if fam == "lognormal":
+        return torch.exp(p[0] + p[1] * prng.normal(key, shape))
+    if fam == "qlognormal":
+        return _qround(torch.exp(p[0] + p[1] * prng.normal(key, shape)), p[2])
+    if fam == "randint":
+        return prng.randint(key, shape, int(p[0]), int(p[1]))
+    if fam == "uniformint":
+        return prng.randint(key, shape, int(p[0]), int(p[1]) + 1)
+    if fam == "categorical":
+        logits = torch.log(torch.tensor(p, dtype=torch.float32, device=key.device))
+        return prng.categorical(key, logits, shape)
+    raise InvalidAnnotatedParameter(f"unknown family {fam!r}")
+
+
+def draw_dist_group(dists, keys):
+    """Batched :func:`draw_dist` for ≥2 SAME-family nodes; ``keys`` is
+    ``[G, ..., 2]``, one leading row per node, and the result ``[G, ...]``
+    is bitwise identical per node to the unrolled scalar draws."""
+    fam = dists[0].family
+    dev = keys.device
+    extra = keys.dim() - 2  # batch dims after the node axis
+
+    def col(i, dtype=torch.float32):
+        v = torch.tensor([d.params[i] for d in dists], dtype=dtype, device=dev)
+        return v.reshape(v.shape + (1,) * extra)
+
+    if fam in ("uniform", "quniform", "loguniform", "qloguniform"):
+        x = prng.uniform(keys, (), col(0), col(1))
+        if fam in ("loguniform", "qloguniform"):
+            x = torch.exp(x)
+        if fam in ("quniform", "qloguniform"):
+            x = _qround(x, col(2))
+        return x
+    if fam in ("normal", "qnormal", "lognormal", "qlognormal"):
+        x = col(0) + col(1) * prng.normal(keys, ())
+        if fam in ("lognormal", "qlognormal"):
+            x = torch.exp(x)
+        if fam in ("qnormal", "qlognormal"):
+            x = _qround(x, col(2))
+        return x
+    if fam in ("randint", "uniformint"):
+        off = 1 if fam == "uniformint" else 0
+        lo = torch.tensor([int(d.params[0]) for d in dists], device=dev)
+        hi = torch.tensor([int(d.params[1]) + off for d in dists], device=dev)
+        shape = lo.shape + (1,) * extra
+        return prng.randint(keys, (), lo.reshape(shape), hi.reshape(shape))
+    if fam == "categorical":
+        logp = torch.log(torch.tensor([list(d.params) for d in dists],
+                                      dtype=torch.float32, device=dev))
+        logp = logp.reshape(logp.shape[:1] + (1,) * extra + logp.shape[1:])
+        return prng.categorical(keys, logp)
+    raise InvalidAnnotatedParameter(f"unknown family {fam!r}")
+
+
+# ---------------------------------------------------------------------------
+# Public helpers
+# ---------------------------------------------------------------------------
+
+
+def rng_to_key(rng, device=None):
+    """A PRNG key ``[2]`` on ``device`` from a key tensor, an int seed, a
+    numpy ``Generator``/``RandomState``, or None (fresh entropy) — the same
+    coercion as the JAX package's ``rng_to_key``."""
+    dev = resolve_device(device)
+    if rng is None:
+        return prng.PRNGKey(np.random.SeedSequence().entropy % (2**32), dev)
+    if isinstance(rng, torch.Tensor):
+        return rng.to(dev)
+    if isinstance(rng, (int, np.integer)):
+        return prng.PRNGKey(int(rng) & 0xFFFFFFFF, dev)
+    if isinstance(rng, np.random.Generator):
+        return prng.PRNGKey(int(rng.integers(2**32, dtype=np.uint64)), dev)
+    if isinstance(rng, np.random.RandomState):
+        return prng.PRNGKey(int(rng.randint(0, 2**31 - 1)), dev)
+    raise TypeError(f"cannot derive a PRNG key from rng={rng!r}")
+
+
+def sample(space: Any, key=None, device=None):
+    """Sample a structured point (``hyperopt.pyll.stochastic.sample``);
+    runs on CUDA unless ``device="cpu"``."""
+    return compile_space(space).sample(rng_to_key(key, device))
+
+
+def space_eval(space: Any, hp_assignment: dict):
+    """Rebuild the structured point from ``{label: value}`` (choice values
+    are branch indices); accepts scalars and 1-element lists."""
+    flat = {}
+    for k, v in hp_assignment.items():
+        if isinstance(v, (list, tuple, np.ndarray)):
+            if len(v) == 0:
+                continue
+            v = v[0]
+        flat[k] = v
+    return compile_space(space).assemble(flat)

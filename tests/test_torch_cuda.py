@@ -1,0 +1,66 @@
+"""Tests of the port that need an NVIDIA card (marker ``cuda``); elsewhere
+they skip.  This file imports neither JAX nor the JAX package, so it also
+runs on a machine without them:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import hyperopt_tpu_torch as port
+from hyperopt_tpu_torch import megakernel, zoo
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    """The CUDA device; skips where there is none (decided when the test
+    runs, never at collection)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run this file with `-m cuda` on the card")
+    return torch.device("cuda")
+
+
+def _inputs(P, n, m, device, dead=0, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(P, n, generator=g) * 6 - 3
+    tabs = []
+    for _ in range(2):
+        w = torch.rand(P, m, generator=g) + 0.1
+        w[:, m - dead:] = 0.0
+        tabs += [w / w.sum(1, keepdim=True), torch.randn(P, m, generator=g),
+                 torch.rand(P, m, generator=g) * 1.8 + 0.2]
+    return [t.to(device).contiguous() for t in (x, *tabs)]
+
+
+@pytest.mark.parametrize("P,n,m,dead", [(1, 24, 129, 0), (4, 1000, 257, 7),
+                                        (3, 777, 1025, 300)])
+def test_kernel_matches_plain_and_counts_launches(cuda_device, P, n, m, dead):
+    args = _inputs(P, n, m, cuda_device, dead=dead, seed=P + n)
+    before = megakernel.ei_diff.launches
+    got = megakernel.ei_diff(*args)
+    torch.cuda.synchronize()
+    assert megakernel.ei_diff.launches == before + 1
+    want = megakernel.ei_diff_plain(*args)
+    assert torch.isfinite(got).all()
+    assert bool(((got - want).abs() <= 1e-4 * want.abs().clamp(min=1.0)).all())
+
+
+def test_kernel_rejects_strided_input(cuda_device):
+    x, *tabs = _inputs(2, 64, 17, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        megakernel.ei_diff(x.t().contiguous().t(), *tabs)
+
+
+def test_fmin_on_the_card_follows_the_cpu_path(cuda_device):
+    dom = zoo.ZOO["quadratic1"]
+    runs = []
+    for device in ("cpu", cuda_device):
+        t = port.Trials(device=device)
+        port.fmin(dom.objective, dom.space, max_evals=30, trials=t,
+                  rstate=np.random.default_rng(2), show_progressbar=False)
+        runs.append([d["misc"]["vals"]["x"][0] for d in t.trials])
+    np.testing.assert_allclose(runs[0], runs[1], rtol=1e-4, atol=1e-5)
