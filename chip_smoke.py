@@ -8,10 +8,12 @@ Phases, each of which fails the run (non-zero exit) on its own:
 1. Build every CUDA kernel of the port from ``hyperopt_tpu_torch/csrc``
    (one ``nvcc`` per source, started together) and hold each against its
    plain PyTorch version on the card, timed with CUDA events (median of 25
-   launches after warm-up).
+   launches after warm-up): ``ei_diff`` at the single-study ask's shapes,
+   ``fused_sample_ei`` at the cohort's (the service tick, the wide tick,
+   an unbounded group, a group with dead components).
 2. Check the card's main path against the port's CPU path: the same
    40-evaluation branin ``fmin`` on both devices gives the same trials.
-3. The main path: ``fmin`` on branin (BASELINE config 2) with
+3. The single-study path: ``fmin`` on branin (BASELINE config 2) with
    ``tpe.suggest`` at ``n_EI_candidates=1024``, 1000 evaluations,
    ``rstate=np.random.default_rng(0)``.  Every proposal must lie in the
    space and every TPE ask must launch the EI kernel.
@@ -21,6 +23,18 @@ Phases, each of which fails the run (non-zero exit) on its own:
    ``n_EI_candidates=1024``.
 5. ``torch.profiler`` over 20 more branin TPE asks: device busy time,
    kernel launches and the device's idle share per ask.
+6. The study scheduler on the card against the scheduler on the CPU: 8
+   studies over branin and hartmann6, 30 trials each, the same trials.
+7. The study-batched path: ``make_study_mix(1024)`` through
+   ``StudyScheduler`` on the card, startup waves unmeasured, then 20
+   measured waves of ``ask_many(n=1)`` + ``tell``: studies per second,
+   wave p50/p99, kernel launches per wave, the device's idle share
+   (``torch.profiler`` over 5 waves).  Every wave must launch the fused
+   kernel, every study must get an answer inside its space.
+8. The wide cohort: ``build_suggest_batched`` for 256 hartmann6 studies at
+   cap 128, 4 ids, ``n_EI_candidates=1024``, in float32 and int8 storage,
+   on the fused route and on the grouped ``ei_diff`` route: the routes
+   agree, and the int8 history takes at most 0.30 of the float32 bytes.
 
 It imports neither JAX nor the JAX package.  Before the last line it
 prints one JSON line describing every kernel and the card's name and power
@@ -37,17 +51,30 @@ import subprocess
 import sys
 import time
 
-REPLACES = {"ei_diff": "hyperopt_tpu/megakernel.py:516"}
-SOURCES = {"ei_diff": "hyperopt_tpu_torch/csrc/ei_diff.cu"}
+REPLACES = {"ei_diff": "hyperopt_tpu/megakernel.py:516",
+            "fused_sample_ei": "hyperopt_tpu/megakernel.py:271"}
+SOURCES = {"ei_diff": "hyperopt_tpu_torch/csrc/ei_diff.cu",
+           "fused_sample_ei": "hyperopt_tpu_torch/csrc/fused_sample_ei.cu"}
 # H100 SXM: 132 SMs x 16 special-function results per clock (exp2, log2,
 # rcp; CUDA C programming guide, compute capability 9.0) at the 1.98 GHz
 # boost clock; 3.35 TB/s of HBM3 (NVIDIA data sheet)
 SFU_PER_S = 132 * 16 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 TOL = 1e-4
+DEVICE = "cuda"  # where the study-batched phases run (a rehearsal sets "cpu")
 # sizes of the main path (BASELINE configs 2 and 3)
 MAIN_EVALS, MAIN_CANDIDATES = 1000, 1024
 WIDE_HISTORY, WIDE_IDS, WIDE_CANDIDATES = 1000, 1024, 1024
+# the study-batched path: the standing mix's documented scale (1k studies)
+# and the wide cohort (256 studies, cap 128, 4 ids, 1024 candidates)
+SERVICE_STUDIES, SERVICE_STARTUP, SERVICE_WAVES, SERVICE_PROFILED = 1024, 5, 20, 5
+COHORT_STUDIES, COHORT_TRIALS = 8, 30
+WIDE_COHORT = dict(studies=256, cap=128, ids=4, candidates=1024)
+# fused_sample_ei shapes (P, N, m, dead components, bounded): the service
+# tick (256 slots x 6 labels, 24 candidates), the wide tick (4 x 1024
+# candidates), an unbounded group, a group with dead components
+FUSED_SHAPES = [(256 * 6, 24, 65, 0, True), (256 * 6, 4 * 1024, 129, 0, True),
+                (256 * 2, 24, 65, 0, False), (64, 1000, 300, 77, True)]
 
 
 def log(*a):
@@ -86,6 +113,41 @@ def ei_bound(P, n, m):
     ops_ms = 2.0 * P * n * m / SFU_PER_S * 1e3
     bytes_ms = 4.0 * (2 * P * n + 6 * P * m) / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def fused_bound(P, N, m):
+    """Least time for ``fused_sample_ei`` at (P, N, m): two exp per
+    candidate x component (one per model) plus one ``ndtri`` per candidate
+    on the special-function units; the bytes are the two uniforms and two
+    outputs once, nine tables and the two bounds."""
+    ops_ms = (2.0 * P * N * m + P * N) / SFU_PER_S * 1e3
+    bytes_ms = (16.0 * P * N + 36.0 * P * m + 8.0 * P) / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def fused_inputs(P, N, m, seed, dead=0, bounded=True):
+    """Uniforms and the nine tables the cohort hands the fused kernel,
+    built by the port's own table code from seeded mixtures."""
+    import torch
+
+    from hyperopt_tpu_torch.algos import tpe
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    uc = torch.rand(P, N, device="cuda", generator=g)
+    u0 = torch.rand(P, N, device="cuda", generator=g)
+    tabs = {}
+    for side in "ba":
+        w = torch.rand(P, m, device="cuda", generator=g) + 0.1
+        if dead:
+            w[:, m - dead:] = 0.0
+        tabs["w" + side] = (w / w.sum(1, keepdim=True)).contiguous()
+        tabs["m" + side] = torch.randn(P, m, device="cuda", generator=g)
+        tabs["s" + side] = torch.rand(P, m, device="cuda", generator=g) * 1.8 + 0.2
+    low = torch.full((P,), -2.0, device="cuda")
+    high = torch.full((P,), 2.5, device="cuda")
+    cdf, ab, bb = tpe._sample_tables(tabs["wb"], tabs["mb"], tabs["sb"], low, high, bounded)
+    return [t.contiguous() for t in (uc, u0, cdf, tabs["mb"], tabs["sb"], ab, bb, tabs["wb"],
+                                      tabs["wa"], tabs["ma"], tabs["sa"], low, high)]
 
 
 def ei_inputs(P, n, m, seed, dead=0):
@@ -148,7 +210,35 @@ def phase_kernels(report):
         if not ok:
             raise AssertionError(f"ei_diff disagrees with its plain version at {row}")
     report["ei_diff_shapes"] = rows
-    return rows
+
+    frows = []
+    for P, N, m, dead, bounded in FUSED_SHAPES:
+        args = fused_inputs(P, N, m, seed=P + N + m, dead=dead, bounded=bounded)
+        x, ei = megakernel.fused_sample_ei(*args, bounded)
+        torch.cuda.synchronize()
+        px, pei = megakernel.fused_sample_ei_plain(*args, bounded)
+        err_x, err_ei = (x - px).abs(), (ei - pei).abs()
+        ok = (bool(torch.isfinite(x).all()) and bool(torch.isfinite(ei).all())
+              and bool((err_x <= TOL * torch.clamp(px.abs(), min=1.0)).all())
+              and bool((err_ei <= TOL * torch.clamp(pei.abs(), min=1.0)).all()))
+        if bounded:
+            ok = ok and bool((x >= args[-2][:, None]).all()) and bool((x < args[-1][:, None]).all())
+        ms = cuda_ms(lambda: megakernel.fused_sample_ei(*args, bounded))
+        plain_ms = cuda_ms(lambda: megakernel.fused_sample_ei_plain(*args, bounded), reps=5)
+        bound_ms, bound_by = fused_bound(P, N, m)
+        row = {"shape": [P, N, m], "dead": dead, "bounded": bounded,
+               "max_abs_err": float(max(err_x.max(), err_ei.max())),
+               "max_abs_err_x": float(err_x.max()), "max_abs_err_ei": float(err_ei.max()),
+               "ok": ok, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        frows.append(row)
+        log(f"fused_sample_ei {row}")
+        del args, x, ei, px, pei, err_x, err_ei
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"fused_sample_ei disagrees with its plain version at {row}")
+    report["fused_sample_ei_shapes"] = frows
+    return rows, frows
 
 
 def in_space(cs, doc):
@@ -163,6 +253,12 @@ def in_space(cs, doc):
             if fam == "loguniform" and not math.exp(p[0]) * (1 - 1e-6) <= v <= math.exp(p[1]) * (1 + 1e-6):
                 return False
             if fam == "randint" and not (p[0] <= v < p[1] and v == int(v)):
+                return False
+            if fam == "quniform" and not (p[0] - p[2] / 2 <= v <= p[1] + p[2] / 2):
+                return False
+            if fam == "uniformint" and not (p[0] <= v <= p[1] and v == int(v)):
+                return False
+            if fam == "categorical" and not (0 <= v < len(p) and v == int(v)):
                 return False
     return True
 
@@ -215,13 +311,15 @@ def phase_main(report):
         return docs
 
     trials = port.Trials()
-    megakernel.ei_diff.launches = 0
+    megakernel.ei_diff.launches = megakernel.fused_sample_ei.launches = 0
     t0 = time.perf_counter()
     best = port.fmin(dom.objective, dom.space, algo=algo, max_evals=MAIN_EVALS, trials=trials,
                      rstate=np.random.default_rng(0), show_progressbar=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = megakernel.ei_diff.launches
+    report["fmin_path_launches"] = {"ei_diff": launches,
+                                    "fused_sample_ei": megakernel.fused_sample_ei.launches}
     losses = [l for l in trials.losses() if l is not None]
     out = {"evals": len(trials.trials), "best_loss": float(min(losses)), "argmin": best,
            "wall_sec": wall, "tpe_asks": len(ticks),
@@ -325,6 +423,229 @@ def phase_wide(report):
     return launches[0]
 
 
+def drive_waves(sched, sids, objective_of, waves, on_wave=None):
+    """``waves`` rounds of one ask per study and one tell per answer;
+    returns the seconds of each wave (ask through the last tell)."""
+    import torch
+
+    times = []
+    for w in range(waves):
+        t0 = time.perf_counter()
+        answers = sched.ask_many([(sid, 1) for sid in sids])
+        if set(answers) != set(sids):
+            raise AssertionError(f"wave {w}: {len(sids) - len(answers)} studies got no answer")
+        for sid, (a,) in answers.items():
+            sched.tell(sid, a["tid"], objective_of[sid](a["params"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if on_wave is not None:
+            on_wave(w, answers)
+    return times
+
+
+def phase_cohort_agreement(report):
+    """The scheduler on the card serves the CPU scheduler's trials: 8
+    studies (4 branin, 4 hartmann6), 30 trials each, 5 startup jobs."""
+    import numpy as np
+
+    from hyperopt_tpu_torch import zoo
+    from hyperopt_tpu_torch.service import StudyScheduler
+
+    streams = {}
+    for device in ("cpu", DEVICE):
+        sched = StudyScheduler(device=device)
+        doms = [zoo.ZOO["branin" if i % 2 else "hartmann6"] for i in range(COHORT_STUDIES)]
+        sids = [sched.create_study(d.space, seed=40 + i, n_startup_jobs=5)
+                for i, d in enumerate(doms)]
+        drive_waves(sched, sids, {sid: d.objective for sid, d in zip(sids, doms)},
+                    COHORT_TRIALS)
+        streams[device] = [sched._studies[sid].trials.trials for sid in sids]
+    same = []
+    for a_trials, b_trials in zip(streams["cpu"], streams[DEVICE]):
+        n = 0
+        for a, b in zip(a_trials, b_trials):
+            va, vb = a["misc"]["vals"], b["misc"]["vals"]
+            if not all(np.allclose(va[k], vb[k], rtol=1e-4, atol=1e-5) for k in va):
+                break
+            n += 1
+        same.append(n)
+    report["cohort_cpu_agreement"] = {"studies": COHORT_STUDIES, "trials": COHORT_TRIALS,
+                                      "matching_prefix_per_study": same}
+    log(f"scheduler cpu vs cuda: matching prefixes {same} of {COHORT_TRIALS}")
+    if same != [COHORT_TRIALS] * COHORT_STUDIES:
+        raise AssertionError(f"the card's scheduler left the CPU's stream: {same}")
+
+
+def phase_service(report):
+    """``make_study_mix(1024)`` through the scheduler on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperopt_tpu_torch import megakernel, zoo
+    from hyperopt_tpu_torch.service import StudyScheduler
+
+    sched = StudyScheduler(device=DEVICE)
+    mix = zoo.make_study_mix(SERVICE_STUDIES)
+    items = {sched.create_study(it.domain.space, seed=it.seed,
+                                n_startup_jobs=it.n_startup_jobs): it for it in mix}
+    sids = list(items)
+    objective_of = {sid: it.domain.objective for sid, it in items.items()}
+    t0 = time.perf_counter()
+    drive_waves(sched, sids, objective_of, SERVICE_STARTUP)  # prior draws, unmeasured
+    startup_sec = time.perf_counter() - t0
+    per_wave = []
+    bad = []
+
+    def check(w, answers):
+        per_wave.append((megakernel.fused_sample_ei.launches, megakernel.ei_diff.launches))
+        for sid, (a,) in answers.items():
+            doc = {"misc": {"vals": {k: [v] for k, v in a["params"].items()}}}
+            if not in_space(sched._studies[sid].domain.cs, doc):
+                bad.append((sid, a))
+
+    megakernel.ei_diff.launches = megakernel.fused_sample_ei.launches = 0
+    times = drive_waves(sched, sids, objective_of, SERVICE_WAVES, on_wave=check)
+    launches = {"fused_sample_ei": megakernel.fused_sample_ei.launches,
+                "ei_diff": megakernel.ei_diff.launches}
+    fused_per_wave = [b[0] - a[0] for a, b in zip([(0, 0)] + per_wave, per_wave)]
+    ei_per_wave = [b[1] - a[1] for a, b in zip([(0, 0)] + per_wave, per_wave)]
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        drive_waves(sched, sids, objective_of, SERVICE_PROFILED)
+        prof_wall = time.perf_counter() - t1
+    kernels = [a for a in prof.key_averages()
+               if a.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(a.self_device_time_total for a in kernels)
+    top = sorted(kernels, key=lambda a: -a.self_device_time_total)[:8]
+    ms = sorted(1e3 * t for t in times)
+    out = {"studies": len(sids), "startup_waves": SERVICE_STARTUP,
+           "startup_sec": startup_sec, "measured_waves": SERVICE_WAVES,
+           "studies_per_sec": len(sids) * len(times) / sum(times),
+           "wave_ms_p50": statistics.median(ms),
+           "wave_ms_p99": ms[min(len(ms) - 1, math.ceil(0.99 * len(ms)) - 1)],
+           "wave_ms": [1e3 * t for t in times],
+           "launches": launches, "fused_launches_per_wave": fused_per_wave,
+           "ei_diff_launches_per_wave": ei_per_wave,
+           "cohorts": sorted((c.cap, c.n_slots, c.n_live, len(c.cs.labels), c.hist_dtype)
+                             for c in sched._cohorts.values()),
+           "profiled_waves": SERVICE_PROFILED,
+           "profiled_wall_ms_per_wave": 1e3 * prof_wall / SERVICE_PROFILED,
+           "device_busy_ms_per_wave": busy_us / 1e3 / SERVICE_PROFILED,
+           "kernel_launches_per_wave": sum(a.count for a in kernels) / SERVICE_PROFILED,
+           "device_idle_share": (1.0 - busy_us / 1e3 / (1e3 * prof_wall)) if busy_us else None,
+           "top_kernels": [{"name": a.key[:80], "launches_per_wave": a.count / SERVICE_PROFILED,
+                            "device_ms_per_wave": a.self_device_time_total / 1e3
+                            / SERVICE_PROFILED} for a in top]}
+    report["service_wave"] = out
+    log(f"service wave: { {k: v for k, v in out.items() if k != 'wave_ms'} }")
+    if min(fused_per_wave) < 1:
+        raise AssertionError(f"a wave launched no fused kernel: {fused_per_wave}")
+    if min(ei_per_wave) < 1:
+        raise AssertionError(f"a wave launched no ei_diff kernel: {ei_per_wave}")
+    if bad:
+        raise AssertionError(f"{len(bad)} proposals lie outside their space, e.g. {bad[0]}")
+    return launches
+
+
+def phase_wide_cohort(report):
+    """``build_suggest_batched`` for 256 hartmann6 studies at cap 128, 4 ids
+    and 1024 candidates: float32 and int8 storage, fused and grouped
+    routes."""
+    import numpy as np
+    import torch
+
+    from hyperopt_tpu_torch import megakernel, quant, zoo
+    from hyperopt_tpu_torch.algos import tpe
+    from hyperopt_tpu_torch.base import Domain
+
+    S, cap, B, n = (WIDE_COHORT[k] for k in ("studies", "cap", "ids", "candidates"))
+    dom = zoo.ZOO["hartmann6"]
+    cs = Domain(dom.objective, dom.space).cs
+    cfg = {"prior_weight": 1.0, "n_EI_candidates": n, "gamma": 0.25, "LF": 25,
+           "ei_select": "argmax", "ei_tau": 1.0, "prior_eps": 0.0}
+    rng = np.random.default_rng(9)
+    live = rng.integers(cap // 4, cap - 8, S)
+    vals = {l: rng.uniform(0, 1, (S, cap)).astype(np.float32) for l in cs.labels}
+    active = np.arange(cap)[None, :] < live[:, None]
+    losses = np.where(active, np.array([[dom.objective({l: vals[l][s, i] for l in cs.labels})
+                                         for i in range(cap)] for s in range(S)]),
+                      np.inf).astype(np.float32)
+    L = len(cs.labels)
+    rows = np.zeros((S, 1, 2 * L + 3), np.float32)
+    rows[:, :, -1] = cap
+    seeds = np.stack([tpe._seed_words(1000 + s) for s in range(S)])
+    ids = (np.arange(S * B).reshape(S, B) + 5000).astype(np.uint32)
+
+    def stack(name):
+        qp = quant.space_qparams(cs, name) if quant.is_quant_name(name) else None
+        v = {l: (quant.quantize_np(quant.snap_np(vals[l], qp[l], name), qp[l], name)
+                 .reshape(S, cap).to(DEVICE) if qp else torch.tensor(vals[l], device=DEVICE))
+             for l in cs.labels}
+        return {"vals": v, "active": {l: torch.tensor(active, device=DEVICE) for l in cs.labels},
+                "losses": torch.tensor(losses, dtype=quant.losses_dtype(name), device=DEVICE),
+                "has_loss": torch.tensor(active, device=DEVICE)}
+
+    out = {"studies": S, "cap": cap, "ids": B, "candidates": n, "ticks": {}}
+    packed = {}
+    knob = os.environ.get("HYPEROPT_TPU_MEGAKERNEL")
+    for name in ("float32", "int8"):
+        for route in ("on", "0"):
+            os.environ["HYPEROPT_TPU_MEGAKERNEL"] = route
+            run = tpe.build_suggest_batched(cs, cfg, S, cap, B, donate=False, hist_dtype=name)
+            hist = stack(name)
+            times = []
+            megakernel.ei_diff.launches = megakernel.fused_sample_ei.launches = 0
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, mat = run(hist, rows, seeds, ids)
+                mat = mat.cpu().numpy()
+                times.append(time.perf_counter() - t0)
+            packed[(name, route)] = mat
+            out["ticks"][f"{name}/{'fused' if route == 'on' else 'grouped'}"] = {
+                "first_ms": 1e3 * times[0], "median_ms": 1e3 * statistics.median(times[1:]),
+                "fused_launches": megakernel.fused_sample_ei.launches,
+                "ei_diff_launches": megakernel.ei_diff.launches}
+    if knob is None:
+        os.environ.pop("HYPEROPT_TPU_MEGAKERNEL", None)
+    else:
+        os.environ["HYPEROPT_TPU_MEGAKERNEL"] = knob
+
+    def value_bytes(h):  # the reference's measure: vals and losses
+        return sum(t.numel() * t.element_size() for t in (*h["vals"].values(), h["losses"]))
+
+    def all_bytes(h):
+        return value_bytes(h) + sum(t.numel() * t.element_size()
+                                    for t in (*h["active"].values(), h["has_loss"]))
+
+    f32, i8 = stack("float32"), stack("int8")
+    out["history_value_bytes"] = {"float32": value_bytes(f32), "int8": value_bytes(i8)}
+    out["int8_value_bytes_frac"] = value_bytes(i8) / value_bytes(f32)
+    out["int8_all_bytes_frac"] = all_bytes(i8) / all_bytes(f32)
+    agree = {}
+    for name in ("float32", "int8"):
+        a, b = packed[(name, "on")], packed[(name, "0")]
+        close = np.isclose(a, b, rtol=1e-5, atol=1e-6)
+        agree[name] = {"share_close": float(close.mean()),
+                       "max_abs_diff": float(np.abs(a - b).max())}
+    out["fused_vs_grouped"] = agree
+    report["wide_cohort"] = out
+    log(f"wide cohort: {out}")
+    for name, a in agree.items():
+        # the routes pick the same candidate unless two EI scores tie within
+        # float32 noise; allow a few such near-ties among S*B*L values
+        if a["share_close"] < 0.995:
+            raise AssertionError(f"fused and grouped cohorts disagree ({name}): {a}")
+    for key, t in out["ticks"].items():
+        if key.endswith("fused") and t["fused_launches"] < 4:
+            raise AssertionError(f"the fused wide cohort launched no fused kernel: {t}")
+    if not all(np.isfinite(m).all() for m in packed.values()):
+        raise AssertionError("the wide cohort proposed non-finite values")
+    if out["int8_value_bytes_frac"] > 0.30:
+        raise AssertionError(f"int8 history takes {out['int8_value_bytes_frac']:.3f} of f32")
+
+
 def main():
     try:
         import torch
@@ -346,24 +667,40 @@ def main():
     card = card_line()
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
     t_start = time.perf_counter()
-    rows = phase_kernels(report)
+    rows, frows = phase_kernels(report)
     phase_cpu_agreement(report)
     main_launches, trials, tuned = phase_main(report)
     wide_launches = phase_wide(report)
     phase_profile(report, trials, tuned)
+    phase_cohort_agreement(report)
+    service_launches = phase_service(report)
+    phase_wide_cohort(report)
     report["total_sec"] = time.perf_counter() - t_start
 
-    tick = rows[4]  # the branin tick's shape
+    tick, ftick = rows[4], frows[0]  # the branin ask's and the service tick's shapes
     kernels = [{
         "name": "ei_diff", "route": "cuda", "source": SOURCES["ei_diff"],
         "replaces": REPLACES["ei_diff"], "launches": main_launches,
-        "launches_wide_ask": wide_launches,
+        "launches_by_path": {"fmin": main_launches, "wide_ask": wide_launches,
+                             "service_wave": service_launches["ei_diff"]},
         "shape": tick["shape"], "max_abs_err": tick["max_abs_err"],
         "max_err": max(r["max_abs_err"] for r in rows),
         "ms": tick["ms"], "plain_ms": tick["plain_ms"], "bound_ms": tick["bound_ms"],
         "bound_by": tick["bound_by"], "library_ms": None,
         "shapes": [{k: r[k] for k in ("shape", "dead", "max_abs_err", "ms", "plain_ms",
                                       "bound_ms")} for r in rows],
+    }, {
+        "name": "fused_sample_ei", "route": "cuda", "source": SOURCES["fused_sample_ei"],
+        "replaces": REPLACES["fused_sample_ei"],
+        "launches": service_launches["fused_sample_ei"],
+        "launches_by_path": {"fmin": report["fmin_path_launches"]["fused_sample_ei"],
+                             "service_wave": service_launches["fused_sample_ei"]},
+        "shape": ftick["shape"], "max_abs_err": ftick["max_abs_err"],
+        "max_err": max(r["max_abs_err"] for r in frows),
+        "ms": ftick["ms"], "plain_ms": ftick["plain_ms"], "bound_ms": ftick["bound_ms"],
+        "bound_by": ftick["bound_by"], "library_ms": None,
+        "shapes": [{k: r[k] for k in ("shape", "dead", "bounded", "max_abs_err", "ms",
+                                      "plain_ms", "bound_ms")} for r in frows],
     }]
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -2,11 +2,13 @@
 
 The same public surface as the JAX package, restricted to what this port
 has so far: ``fmin`` with random search and TPE, the ``hp.*`` space
-language, ``Trials``/``Domain``/``Ctrl`` and the padded history.  Entry
-points run on the CUDA card unless the caller passes ``device="cpu"``;
-TPE's EI scoring runs in the hand-written kernel of
-``hyperopt_tpu_torch/csrc/ei_diff.cu``.  The package imports neither JAX
-nor ``hyperopt_tpu``.
+language, ``Trials``/``Domain``/``Ctrl`` and the padded history (float32,
+bf16 or int8/fp8 codes), and the study scheduler of ``service`` with its
+study-batched cohort.  Entry points run on the CUDA card unless the
+caller passes ``device="cpu"``; TPE's EI scoring runs in the hand-written
+kernel of ``csrc/ei_diff.cu``, and a cohort's sampling and scoring in
+``csrc/fused_sample_ei.cu``.  The package imports neither JAX nor
+``hyperopt_tpu``.
 """
 
 from . import early_stop, hp, pyll, spaces

@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "ei_diff": {"ei_diff_f32": ([_P] * 8 + [_I, _I, _I, _P], ctypes.c_int)},
+    "fused_sample_ei": {"fused_sample_ei_f32": ([_P] * 15 + [_I] * 4 + [_P], ctypes.c_int)},
 }
 
 

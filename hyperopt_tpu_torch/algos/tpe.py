@@ -1,5 +1,6 @@
 """Tree-structured Parzen Estimator on torch (counterpart of
-``hyperopt_tpu/algos/tpe.py``, main path).
+``hyperopt_tpu/algos/tpe.py``: the single-study tick and the study-batched
+cohort).
 
 One TPE ask is one tick (:func:`_tick`, the counterpart of
 ``_get_suggest_jit``): fold the trials finished since the last tick into
@@ -7,17 +8,23 @@ the device-resident padded history, derive a key per new id, and for
 every label fit the adaptive-Parzen below/above mixtures, draw candidates
 from the below mixture by inverse CDF, score EI = below log-density −
 above log-density, select, and pack ``[B, L]`` values for one readback.
+:func:`build_suggest_batched` is the same tick for a cohort of studies
+that share a space, with the study axis as a leading batch dimension.
 
 Batching is written out where the JAX package uses ``vmap``: keys carry a
 leading id axis ``B``, and the grouped pipelines add a leading label axis
-``G``.  The Parzen fits depend on the history only, so they run once per
-label and every id of the ask shares them; the candidate draws and EI
-scores are ``[G, B, n_EI_candidates]``.  Every un-quantized numeric EI
-score goes through the CUDA kernel ``megakernel.ei_diff``, one launch per
-group covering all its ids and labels.  Component picks are gathers
-(``torch.gather`` after ``searchsorted``) where the JAX package used a
-one-hot matmul, so no matrix product, and hence no TF32 rounding, is
-involved.
+``G`` (``S·G`` for a cohort of ``S`` studies).  The Parzen fits depend on
+the history only, so they run once per (study, label) and every id of
+the ask shares them; the candidate draws and EI scores are
+``[G, B, n_EI_candidates]``.  Un-quantized numeric EI scores go through
+the CUDA kernel ``megakernel.ei_diff``, one launch per group covering all
+its ids and labels; a cohort of a space ``megakernel.supports`` draws and
+scores them in ``megakernel.fused_sample_ei`` instead.  Component picks
+are gathers (``torch.gather`` after ``searchsorted``) where the JAX
+package used a one-hot matmul, so no matrix product, and hence no TF32
+rounding, is involved.  ``erf`` and ``ndtri`` are the float32 formulas
+the JAX package's XLA code evaluates.  Compressed history (bf16, int8 or
+fp8 codes) decodes to float32 at the read boundary (:func:`_read_vals`).
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ import math
 import numpy as np
 import torch
 
-from .. import megakernel, prng
+from .. import megakernel, prng, quant
+from .._env import not_ported
 from ..spaces import Dist, label_hash
 from ..utils import LRUCache
 from . import rand
@@ -46,8 +54,14 @@ __all__ = [
     "lgmm1_lpdf",
     "categorical_posterior",
     "split_below_above",
+    "erf",
+    "ndtri",
     "build_propose",
     "build_propose_with_scores",
+    "build_suggest_batched",
+    "cohort_key",
+    "cohort_cache_stats",
+    "cohort_cache_contains",
 ]
 
 EPS = 1e-12
@@ -75,9 +89,90 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
+def _horner(coef, x):
+    """Polynomial (coefficients highest power first) at float32 ``x``, one
+    rounding per step as XLA's contracted ``jnp.polyval`` computes it."""
+    xd = x.double()
+    y = torch.zeros_like(x)
+    for c in coef:
+        y = (y.double() * xd + float(np.float32(c))).float()
+    return y
+
+
 def _lead(v, nd):
     """A per-label ``[G]`` tensor shaped to broadcast over ``nd`` dims."""
     return v.reshape(v.shape[:1] + (1,) * (nd - 1))
+
+
+# ---------------------------------------------------------------------------
+# special functions: the float32 formulas the JAX package's XLA CPU code
+# evaluates, so both packages compute one function (ROADMAP.md queue 3)
+# ---------------------------------------------------------------------------
+
+# the clamped rational form of XLA's float32 erf: odd numerator over even
+# denominator in z^2, with z clamped where the quotient saturates
+_ERF_P = (0.00022905065861350646, 0.0034082910107109506, 0.050955695062380861,
+          0.18520832239976145, 1.128379143519084)
+_ERF_Q = (-1.1791602954361697e-7, 0.000023547966471313185, 0.0010179625278914885,
+          0.014070470171167667, 0.11098505178285362, 0.49746925110067538, 1.0)
+_ERF_CLAMP = float(np.float32(3.7439211))
+
+# Cephes' piecewise-rational ndtri (the formula of jax.scipy.special.ndtri):
+# P0/Q0 for the central region, P1/Q1 and P2/Q2 (z >= 8) for the tails
+_NDTRI_P0 = (-5.99633501014107895267e1, 9.80010754185999661536e1,
+             -5.66762857469070293439e1, 1.39312609387279679503e1,
+             -1.23916583867381258016e0)
+_NDTRI_Q0 = (1.0, 1.95448858338141759834e0, 4.67627912898881538453e0,
+             8.63602421390890590575e1, -2.25462687854119370527e2,
+             2.00260212380060660359e2, -8.20372256168333339912e1,
+             1.59056225126211695515e1, -1.18331621121330003142e0)
+_NDTRI_P1 = (4.05544892305962419923e0, 3.15251094599893866154e1,
+             5.71628192246421288162e1, 4.40805073893200834700e1,
+             1.46849561928858024014e1, 2.18663306850790267539e0,
+             -1.40256079171354495875e-1, -3.50424626827848203418e-2,
+             -8.57456785154685413611e-4)
+_NDTRI_Q1 = (1.0, 1.57799883256466749731e1, 4.53907635128879210584e1,
+             4.13172038254672030440e1, 1.50425385692907503408e1,
+             2.50464946208309415979e0, -1.42182922854787788574e-1,
+             -3.80806407691578277194e-2, -9.33259480895457427372e-4)
+_NDTRI_P2 = (3.23774891776946035970e0, 6.91522889068984211695e0,
+             3.93881025292474443415e0, 1.33303460815807542389e0,
+             2.01485389549179081538e-1, 1.23716634817820021358e-2,
+             3.01581553508235416007e-4, 2.65806974686737550832e-6,
+             6.23974539184983293730e-9)
+_NDTRI_Q2 = (1.0, 6.02427039364742014255e0, 3.67983563856160859403e0,
+             1.37702099489081330271e0, 2.16236993594496635890e-1,
+             1.34204006088543189037e-2, 3.28014464682127739104e-4,
+             2.89247864745380683936e-6, 6.79019408009981274425e-9)
+_EXP_M2 = float(np.float32(np.exp(-2.0)))
+_ONE_MINUS_EXP_M2 = float(np.float32(-np.expm1(-2.0)))
+_NEG_SQRT_2PI = -float(np.float32(np.sqrt(2.0 * np.pi)))
+
+
+def erf(z):
+    """float32 ``erf`` by the clamped rational form XLA's CPU code uses."""
+    z = torch.clamp(z, -_ERF_CLAMP, _ERF_CLAMP)
+    z2 = z * z
+    return (z * _horner(_ERF_P, z2)) / _horner(_ERF_Q, z2)
+
+
+def ndtri(p):
+    """Inverse standard-normal CDF of float32 ``p`` in ``(0, 1)``: Cephes'
+    piecewise-rational formula, term for term as the JAX package's
+    ``ndtri`` (the fused sample-and-score kernel carries the same one)."""
+    mcp = torch.where(p > _ONE_MINUS_EXP_M2, 1.0 - p, p)
+    s = torch.where(mcp == 0.0, torch.full_like(p, 0.5), mcp)
+    w = s - 0.5
+    ww = w * w
+    r = _horner(_NDTRI_P0, ww) / _horner(_NDTRI_Q0, ww)
+    big = _fma(w * ww, r, w) * _NEG_SQRT_2PI
+    z = torch.sqrt(-2.0 * torch.log(s))
+    first = z - torch.log(z) / z
+    iz = 1.0 / z
+    tail_far = _horner(_NDTRI_P2, iz) / _horner(_NDTRI_Q2, iz) / z
+    tail = _horner(_NDTRI_P1, iz) / _horner(_NDTRI_Q1, iz) / z
+    x = torch.where(s > _EXP_M2, big, torch.where(z >= 8.0, first - tail_far, first - tail))
+    return torch.where(p > _ONE_MINUS_EXP_M2, x, -x)
 
 
 # ---------------------------------------------------------------------------
@@ -87,7 +182,7 @@ def _lead(v, nd):
 
 def normal_cdf(x, mu, sigma):
     z = (x - mu) / (_SQRT2 * sigma)
-    return 0.5 * (1.0 + torch.erf(z))
+    return 0.5 * (1.0 + erf(z))
 
 
 def lognormal_cdf(x, mu, sigma):
@@ -209,37 +304,55 @@ def _take(table, comp):
     return torch.gather(table, 1, comp.reshape(G, -1)).reshape(comp.shape)
 
 
+def _sample_tables(weights, mus, sigmas, low, high, bounded):
+    """The below mixture's sampling tables ``[G, m]``: the normalized CDF
+    of the weights reweighted by in-bounds mass, and each component's
+    ``(alpha, beta)`` = its CDF at ``low``/``high`` ``[G]`` (0 and 1 for
+    an unbounded group)."""
+    if not bounded:
+        return _cdf(weights), torch.zeros_like(mus), torch.ones_like(mus)
+    alpha = normal_cdf(low[:, None], mus, sigmas)
+    beta = normal_cdf(high[:, None], mus, sigmas)
+    return _cdf(weights * torch.clamp(beta - alpha, 0.0, 1.0)), alpha, beta
+
+
+def _draw_uniforms(keys, n_samples):
+    """The sampler's two uniform draws ``[..., n]`` per key ``[..., 2]``:
+    component picks from ``split(key)[0]``, interval positions from
+    ``split(key)[1]``."""
+    ks = prng.split(keys)
+    return (prng.uniform(ks[..., 0, :], (n_samples,)),
+            prng.uniform(ks[..., 1, :], (n_samples,)))
+
+
+def _draw_from_tables(uc, u0, cdf, mus, sigmas, alpha, beta, low, high, bounded):
+    """Candidates ``x[G, ...]`` from uniforms ``uc``/``u0`` ``[G, ...]`` and
+    tables ``[G, m]``: the component at the first ``cdf >= uc`` (the last
+    if none), ``x = mu + sigma * ndtri(clip(alpha + u0 (beta - alpha)))``
+    with single-rounding FMAs, clamped for a bounded group into
+    ``[low, nextafter(high, low)]``.  The plain version of the fused
+    kernel's sampling half."""
+    comp = _pick(cdf, uc)
+    mu_s, sigma_s = _take(mus, comp), _take(sigmas, comp)
+    a_s, b_s = _take(alpha, comp), _take(beta, comp)
+    u = torch.clamp(_fma(u0, b_s - a_s, a_s), _U_TINY, 1.0 - _U_TINY)
+    x = _fma(sigma_s, ndtri(u), mu_s)
+    if not bounded:
+        return x
+    nd = x.dim()
+    return torch.minimum(torch.maximum(x, _lead(low, nd)),
+                         _lead(torch.nextafter(high, low), nd))
+
+
 def _gmm1_sample_bounded(keys, weights, mus, sigmas, low, high, n_samples):
     """Truncated-mixture draws for labels with finite bounds ``low``/
     ``high`` ``[G]``: keys ``[G, B, 2]``, tables ``[G, m]`` → ``[G, B, n]``.
     The component is drawn from the weights reweighted by truncated mass,
     then ``x = mu + sigma * ndtri(U(alpha, beta))``, clamped into
     ``[low, nextafter(high, low)]``."""
-    lo, hi = low[:, None], high[:, None]
-    alpha = normal_cdf(lo, mus, sigmas)
-    beta = normal_cdf(hi, mus, sigmas)
-    mass = torch.clamp(beta - alpha, 0.0, 1.0)
-    cdf = _cdf(weights * mass)
-    ks = prng.split(keys)
-    comp = _pick(cdf, prng.uniform(ks[..., 0, :], (n_samples,)))
-    mu_s, sigma_s = _take(mus, comp), _take(sigmas, comp)
-    a_s, b_s = _take(alpha, comp), _take(beta, comp)
-    u0 = prng.uniform(ks[..., 1, :], (n_samples,))
-    u = torch.clamp(_fma(u0, b_s - a_s, a_s), _U_TINY, 1.0 - _U_TINY)
-    x = _fma(sigma_s, torch.special.ndtri(u), mu_s)
-    return torch.minimum(torch.maximum(x, _lead(low, 3)),
-                         _lead(torch.nextafter(high, low), 3))
-
-
-def _gmm1_sample_unbounded(keys, weights, mus, sigmas, n_samples):
-    """Mixture draws for unbounded labels (normal/lognormal priors): keys
-    ``[G, B, 2]``, tables ``[G, m]`` → ``[G, B, n]``; draw-for-draw the
-    bounded sampler at ``alpha=0, beta=1``."""
-    ks = prng.split(keys)
-    comp = _pick(_cdf(weights), prng.uniform(ks[..., 0, :], (n_samples,)))
-    u = torch.clamp(prng.uniform(ks[..., 1, :], (n_samples,)),
-                    _U_TINY, 1.0 - _U_TINY)
-    return _fma(_take(sigmas, comp), torch.special.ndtri(u), _take(mus, comp))
+    cdf, alpha, beta = _sample_tables(weights, mus, sigmas, low, high, True)
+    uc, u0 = _draw_uniforms(keys, n_samples)
+    return _draw_from_tables(uc, u0, cdf, mus, sigmas, alpha, beta, low, high, True)
 
 
 def gmm1_sample(keys, weights, mus, sigmas, low, high, q, n_samples):
@@ -258,7 +371,7 @@ def gmm1_sample(keys, weights, mus, sigmas, low, high, q, n_samples):
     a_s, b_s = _take(alpha[None], comp)[0], _take(beta[None], comp)[0]
     u0 = prng.uniform(ks[..., 1, :], (n_samples,))
     u = torch.clamp(_fma(u0, b_s - a_s, a_s), _U_TINY, 1.0 - _U_TINY)
-    x = _fma(sigma_s, torch.special.ndtri(u), mu_s)
+    x = _fma(sigma_s, ndtri(u), mu_s)
     if math.isfinite(low):
         x = torch.clamp(x, min=low)
     if math.isfinite(high):
@@ -396,9 +509,14 @@ def _ei_kernel(x_t, below, above, p_b, p_a):
     normalizers ``-log p_b + log p_a`` ``[G]``."""
     G = x_t.shape[0]
     raw = megakernel.ei_diff(x_t.reshape(G, -1).contiguous(), *below, *above)
-    nd = x_t.dim()
-    return (raw.reshape(x_t.shape)
-            - _lead(torch.log(torch.clamp(p_b, min=EPS)), nd)
+    return _normalize_ei(raw.reshape(x_t.shape), p_b, p_a)
+
+
+def _normalize_ei(raw, p_b, p_a):
+    """Raw two-mixture log-density difference ``[G, ...]`` plus the
+    truncation normalizers ``-log p_b + log p_a`` ``[G]``."""
+    nd = raw.dim()
+    return (raw - _lead(torch.log(torch.clamp(p_b, min=EPS)), nd)
             + _lead(torch.log(torch.clamp(p_a, min=EPS)), nd))
 
 
@@ -426,16 +544,16 @@ def categorical_posterior(obs, obs_mask, prior_p, prior_weight, LF):
 
 
 def split_below_above(losses, has_loss, gamma, LF):
-    """Boolean masks ``[cap]`` of the best ``min(ceil(gamma*sqrt(N)), LF)``
-    trials vs the rest, over trials that reported a loss; ties keep
-    insertion order (stable sort)."""
-    cap = losses.shape[0]
-    N = has_loss.sum().to(torch.float32)
+    """Boolean masks ``[..., cap]`` of the best ``min(ceil(gamma*sqrt(N)),
+    LF)`` trials vs the rest, over trials that reported a loss; ties keep
+    insertion order (stable sort).  Leading dims are studies."""
+    cap = losses.shape[-1]
+    N = has_loss.sum(-1, keepdim=True).to(torch.float32)
     n_below = torch.clamp(torch.ceil(gamma * torch.sqrt(N)), max=float(LF))
     keyed = torch.where(has_loss, losses, _f32(_F32_MAX, losses))
-    order = torch.argsort(keyed, stable=True)
-    rank = torch.empty_like(order)
-    rank[order] = torch.arange(cap, device=losses.device)
+    order = torch.argsort(keyed, dim=-1, stable=True)
+    pos = torch.arange(cap, device=losses.device).expand(order.shape)
+    rank = torch.empty_like(order).scatter_(-1, order, pos)
     below = (rank < n_below) & has_loss
     return below, has_loss & ~below
 
@@ -605,13 +723,15 @@ def _propose_numeric(keys, dist, vals, below_mask, above_mask, cfg, raw=False):
 
 
 def _propose_numeric_group(keys, obs, below, above, statics, cfg,
-                           quantized, bounded, has_log=True):
+                           quantized, bounded, has_log=True, fused=False):
     """The numeric pipeline for a GROUP of labels sharing a (quantized?,
     bounded?) shape: keys ``[G, B, 2]``, history ``[G, cap]``, statics
     ``[G]``; returns ``(value[G, B], ei[G, B])``.  Per label it is the math
     of :func:`_propose_numeric`, run in z-space (log space for log labels;
     the log-density's Jacobian cancels inside EI), with quantization in
-    value space."""
+    value space.  ``fused=True`` (un-quantized groups) draws and scores the
+    candidates in one ``megakernel.fused_sample_ei`` launch from the same
+    tables and uniforms; the mixtures are fitted once either way."""
     islog, q = statics["islog"], statics["q"]
     lo, hi = statics["low"], statics["high"]
 
@@ -624,11 +744,10 @@ def _propose_numeric_group(keys, obs, below, above, statics, cfg,
              if has_log else obs)
     tb, ta = _fit_pair(obs_z, below, above, cfg, statics["prior_mu"],
                        statics["prior_sigma"])
-    n_cand = cfg["n_EI_candidates"]
-    if bounded:
-        z = _gmm1_sample_bounded(keys, *tb, lo, hi, n_cand)
-    else:
-        z = _gmm1_sample_unbounded(keys, *tb, n_cand)
+    cdf, alpha, beta = _sample_tables(*tb, lo, hi, bounded)
+    uc, u0 = _draw_uniforms(keys, cfg["n_EI_candidates"])
+    if not fused:
+        z = _draw_from_tables(uc, u0, cdf, tb[1], tb[2], alpha, beta, lo, hi, bounded)
 
     if quantized:
         sel = torch.round(to_value(z) / _lead(q, 3)) * _lead(q, 3)
@@ -637,7 +756,6 @@ def _propose_numeric_group(keys, obs, below, above, statics, cfg,
             return (_q_lpdf_group(xs, *tb, lo, hi, q, islog, bounded, has_log)
                     - _q_lpdf_group(xs, *ta, lo, hi, q, islog, bounded, has_log))
     else:
-        sel = z
         p_b = _p_accept_group(*tb, lo, hi, bounded)
         p_a = _p_accept_group(*ta, lo, hi, bounded)
 
@@ -649,7 +767,19 @@ def _propose_numeric_group(keys, obs, below, above, statics, cfg,
             inb = (xs >= _lead(lo, nd)) & (xs < _lead(hi, nd))
             return ei.masked_fill(~inb, -math.inf)
 
-    ei = _nan_to_neg_inf(score(sel))
+    if fused:
+        # every fused candidate lies in [low, nextafter(high, low)], so the
+        # support mask of `score` is a no-op here
+        G = uc.shape[0]
+        x, raw = megakernel.fused_sample_ei(
+            uc.reshape(G, -1), u0.reshape(G, -1), cdf, tb[1], tb[2], alpha, beta,
+            tb[0], *ta, lo, hi, bounded)
+        sel = x.reshape(uc.shape)
+        ei = _nan_to_neg_inf(_normalize_ei(raw.reshape(uc.shape), p_b, p_a))
+    else:
+        if not quantized:
+            sel = z
+        ei = _nan_to_neg_inf(score(sel))
     val, ei_sel = _select_candidate(keys, sel, ei, cfg)
 
     def draw(kp):
@@ -711,10 +841,22 @@ def _propose_discrete(keys, dist, vals, below_mask, above_mask, cfg, raw=False):
     return val[0], ei[0]
 
 
-def _read_vals(history, label):
-    """float32 view of one label's history column (the read boundary;
-    the port stores float32 only)."""
-    return history["vals"][label].to(torch.float32)
+def _read_vals(history, label, qparams=None):
+    """float32 view of one label's history column, the read boundary of
+    compressed history: float storage (f32/bf16) upcasts, int8/fp8 codes
+    decode with the label's ``(scale, zero, islog)``."""
+    v = history["vals"][label]
+    if qparams is not None and quant.quant_dtype_name(v.dtype) is not None:
+        return quant.dequantize(v, qparams[label])
+    return v.to(torch.float32)
+
+
+def _quant_qparams(cs, hist_dtype):
+    """Per-label qparams for a resolved storage name, or None unless it is
+    int8/fp8: a pure function of (space, name)."""
+    if hist_dtype is None or not quant.is_quant_name(hist_dtype):
+        return None
+    return quant.space_qparams(cs, hist_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -722,15 +864,28 @@ def _read_vals(history, label):
 # ---------------------------------------------------------------------------
 
 
-def build_propose_with_scores(cs, cfg, group=True):
-    """One proposal step ``propose(history, keys[B, 2]) -> {label: (value[B],
-    ei[B])}`` for a compiled space.
+def _tile(v, S):
+    """A per-label constant ``[G, ...]`` repeated for ``S`` studies, study
+    major, as the flattened ``[S·G]`` group axis of a cohort is."""
+    return v.repeat((S,) + (1,) * (v.dim() - 1))
 
-    ``group=True`` routes labels through per-GROUP pipelines: numeric
-    labels sharing a (quantized?, bounded?) shape, discrete labels sharing
-    a bucket count; a family with a single label keeps the per-label
-    pipeline.  ``group=False`` runs every label on its own.  Same math and
-    same per-label keys either way."""
+
+def build_propose_with_scores(cs, cfg, group=True, qparams=None, fused=False):
+    """One proposal step ``propose(history, keys) -> {label: (value, ei)}``
+    for a compiled space.
+
+    History leaves are ``[*S, cap]``, keys ``[*S, B, 2]`` and the values
+    come back ``[*S, B]``: ``S`` is empty for one study and one study axis
+    for a cohort.  ``group=True`` routes labels through per-GROUP
+    pipelines: numeric labels sharing a (quantized?, bounded?) shape,
+    discrete labels sharing a bucket count; a family with a single label
+    keeps the per-label pipeline (one study only).  ``group="all"`` routes
+    every label through a group pipeline, singletons included; a study
+    axis folds into the group axis there, so a cohort's Parzen tables are
+    ``[S·G, m]``.  ``group=False`` runs every label on its own.  Same math
+    and same per-label keys in every layout.  ``qparams`` decodes int8/fp8
+    history at the read boundary; ``fused`` draws and scores un-quantized
+    numeric groups in ``megakernel.fused_sample_ei``."""
     by_gkey = {}
     if group:
         for l in cs.labels:
@@ -742,7 +897,8 @@ def build_propose_with_scores(cs, cfg, group=True):
                 gkey = ("num", q is not None,
                         math.isfinite(low) and math.isfinite(high))
             by_gkey.setdefault(gkey, []).append(l)
-        by_gkey = {k: ls for k, ls in by_gkey.items() if len(ls) >= 2}
+        if group != "all":
+            by_gkey = {k: ls for k, ls in by_gkey.items() if len(ls) >= 2}
     grouped = {l for ls in by_gkey.values() for l in ls}
 
     numeric_groups = []  # (labels, quantized, bounded, has_log, statics)
@@ -760,61 +916,71 @@ def build_propose_with_scores(cs, cfg, group=True):
             numeric_groups.append((ls, gkey[1], gkey[2], any(p[5] for p in parz),
                                    _stack_parzen_statics(parz)))
     hashes = {l: label_hash(l) for l in cs.labels}
-    on_device = {}  # device -> group constants as tensors there
+    on_device = {}  # (device, S) -> group constants as tensors there
 
-    def constants(dev):
-        c = on_device.get(dev)
+    def constants(dev, S):
+        c = on_device.get((dev, S))
         if c is None:
-            t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-            c = on_device[dev] = {
+            t = lambda a: _tile(torch.as_tensor(a, device=dev), S)  # noqa: E731
+            c = on_device[(dev, S)] = {
                 "num": [{k: t(v) for k, v in g[4].items()} for g in numeric_groups],
                 "disc": [(t(g[1]), t(g[2])) for g in disc_groups],
-                "hash": {ls[0]: t([hashes[l] for l in ls])
+                "hash": {ls[0]: torch.as_tensor([hashes[l] for l in ls], device=dev)
                          for ls in [g[0] for g in numeric_groups + disc_groups]},
             }
         return c
 
     def propose(history, keys):
-        c = constants(keys.device)
+        lead = tuple(keys.shape[:-2])
+        B = keys.shape[-2]
+        c = constants(keys.device, math.prod(lead))
         below, above = split_below_above(
             history["losses"].to(torch.float32), history["has_loss"],
             cfg["gamma"], cfg["LF"])
         out = {}
 
         def stacked(ls):
-            gkeys = prng.fold_in(keys[None, :, :], c["hash"][ls[0]][:, None])
-            obs = torch.stack([_read_vals(history, l) for l in ls])
-            act = torch.stack([history["active"][l] for l in ls])
-            return gkeys, obs, below[None, :] & act, above[None, :] & act
+            gkeys = prng.fold_in(keys[..., None, :, :], c["hash"][ls[0]][:, None])
+            obs = torch.stack([_read_vals(history, l, qparams) for l in ls], dim=-2)
+            act = torch.stack([history["active"][l] for l in ls], dim=-2)
+            cap = obs.shape[-1]
+            return (gkeys.reshape(-1, B, 2), obs.reshape(-1, cap),
+                    (below[..., None, :] & act).reshape(-1, cap),
+                    (above[..., None, :] & act).reshape(-1, cap))
+
+        def unstack(ls, val, ei):
+            val = val.reshape(lead + (len(ls), B))
+            ei = ei.reshape(lead + (len(ls), B))
+            for i, l in enumerate(ls):
+                out[l] = (val[..., i, :], ei[..., i, :])
 
         for (ls, quantized, bounded, has_log, _), statics in zip(numeric_groups, c["num"]):
-            val, ei = _propose_numeric_group(*stacked(ls), statics, cfg,
-                                             quantized, bounded, has_log)
-            for i, l in enumerate(ls):
-                out[l] = (val[i], ei[i])
+            unstack(ls, *_propose_numeric_group(
+                *stacked(ls), statics, cfg, quantized, bounded, has_log,
+                fused=fused and not quantized))
         for (ls, _, _), (prior_ps, offsets) in zip(disc_groups, c["disc"]):
-            val, ei = _propose_discrete_group(*stacked(ls), prior_ps, offsets, cfg)
-            for i, l in enumerate(ls):
-                out[l] = (val[i], ei[i])
+            unstack(ls, *_propose_discrete_group(*stacked(ls), prior_ps, offsets, cfg))
         for label in cs.labels:
             if label in grouped:
                 continue
+            if lead:
+                raise ValueError("a study axis needs the group='all' layout")
             dist = cs.params[label].dist
             active = history["active"][label]
             k = prng.fold_in(keys, hashes[label])
             fn = (_propose_discrete if dist.family in ("categorical", "randint")
                   else _propose_numeric)
-            out[label] = fn(k, dist, _read_vals(history, label),
+            out[label] = fn(k, dist, _read_vals(history, label, qparams),
                             below & active, above & active, cfg)
         return out
 
     return propose
 
 
-def build_propose(cs, cfg, group=True):
-    """``propose(history, keys[B, 2]) -> {label: value[B]}``; see
+def build_propose(cs, cfg, group=True, qparams=None, fused=False):
+    """``propose(history, keys) -> {label: value}``; see
     :func:`build_propose_with_scores`."""
-    scored = build_propose_with_scores(cs, cfg, group=group)
+    scored = build_propose_with_scores(cs, cfg, group=group, qparams=qparams, fused=fused)
 
     def propose(history, keys):
         return {l: v for l, (v, _) in scored(history, keys).items()}
@@ -822,39 +988,52 @@ def build_propose(cs, cfg, group=True):
     return propose
 
 
-def _apply_rows(labels, history, rows):
+def _apply_rows(labels, history, rows, qparams=None, study=None):
     """Fold packed trial rows (``PaddedHistory._pack_row`` layout) into the
     device history in place, one ``index_put_`` per array; every row
-    targets its own slot."""
+    targets its own slot.  ``study[K]`` indexes the leading study axis of
+    a cohort's stacked history.  A code leaf (int8/fp8) takes the affine
+    encode of the row's snapped value (``quant.quantize``), a bf16 leaf a
+    cast."""
     L = len(labels)
-    idx = rows[:, 2 * L + 2].to(torch.int64)
+    at = (rows[:, 2 * L + 2].to(torch.int64),)
+    if study is not None:
+        at = (study,) + at
     for j, l in enumerate(labels):
-        history["vals"][l].index_put_((idx,), rows[:, j].to(history["vals"][l].dtype))
-        history["active"][l].index_put_((idx,), rows[:, L + j] > 0.5)
-    history["losses"].index_put_((idx,), rows[:, 2 * L].to(history["losses"].dtype))
-    history["has_loss"].index_put_((idx,), rows[:, 2 * L + 1] > 0.5)
+        leaf = history["vals"][l]
+        name = quant.quant_dtype_name(leaf.dtype)
+        if name is not None:
+            leaf.index_put_(at, quant.quantize(rows[:, j], qparams[l], name))
+        else:
+            leaf.index_put_(at, rows[:, j].to(leaf.dtype))
+        history["active"][l].index_put_(at, rows[:, L + j] > 0.5)
+    history["losses"].index_put_(at, rows[:, 2 * L].to(history["losses"].dtype))
+    history["has_loss"].index_put_(at, rows[:, 2 * L + 1] > 0.5)
     return history
 
 
-def _tick(cs, propose, history, rows, seed, ids):
+def _tick(cs, propose, history, rows, seed, ids, qparams=None):
     """One ask→tell tick on the history's device: fold ``rows`` in place,
     derive ``fold_in(fold_in(PRNGKey(lo), hi), id)`` per id, propose, and
     pack ``[B, L]``."""
-    _apply_rows(cs.labels, history, rows)
+    _apply_rows(cs.labels, history, rows, qparams)
     keys = prng.fold_in(rand.seed_to_key(seed, ids.device), ids)
     return rand.pack_labels(cs, propose(history, keys))
 
 
-# (space signature, cfg) -> proposal step; its host-side group tables
-# and per-device constants are built once per space
+# (space signature, cfg, storage) -> proposal step; its host-side group
+# tables and per-device constants are built once per space
 _propose_cache = LRUCache(32)
 
 
-def _get_propose(cs, cfg):
+def _get_propose(cs, cfg, qparams=None, hist_dtype=None):
     key = (cs.signature(), tuple(sorted(cfg.items())))
+    if qparams is not None:
+        # qparams are a pure function of (space, name): the name keys them
+        key = key + ("quant", str(hist_dtype))
     fn = _propose_cache.get(key)
     if fn is None:
-        fn = build_propose(cs, cfg)
+        fn = build_propose(cs, cfg, qparams=qparams)
         _propose_cache.put(key, fn)
     return fn
 
@@ -893,12 +1072,15 @@ def suggest_async(
         "prior_eps": float(prior_eps),
     }
     cs = domain.cs
-    propose = _get_propose(cs, cfg)
     ph = trials.history_object(cs.labels)
+    # arm (or degrade) the int8/fp8 code before the mirror is built; a
+    # no-op unless HYPEROPT_TPU_HIST_DTYPE names a code
+    ph.ensure_qparams(cs)
+    propose = _get_propose(cs, cfg, ph.qparams, ph.hist_dtype)
     ids = torch.from_numpy(rand.pad_ids_sticky(domain, new_ids)).to(ph.device)
     dev, rows = ph.device_state()
     try:
-        mat = _tick(cs, propose, dev, rows, seed, ids)
+        mat = _tick(cs, propose, dev, rows, seed, ids, ph.qparams)
     except BaseException:
         # a half-applied in-place fold: rebuild the mirror from host next time
         ph.abandon_device()
@@ -917,3 +1099,120 @@ def suggest(new_ids, domain, trials, seed, **kwargs):
     ``suggest_async`` plus an immediate ``result()``.  Tune with
     ``functools.partial(tpe.suggest, gamma=..., n_EI_candidates=...)``."""
     return suggest_async(new_ids, domain, trials, seed, **kwargs).result()
+
+
+# ---------------------------------------------------------------------------
+# the study-batched cohort: one tick for many studies sharing a space, a
+# TPE cfg and a capacity bucket (the scheduler's cohort contract)
+# ---------------------------------------------------------------------------
+
+
+def _seed_words(seed):
+    """(low 32 bits, high 32 bits) of an integer seed as ``uint32[2]``: the
+    tick's key is ``fold_in(PRNGKey(low), high)``."""
+    return np.asarray(prng.seed_words(seed), np.uint32)
+
+
+# (space signature, cfg, cohort shape, storage, route) -> cohort program
+_cohort_cache = LRUCache(16)
+
+
+def cohort_cache_stats():
+    """Hit/miss/size counters of the cohort-program LRU."""
+    return _cohort_cache.stats()
+
+
+def cohort_cache_contains(key):
+    """Whether the cohort LRU holds ``key``, counting no hit or miss."""
+    return _cohort_cache.contains(key)
+
+
+def cohort_key(cs, cfg, n_studies, cap, n_ids, donate=True, mesh=None,
+               hist_dtype=None):
+    """The cohort-LRU key :func:`build_suggest_batched` uses: the space,
+    cfg and slot shape, plus ``("quant", name)`` for a code storage name
+    and ``("megakernel", mode)`` when the fused route is armed."""
+    if mesh is not None:
+        raise not_ported("a sharded cohort (build_suggest_batched(mesh=...))", 12)
+    key = (cs.signature(), tuple(sorted(cfg.items())), "cohort",
+           int(n_studies), int(cap), int(n_ids), bool(donate))
+    if hist_dtype is not None and quant.is_quant_name(hist_dtype):
+        key = key + ("quant", str(hist_dtype))
+    if megakernel.armed(cs):
+        key = key + ("megakernel", megakernel.mode())
+    return key
+
+
+def build_suggest_batched(cs, cfg, n_studies, cap, n_ids, donate=True,
+                          mesh=None, hist_dtype=None):
+    """The STUDY-BATCHED tell+ask program::
+
+        run(hist_stack, rows_stack, seed_words[S, 2], ids[S, B])
+            -> (hist_stack', packed[S, B, L])
+
+    Every history leaf carries a leading study axis (``losses[S, cap]``,
+    ``vals[l][S, cap]``, ...) on the cohort's device; ``rows_stack`` is a
+    host ``[S, K, 2L+3]`` array of per-study tell rows in the
+    ``PaddedHistory._pack_row`` layout, padding rows with index ``>= cap``
+    (they are dropped on the host, as the reference's ``mode='drop'``
+    drops them).  Per study it is the single-study tick: the same row
+    fold, keys ``fold_in(fold_in(PRNGKey(seed_words[s, 0]),
+    seed_words[s, 1]), id)``, the same group pipelines, with the study
+    axis written out as a leading batch dimension.  ``donate=True`` folds
+    the rows into ``hist_stack`` in place and returns it; ``donate=False``
+    folds into a copy.  ``hist_dtype`` is the cohort's resolved storage
+    name (int8/fp8 decode and encode codes).  With the fused route armed
+    (``megakernel.armed(cs)``) the build is ``megakernel.build_cohort``.
+    Programs are cached under :func:`cohort_key`."""
+    key = cohort_key(cs, cfg, n_studies, cap, n_ids, donate=donate, mesh=mesh,
+                     hist_dtype=hist_dtype)
+    fn = _cohort_cache.get(key)
+    if fn is None:
+        qparams = _quant_qparams(cs, hist_dtype)
+        if megakernel.armed(cs):
+            fn = megakernel.build_cohort(cs, cfg, n_studies, cap, n_ids,
+                                         donate=donate, qparams=qparams)
+        else:
+            fn = _build_cohort(cs, cfg, n_studies, cap, n_ids, donate, qparams,
+                               fused=False)
+        _cohort_cache.put(key, fn)
+    return fn
+
+
+def _host(a, dtype):
+    if isinstance(a, torch.Tensor):
+        a = a.cpu().numpy()
+    return np.asarray(a).astype(dtype)
+
+
+def _build_cohort(cs, cfg, n_studies, cap, n_ids, donate, qparams, fused):
+    """The cohort program of :func:`build_suggest_batched`, with the
+    grouped ``ei_diff`` middle or (``fused``) the fused kernel's."""
+    propose = build_propose(cs, cfg, group="all", qparams=qparams, fused=fused)
+    labels = cs.labels
+    S, cap, B = int(n_studies), int(cap), int(n_ids)
+
+    def run(hist_stack, rows_stack, seed_words, ids):
+        dev = hist_stack["losses"].device
+        if tuple(hist_stack["losses"].shape) != (S, cap):
+            raise ValueError(f"cohort history must be [S={S}, cap={cap}], got "
+                             f"{tuple(hist_stack['losses'].shape)}")
+        ids = _host(ids, np.int64)
+        if ids.shape != (S, B):
+            raise ValueError(f"cohort ids must be [S={S}, B={B}], got {ids.shape}")
+        if not donate:
+            hist_stack = {"vals": {l: v.clone() for l, v in hist_stack["vals"].items()},
+                          "active": {l: v.clone() for l, v in hist_stack["active"].items()},
+                          "losses": hist_stack["losses"].clone(),
+                          "has_loss": hist_stack["has_loss"].clone()}
+        rows = _host(rows_stack, np.float32)
+        study, k = np.nonzero(rows[:, :, -1] < cap)
+        if study.size:
+            _apply_rows(labels, hist_stack, torch.from_numpy(rows[study, k]).to(dev),
+                        qparams, torch.from_numpy(study).to(dev))
+        words = torch.from_numpy(_host(seed_words, np.int64)).to(dev)
+        base = prng.fold_in(prng.PRNGKey(words[:, 0]), words[:, 1])
+        keys = prng.fold_in(base[:, None, :], torch.from_numpy(ids).to(dev))
+        return hist_stack, rand.pack_labels(cs, propose(hist_stack, keys))
+
+    return run

@@ -7,7 +7,8 @@ trials into a ``PaddedHistory``: per label ``vals[f32, cap]`` and
 capacity buckets.  The numpy arrays are the source of truth; the device
 mirror is a dict of torch tensors on the trials' device that each TPE tick
 updates in place (``index_put_``) with the rows finished since the last
-tick.
+tick.  ``HYPEROPT_TPU_HIST_DTYPE`` picks the mirror's storage: float32,
+bf16, or int8/fp8 codes of ``quant.py`` with bf16 losses.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import math
 import numpy as np
 import torch
 
+from . import quant
 from ._env import parse_hist_dtype, resolve_device
 from .exceptions import (
     AllTrialsFailed,
@@ -141,10 +143,14 @@ class PaddedHistory:
     # many the mirror is re-uploaded instead
     _MAX_FOLD_ROWS = 16
 
-    def __init__(self, labels, device=None):
-        parse_hist_dtype()  # float32 storage only: raises for anything else
+    def __init__(self, labels, device=None, hist_dtype=None):
         self.labels = tuple(labels)
         self.device = resolve_device(device)
+        # the mirror's storage name (HYPEROPT_TPU_HIST_DTYPE by default);
+        # int8/fp8 store codes only once ensure_qparams arms them, bf16
+        # until then
+        self.hist_dtype = str(hist_dtype) if hist_dtype else parse_hist_dtype()
+        self.qparams = None  # {label: (scale, zero, islog)} once armed
         self.n = 0
         self.cap = _MIN_CAP
         self._vals = {l: np.zeros(self.cap, np.float32) for l in self.labels}
@@ -169,12 +175,17 @@ class PaddedHistory:
         self._dev = None  # shapes changed: full re-upload at next use
 
     def append(self, flat_vals: dict, loss):
-        """Record one finished trial (flat {label: value}; absent = inactive)."""
+        """Record one finished trial (flat {label: value}; absent =
+        inactive).  Under armed qparams the stored value is the snapped
+        grid point the device mirror decodes (``quant.snap_np``)."""
         self._grow(self.n + 1)
         i = self.n
         for l in self.labels:
             if l in flat_vals and flat_vals[l] is not None:
-                self._vals[l][i] = float(flat_vals[l])
+                v = float(flat_vals[l])
+                if self.qparams is not None:
+                    v = float(quant.snap_np(v, self.qparams[l], self.hist_dtype))
+                self._vals[l][i] = v
                 self._active[l][i] = True
         if loss is not None and math.isfinite(float(loss)):
             self._losses[i] = float(loss)
@@ -192,20 +203,71 @@ class PaddedHistory:
         row[2 * L + 2] = float(i)  # cap ≤ 2^24: exact in f32
         return row
 
-    def pack_rows(self, start):
-        """``[n - start, 2L+3]`` float32 rows for trials ``start..n`` in the
-        ``_pack_row`` layout."""
-        rows = np.zeros((self.n - start, 2 * len(self.labels) + 3), np.float32)
+    def pack_rows(self, start, K=None, noop_index=None):
+        """float32 rows for trials ``start..n`` in the ``_pack_row`` layout:
+        ``[n - start, 2L+3]``, or with ``K`` padded to ``K`` rows whose
+        index is ``noop_index`` (default ``cap``), a slot past the end that
+        the folds drop."""
+        L = len(self.labels)
+        rows = np.zeros((self.n - start if K is None else K, 2 * L + 3), np.float32)
+        rows[:, 2 * L + 2] = float(self.cap if noop_index is None else noop_index)
         for j, i in enumerate(range(start, self.n)):
             rows[j] = self._pack_row(i)
         return rows
 
+    def host_padded(self):
+        """Full-capacity views of the authoritative host arrays (``vals``,
+        ``active``, ``losses``, ``has_loss``), padding included: what a
+        cohort stacks into its ``[S, cap]`` mirror.  Read-only."""
+        return {"vals": self._vals, "active": self._active,
+                "losses": self._losses, "has_loss": self._has_loss}
+
+    def _mirror_plan(self):
+        """``(storage name, qparams or None)`` of the device mirror: a code
+        name stores codes once :meth:`ensure_qparams` armed them, and bf16
+        until then."""
+        if quant.is_quant_name(self.hist_dtype):
+            if self.qparams is not None:
+                return self.hist_dtype, self.qparams
+            return "bfloat16", None
+        return self.hist_dtype, None
+
+    def ensure_qparams(self, cs):
+        """Arm the space's int8/fp8 code once: a no-op unless ``hist_dtype``
+        is a code name not armed yet.  A space the code cannot represent
+        degrades this history to bf16 (``quant.resolve`` warns once).  On
+        success the recorded rows are snapped to the grid retroactively and
+        the mirror re-uploads as codes."""
+        if self.qparams is not None or not quant.is_quant_name(self.hist_dtype):
+            return
+        if self._pending is not None:
+            raise StaleHistoryError("PaddedHistory.ensure_qparams during an "
+                                    "uncommitted tick")
+        _, qp = quant.resolve(cs, self.hist_dtype, context="history")
+        if qp is None or any(l not in qp for l in self.labels):
+            self.hist_dtype = "bfloat16"
+            return
+        self.qparams = {l: qp[l] for l in self.labels}
+        for l in self.labels:
+            m = self._active[l][: self.n]
+            if m.any():
+                v = self._vals[l][: self.n]
+                v[m] = quant.snap_np(v[m], self.qparams[l], self.hist_dtype)
+        self._dev = None
+
     def _full_upload(self):
         dev = self.device
+        name, qp = self._mirror_plan()
+        if qp is not None:
+            vals = {l: quant.quantize_np(self._vals[l], qp[l], name).to(dev)
+                    for l in self.labels}
+        else:
+            vals = {l: torch.tensor(self._vals[l], dtype=quant.vals_dtype(name), device=dev)
+                    for l in self.labels}
         self._dev = {
-            "vals": {l: torch.tensor(self._vals[l], device=dev) for l in self.labels},
+            "vals": vals,
             "active": {l: torch.tensor(self._active[l], device=dev) for l in self.labels},
-            "losses": torch.tensor(self._losses, device=dev),
+            "losses": torch.tensor(self._losses, dtype=quant.losses_dtype(name), device=dev),
             "has_loss": torch.tensor(self._has_loss, device=dev),
         }
         self._dev_synced = self.n
@@ -278,12 +340,15 @@ class Trials:
     """In-memory trial store, document-compatible with the reference
     (hyperopt/base.py sym: Trials), plus the padded history its
     suggesters read.  ``device`` is where that history lives and where
-    the suggesters run: CUDA unless ``device="cpu"``."""
+    the suggesters run: CUDA unless ``device="cpu"``.  ``hist_dtype``
+    names the history mirror's storage (``HYPEROPT_TPU_HIST_DTYPE`` when
+    None)."""
 
     asynchronous = False
 
-    def __init__(self, exp_key=None, refresh=True, device=None):
+    def __init__(self, exp_key=None, refresh=True, device=None, hist_dtype=None):
         self.device = resolve_device(device)
+        self.hist_dtype = hist_dtype
         self._ids = set()
         self._dynamic_trials = []
         self._exp_key = exp_key
@@ -426,7 +491,8 @@ class Trials:
         a pending list revisited on every call, so fold order is completion
         order."""
         if self._history is None or self._history.labels != tuple(labels):
-            self._history = PaddedHistory(labels, self.device)
+            self._history = PaddedHistory(labels, self.device,
+                                          getattr(self, "hist_dtype", None))
             self._history_synced = 0
             self._history_pending = []
         docs = self._dynamic_trials

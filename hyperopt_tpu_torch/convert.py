@@ -14,10 +14,18 @@ from __future__ import annotations
 import copy
 
 import numpy as np
+import torch
 
+from ._env import resolve_device
 from .base import PaddedHistory, trials_from_docs
 
-__all__ = ["padded_history_from_numpy", "trials_from_reference_docs"]
+__all__ = ["padded_history_from_numpy", "cohort_stack_from_numpy",
+           "trials_from_reference_docs"]
+
+# numpy dtypes that torch.from_numpy does not take (ml_dtypes' bfloat16 and
+# float8_e4m3fn, as a JAX array of that type converts), crossed as their bits
+_BITS = {"bfloat16": (np.uint16, torch.bfloat16),
+         "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
 
 
 def padded_history_from_numpy(labels, vals, active, losses, has_loss, device=None,
@@ -47,6 +55,28 @@ def padded_history_from_numpy(labels, vals, active, losses, has_loss, device=Non
     ph._has_loss[:size] = has_loss
     ph.n = int(n)
     return ph
+
+
+def _tensor(a, device):
+    a = np.ascontiguousarray(a)
+    if a.dtype.name in _BITS:
+        bits, dtype = _BITS[a.dtype.name]
+        return torch.from_numpy(a.view(bits).copy()).view(dtype).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def cohort_stack_from_numpy(hist_stack, device=None):
+    """The port's stacked cohort history on ``device`` from the JAX
+    package's ``hist_stack`` as numpy arrays (``np.asarray`` of each
+    leaf): ``vals``/``active`` per label and ``losses``/``has_loss``, all
+    ``[S, cap]``, in their storage types (float32, bfloat16, int8 or
+    float8_e4m3fn codes) bit for bit.  ``tpe.build_suggest_batched``'s
+    ``run`` takes the result where the reference's takes ``hist_stack``."""
+    dev = resolve_device(device)
+    return {"vals": {l: _tensor(v, dev) for l, v in hist_stack["vals"].items()},
+            "active": {l: _tensor(v, dev) for l, v in hist_stack["active"].items()},
+            "losses": _tensor(hist_stack["losses"], dev),
+            "has_loss": _tensor(hist_stack["has_loss"], dev)}
 
 
 def trials_from_reference_docs(docs, device=None):

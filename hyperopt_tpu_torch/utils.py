@@ -19,7 +19,8 @@ def coarse_utcnow():
 
 
 class LRUCache:
-    """Bounded most-recently-used mapping; thread-safe."""
+    """Bounded most-recently-used mapping; thread-safe.  ``hits`` and
+    ``misses`` count :meth:`get` outcomes."""
 
     def __init__(self, maxsize):
         self.maxsize = int(maxsize)
@@ -27,12 +28,16 @@ class LRUCache:
             raise ValueError(f"LRUCache maxsize must be >= 1, got {maxsize}")
         self._d = {}
         self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
 
     def get(self, key, default=None):
         with self._lock:
             v = self._d.pop(key, _LRU_MISS)
             if v is _LRU_MISS:
+                self.misses += 1
                 return default
+            self.hits += 1
             self._d[key] = v  # re-insert: most recently used at the end
             return v
 
@@ -42,3 +47,13 @@ class LRUCache:
             while len(self._d) >= self.maxsize:
                 self._d.pop(next(iter(self._d)))
             self._d[key] = value
+
+    def contains(self, key):
+        """Membership without counting a hit or a miss or touching recency."""
+        with self._lock:
+            return key in self._d
+
+    def stats(self):
+        with self._lock:
+            return {"hits": self.hits, "misses": self.misses,
+                    "size": len(self._d), "maxsize": self.maxsize}

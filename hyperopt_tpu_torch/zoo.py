@@ -1,13 +1,16 @@
 """Benchmark domains (counterpart of ``hyperopt_tpu/zoo.py``): the ones the
-port's main path and tests drive, with host (numpy) objectives.
+port's main path, its study scheduler and its tests drive, with host
+(numpy) objectives, and ``make_study_mix``, the standing multi-study
+workload.
 
-``branin`` evaluates in float32 as the JAX package's jnp objective does,
-so both report the same loss for the same point.
+The objectives evaluate in float32 as the JAX package's jnp objectives
+do, so both report the same loss for the same point to float32 rounding.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable
 
@@ -15,7 +18,8 @@ import numpy as np
 
 from . import hp
 
-__all__ = ["DomainZoo", "ZOO", "branin"]
+__all__ = ["DomainZoo", "ZOO", "branin", "hartmann6", "rosenbrock", "StudyMixItem",
+           "make_study_mix"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,23 +43,31 @@ def branin(x, y):
             + f32(s * (1 - t)) * np.cos(f32(x)) + f32(s))
 
 
-def _hartmann6_host(x):
-    """Hartmann6 in numpy; global min ≈ -3.32237."""
-    alpha = np.array([1.0, 1.2, 3.0, 3.2])
-    A = np.array([
-        [10, 3, 17, 3.5, 1.7, 8],
-        [0.05, 10, 17, 0.1, 8, 14],
-        [3, 3.5, 1.7, 10, 17, 8],
-        [17, 8, 0.05, 10, 0.1, 14],
-    ])
-    P = 1e-4 * np.array([
-        [1312, 1696, 5569, 124, 8283, 5886],
-        [2329, 4135, 8307, 3736, 1004, 9991],
-        [2348, 1451, 3522, 2883, 3047, 6650],
-        [4047, 8828, 8732, 5743, 1091, 381],
-    ])
-    inner = np.sum(A * (np.asarray(x) - P) ** 2, axis=1)
-    return float(-np.sum(alpha * np.exp(-inner)))
+_H6_ALPHA = np.array([1.0, 1.2, 3.0, 3.2], np.float32)
+_H6_A = np.array([
+    [10, 3, 17, 3.5, 1.7, 8],
+    [0.05, 10, 17, 0.1, 8, 14],
+    [3, 3.5, 1.7, 10, 17, 8],
+    [17, 8, 0.05, 10, 0.1, 14],
+], np.float32)
+_H6_P = (1e-4 * np.array([
+    [1312, 1696, 5569, 124, 8283, 5886],
+    [2329, 4135, 8307, 3736, 1004, 9991],
+    [2348, 1451, 3522, 2883, 3047, 6650],
+    [4047, 8828, 8732, 5743, 1091, 381],
+])).astype(np.float32)
+
+
+def hartmann6(x):
+    """6-D Hartmann (BASELINE config #3); global min ≈ -3.32237."""
+    inner = np.sum(_H6_A * (np.asarray(x, np.float32) - _H6_P) ** 2, axis=1)
+    return float(-np.sum(_H6_ALPHA * np.exp(-inner)))
+
+
+def rosenbrock(xs):
+    xs = np.asarray(xs, np.float32)
+    return float(np.sum(100.0 * (xs[1:] - xs[:-1] ** 2) ** 2 + (1.0 - xs[:-1]) ** 2,
+                        dtype=np.float32))
 
 
 def _quadratic1():
@@ -105,12 +117,111 @@ def _hr_conditional():
 
     def obj(d):
         if d["kind"] == "hartmann":
-            return _hartmann6_host(d["xs"])
+            return hartmann6(d["xs"])
         xs = np.asarray(d["xs"]) * d["scale"]
         return float(np.sum(100.0 * (xs[1:] - xs[:-1] ** 2) ** 2 + (1.0 - xs[:-1]) ** 2))
 
     return DomainZoo(name="hr_conditional", space=space, objective=obj, loss_target=-1.0)
 
 
+def _hartmann6_domain():
+    return DomainZoo(
+        name="hartmann6",
+        space={f"x{i}": hp.uniform(f"x{i}", 0, 1) for i in range(6)},
+        objective=lambda d: hartmann6([d[f"x{i}"] for i in range(6)]),
+        loss_target=-2.0,
+    )
+
+
+def _rosenbrock4():
+    return DomainZoo(
+        name="rosenbrock4",
+        space={f"x{i}": hp.uniform(f"x{i}", -2, 2) for i in range(4)},
+        objective=lambda d: rosenbrock([d[f"x{i}"] for i in range(4)]),
+        loss_target=30.0,
+    )
+
+
+@functools.lru_cache(maxsize=1)
+def _hpob_weights(hidden=64):
+    """The surrogate's fixed 2-hidden-layer tanh network, drawn from
+    ``np.random.default_rng(77)`` in the JAX package's order."""
+    rng = np.random.default_rng(77)
+    fdim = 9  # 5 numeric features in [0, 1] + a 4-way one-hot
+    W1 = rng.standard_normal((fdim, hidden)).astype(np.float32) * 1.8
+    b1 = rng.uniform(-1, 1, hidden).astype(np.float32)
+    W2 = rng.standard_normal((hidden, hidden)).astype(np.float32) / np.sqrt(hidden)
+    b2 = rng.uniform(-1, 1, hidden).astype(np.float32)
+    w3 = rng.standard_normal(hidden).astype(np.float32) / np.sqrt(hidden)
+    return W1, b1, W2, b2, w3
+
+
+def _hpob_surrogate():
+    """HPO-B-style tabular surrogate (BASELINE config #5): a seeded random
+    MLP over a mixed ML search space (log-scaled learning rate and weight
+    decay, quantized dropout, momentum, integer depth, a 4-way optimizer
+    choice).  Its q-label and choice keep it off the fused kernel."""
+
+    def obj(d):
+        W1, b1, W2, b2, w3 = _hpob_weights()
+        f32 = np.float32
+        feats = [(np.log(f32(d["lr"])) + f32(9.2)) / f32(9.2),
+                 (np.log(f32(d["weight_decay"])) + f32(13.8)) / f32(13.8),
+                 f32(d["dropout"]) / f32(0.9),
+                 f32(d["momentum"]),
+                 (f32(d["depth"]) - f32(1.0)) / f32(7.0)]
+        onehot = (int(d["optimizer"]) == np.arange(4)).astype(np.float32)
+        x = np.concatenate([np.asarray(feats, np.float32), onehot])
+        h = np.tanh(x @ W1 + b1)
+        h = np.tanh(h @ W2 + b2)
+        return float(np.dot(h, w3))
+
+    space = {
+        "lr": hp.loguniform("lr", math.log(1e-4), 0.0),
+        "weight_decay": hp.loguniform("weight_decay", math.log(1e-6), 0.0),
+        "dropout": hp.quniform("dropout", 0.0, 0.9, 0.1),
+        "momentum": hp.uniform("momentum", 0.0, 1.0),
+        "depth": hp.uniformint("depth", 1, 8),
+        "optimizer": hp.choice("optimizer", [0, 1, 2, 3]),
+    }
+    return DomainZoo(name="hpob_surrogate", space=space, objective=obj, loss_target=-0.55)
+
+
 ZOO = {d.name: d for d in (_quadratic1(), _q1_choice(), _branin_domain(),
-                           _hr_conditional())}
+                           _hartmann6_domain(), _rosenbrock4(), _hr_conditional(),
+                           _hpob_surrogate())}
+
+
+@dataclasses.dataclass(frozen=True)
+class StudyMixItem:
+    """One study of the standing multi-study workload: a zoo domain plus
+    its serving parameters (seed, budget, startup count)."""
+
+    name: str
+    domain: DomainZoo
+    seed: int
+    budget: int
+    n_startup_jobs: int
+
+
+# heterogeneous spaces (1-D, 2-D, 6-D, 4-D uniform and the mixed HPO-B
+# surrogate), so a mix always exercises several cohorts at once
+_MIX_DOMAINS = ("quadratic1", "branin", "hartmann6", "rosenbrock4", "hpob_surrogate")
+_MIX_BUDGETS = (20, 30, 40, 60, 80)
+
+
+def make_study_mix(n, seed0=0):
+    """``n`` heterogeneous studies cycling through the mix domains with
+    varied budgets and per-study seeds; deterministic in ``(n, seed0)``
+    and the same workload as the JAX package's ``make_study_mix``."""
+    mix = []
+    for i in range(int(n)):
+        dom = ZOO[_MIX_DOMAINS[i % len(_MIX_DOMAINS)]]
+        mix.append(StudyMixItem(
+            name=f"{dom.name}#{i}",
+            domain=dom,
+            seed=int(seed0) + i,
+            budget=_MIX_BUDGETS[(i // len(_MIX_DOMAINS)) % len(_MIX_BUDGETS)],
+            n_startup_jobs=5,
+        ))
+    return mix

@@ -11,6 +11,8 @@ import torch
 
 import hyperopt_tpu_torch as port
 from hyperopt_tpu_torch import megakernel, zoo
+from hyperopt_tpu_torch.algos import tpe
+from hyperopt_tpu_torch.service import StudyScheduler
 
 pytestmark = pytest.mark.cuda
 
@@ -64,3 +66,63 @@ def test_fmin_on_the_card_follows_the_cpu_path(cuda_device):
                   rstate=np.random.default_rng(2), show_progressbar=False)
         runs.append([d["misc"]["vals"]["x"][0] for d in t.trials])
     np.testing.assert_allclose(runs[0], runs[1], rtol=1e-4, atol=1e-5)
+
+
+def _fused_inputs(P, N, m, device, dead=0, bounded=True, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    uc, u0 = torch.rand(P, N, generator=g), torch.rand(P, N, generator=g)
+    tabs = {}
+    for side in "ba":
+        w = torch.rand(P, m, generator=g) + 0.1
+        w[:, m - dead:] = 0.0
+        tabs["w" + side] = w / w.sum(1, keepdim=True)
+        tabs["m" + side] = torch.randn(P, m, generator=g)
+        tabs["s" + side] = torch.rand(P, m, generator=g) * 1.8 + 0.2
+    low, high = torch.full((P,), -2.0), torch.full((P,), 2.5)
+    cdf, ab, bb = tpe._sample_tables(tabs["wb"], tabs["mb"], tabs["sb"], low, high, bounded)
+    args = (uc, u0, cdf, tabs["mb"], tabs["sb"], ab, bb, tabs["wb"], tabs["wa"], tabs["ma"],
+            tabs["sa"], low, high)
+    return [t.to(device).contiguous() for t in args]
+
+
+@pytest.mark.parametrize("P,N,m,dead,bounded", [(6, 24, 17, 0, True), (1536, 24, 65, 0, True),
+                                                (24, 4096, 129, 0, False),
+                                                (40, 100, 300, 77, True), (3, 1000, 1025, 5, False)])
+def test_fused_kernel_matches_plain_and_counts_launches(cuda_device, P, N, m, dead, bounded):
+    args = _fused_inputs(P, N, m, cuda_device, dead=dead, bounded=bounded, seed=P + N + m)
+    before = megakernel.fused_sample_ei.launches
+    x, ei = megakernel.fused_sample_ei(*args, bounded)
+    torch.cuda.synchronize()
+    assert megakernel.fused_sample_ei.launches == before + 1
+    px, pei = megakernel.fused_sample_ei_plain(*args, bounded)
+    for got, want in ((x, px), (ei, pei)):
+        assert torch.isfinite(got).all()
+        assert bool(((got - want).abs() <= 1e-4 * want.abs().clamp(min=1.0)).all())
+    if bounded:
+        assert bool((x >= -2.0).all()) and bool((x < 2.5).all())
+
+
+def test_fused_kernel_rejects_wrong_dtype_and_strided_input(cuda_device):
+    uc, u0, *rest = _fused_inputs(4, 64, 17, cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        megakernel.fused_sample_ei(uc.double(), u0.double(), *rest, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        megakernel.fused_sample_ei(uc.t().contiguous().t(), u0, *rest, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        megakernel.ei_diff(uc.t().contiguous().t(), *rest[:6])
+    with pytest.raises(TypeError, match="float32"):
+        megakernel.ei_diff(uc.half(), *rest[:6])
+
+
+def test_scheduler_on_the_card_follows_the_cpu_path(cuda_device):
+    dom = zoo.ZOO["hartmann6"]
+    streams = []
+    for device in ("cpu", cuda_device):
+        sched = StudyScheduler(device=device)
+        sids = [sched.create_study(dom.space, seed=s, n_startup_jobs=5) for s in (3, 4)]
+        for _ in range(15):
+            for sid, (a,) in sched.ask_many([(sid, 1) for sid in sids]).items():
+                sched.tell(sid, a["tid"], dom.objective(a["params"]))
+        streams.append([[d["misc"]["vals"]["x0"][0] for d in sched._studies[sid].trials]
+                        for sid in sids])
+    np.testing.assert_allclose(streams[0], streams[1], rtol=1e-4, atol=1e-5)

@@ -8,6 +8,7 @@ import pickle
 
 import numpy as np
 import pytest
+import torch
 
 import hyperopt_tpu as ref
 from hyperopt_tpu import zoo as ref_zoo
@@ -122,7 +123,22 @@ def test_reference_trials_continue_in_the_port():
 
 
 def test_quantized_history_storage_is_not_ported(monkeypatch):
+    """Quantized history is ported now: under ``HYPEROPT_TPU_HIST_DTYPE=int8``
+    the port's history stores int8 codes and its branin stream follows the
+    reference's."""
     monkeypatch.setenv("HYPEROPT_TPU_HIST_DTYPE", "int8")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        PaddedHistory(("x",), device="cpu")
+    assert PaddedHistory(("x",), device="cpu").hist_dtype == "int8"
+    rt = _run(ref, ref_zoo, "branin", 30, seed=2)
+    pt = _run(port, zoo, "branin", 30, seed=2)
+    _assert_same_stream(rt, pt)
+    ph = pt.history_object(("x", "y"))
+    assert ph.qparams is not None and ph.device_view()["vals"]["x"].dtype == torch.int8
+
+
+@pytest.mark.parametrize("name", ["bf16", "fp8"])
+def test_compressed_history_streams_match_reference(name, monkeypatch):
+    monkeypatch.setenv("HYPEROPT_TPU_HIST_DTYPE", name)
+    rt = _run(ref, ref_zoo, "q1_choice", 30, seed=5)
+    pt = _run(port, zoo, "q1_choice", 30, seed=5)
+    _assert_same_stream(rt, pt)
 

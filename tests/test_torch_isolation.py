@@ -9,12 +9,14 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 import hyperopt_tpu_torch as port
-from hyperopt_tpu_torch import hp, spaces
+from hyperopt_tpu_torch import convert, hp, spaces
 from hyperopt_tpu_torch.base import PaddedHistory
+from hyperopt_tpu_torch.service import StudyScheduler
 
 PKG = pathlib.Path(port.__file__).resolve().parent
 REPO = PKG.parent
@@ -22,7 +24,8 @@ REPO = PKG.parent
 
 def test_import_loads_neither_jax_nor_the_jax_package():
     code = ("import sys, hyperopt_tpu_torch, hyperopt_tpu_torch.convert, "
-            "hyperopt_tpu_torch.zoo, hyperopt_tpu_torch.megakernel; "
+            "hyperopt_tpu_torch.zoo, hyperopt_tpu_torch.megakernel, "
+            "hyperopt_tpu_torch.quant, hyperopt_tpu_torch.service.scheduler; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hyperopt_tpu')]; "
             "assert not bad, bad")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
@@ -55,6 +58,10 @@ def test_default_device_entry_points_raise_without_cuda():
         lambda: spaces.sample(space, 0),
         lambda: port.fmin(lambda d: d["x"], space, max_evals=2, show_progressbar=False),
         lambda: port.generate_trials_to_calculate([{"x": 0.5}]),
+        lambda: StudyScheduler(),
+        lambda: convert.cohort_stack_from_numpy(
+            {"vals": {}, "active": {}, "losses": np.zeros((1, 16), np.float32),
+             "has_loss": np.zeros((1, 16), bool)}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

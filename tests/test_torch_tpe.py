@@ -118,7 +118,8 @@ def _top2_tied(label, ref_hist, rkey, cfg):
 def _ref_ei_at(label, xs, ref_hist, cfg):
     """The reference's EI (below minus above log-density, from its own fit
     and lpdfs) of a numeric label at the values ``xs``.  EI is steep, so a
-    few-ulp gap in a sampled value moves it by more than the tolerance;
+    few-ulp gap in a sampled value can move it by more than the tolerance
+    (a tail ``ndtri`` draw of label ``a``, ROADMAP.md queue 3, fault 1);
     scoring the port's values under the reference isolates the EI math."""
     below, above = _ref_split(ref_hist, cfg)
     act = ref_hist["active"][label]
@@ -143,10 +144,7 @@ def _check(out_ref, out_port, ref_hist, rkeys, cfg):
         same = rv == pv if fam in DISCRETE else np.isclose(rv, pv, rtol=RTOL, atol=ATOL)
         for b in np.flatnonzero(~same):
             assert _top2_tied(label, ref_hist, rkeys[b], cfg), (label, b, rv[b], pv[b])
-        want = rei
-        if fam not in DISCRETE and not np.allclose(pei, rei, rtol=RTOL, atol=ATOL):
-            want = _ref_ei_at(label, pv, ref_hist, cfg)
-        np.testing.assert_allclose(pei, want, rtol=RTOL, atol=ATOL, err_msg=f"{label} ei")
+        np.testing.assert_allclose(pei, rei, rtol=RTOL, atol=ATOL, err_msg=f"{label} ei")
 
 
 @functools.lru_cache(maxsize=None)
@@ -257,10 +255,9 @@ def test_tick_folds_rows_then_proposes_like_reference():
 def test_lpdfs_match_reference(label):
     """``gmm1_lpdf``/``lgmm1_lpdf`` with and without quantization, on the
     same fitted mixture and points, against the reference's.  A quantized
-    bin's mass is a difference of two CDF values near each other, so a
-    few-ulp ``erf`` gap is amplified in its log where the mass is small:
-    there the masses themselves are compared, at the bound of that
-    cancellation (ROADMAP.md queue 3, fault 3)."""
+    bin's mass is a difference of two CDF values near each other, so the
+    port's ``erf`` is XLA's float32 formula: tail bins compare in the log
+    like every other."""
     cfg = CFGS["argmax"]
     h, n = _history(seed=6)
     ref_hist, dev = _ref_hist(h), _port_hist(h, n)
@@ -280,11 +277,7 @@ def test_lpdfs_match_reference(label):
     for qq in {q, None}:
         ref = np.asarray(rl(jnp.asarray(x), *rfit, low, high, qq))
         got = pl(torch.tensor(x), *pfit, low, high, qq).numpy()
-        tail = np.exp(ref) < 1e-2 if qq is not None else np.zeros(len(x), bool)
-        np.testing.assert_allclose(got[~tail], ref[~tail], rtol=RTOL, atol=ATOL,
-                                   err_msg=f"q={qq}")
-        np.testing.assert_allclose(np.exp(got[tail]), np.exp(ref[tail]), rtol=0, atol=ATOL,
-                                   err_msg=f"q={qq} tail masses")
+        np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL, err_msg=f"q={qq}")
 
 
 def test_history_conversion_infers_live_rows():
