@@ -6,11 +6,20 @@
 Phases, each of which fails the run (non-zero exit) on its own:
 
 1. Build every CUDA kernel of the port from ``hyperopt_tpu_torch/csrc``
-   (one ``nvcc`` per source, started together) and hold each against its
-   plain PyTorch version on the card, timed with CUDA events (median of 25
-   launches after warm-up): ``ei_diff`` at the single-study ask's shapes,
-   ``fused_sample_ei`` at the cohort's (the service tick, the wide tick,
-   an unbounded group, a group with dead components).
+   (one ``nvcc`` per source, started together; ``-Xptxas -v`` gives each
+   kernel's registers and shared memory) and hold each against its plain
+   PyTorch version on the card.  A kernel's ``ms`` is its own device time
+   (torch.profiler, mean of 10 launches after warm-up); ``call_ms`` is
+   the median of 25 calls timed with CUDA events, the host's enqueue
+   included (at launch scale that is most of it); ``plain_ms`` times the
+   plain version the second way.  ``ei_diff`` runs at the single-study
+   ask's shapes and at the edges of its component split (m = 1, m off the chunk size,
+   an all-dead below mixture, n = 1, m = 2049), ``fused_sample_ei`` at the
+   cohort's (the service tick, the wide tick, an unbounded group, a group
+   with dead components, N = m = 1), its candidates equal to the plain
+   version's bit for bit.  Each shape records the launch's plan (splits
+   or rows, blocks), ``bound_share = bound_ms / ms`` and the previous
+   version's device time there (``ms_before``).
 2. Check the card's main path against the port's CPU path: the same
    40-evaluation branin ``fmin`` on both devices gives the same trials.
 3. The single-study path: ``fmin`` on branin (BASELINE config 2) with
@@ -20,7 +29,8 @@ Phases, each of which fails the run (non-zero exit) on its own:
 4. A wide ask on a real-size state (BASELINE config 3's space,
    ``hr_conditional``, 28 labels): a 1000-trial history from
    ``rand.suggest``, then one ``tpe.suggest`` for 1024 new ids at
-   ``n_EI_candidates=1024``.
+   ``n_EI_candidates=1024``, four times, and once more under
+   ``torch.profiler``: device busy time, launches, idle share.
 5. ``torch.profiler`` over 20 more branin TPE asks: device busy time,
    kernel launches and the device's idle share per ask.
 6. The study scheduler on the card against the scheduler on the CPU: 8
@@ -70,11 +80,40 @@ WIDE_HISTORY, WIDE_IDS, WIDE_CANDIDATES = 1000, 1024, 1024
 SERVICE_STUDIES, SERVICE_STARTUP, SERVICE_WAVES, SERVICE_PROFILED = 1024, 5, 20, 5
 COHORT_STUDIES, COHORT_TRIALS = 8, 30
 WIDE_COHORT = dict(studies=256, cap=128, ids=4, candidates=1024)
+# ei_diff shapes (P, n, m, dead components, compare on the first n_cmp
+# candidates, all-dead below mixture)
+EI_SHAPES = [(1, 24, 129, 0, None, False), (4, 1000, 257, 0, None, False),
+             (128, 8192, 1025, 0, None, False), (8, 4096, 513, 100, None, False),
+             (2, 1024, 1025, 0, None, False),          # branin tick: 2 labels x 1024 candidates
+             (27, 1024 * 1024, 1025, 0, 8192, False),  # hr_conditional wide ask: 27 labels
+             # edges of the component split
+             (3, 1024, 1, 0, None, False), (3, 2000, 300, 0, None, False),
+             (4, 1000, 129, 0, None, True), (8, 1, 1025, 0, None, False),
+             (1, 1024, 2049, 0, None, False)]
 # fused_sample_ei shapes (P, N, m, dead components, bounded): the service
 # tick (256 slots x 6 labels, 24 candidates), the wide tick (4 x 1024
-# candidates), an unbounded group, a group with dead components
+# candidates), an unbounded group, a group with dead components, N = m = 1
 FUSED_SHAPES = [(256 * 6, 24, 65, 0, True), (256 * 6, 4 * 1024, 129, 0, True),
-                (256 * 2, 24, 65, 0, False), (64, 1000, 300, 77, True)]
+                (256 * 2, 24, 65, 0, False), (64, 1000, 300, 77, True), (64, 1, 1, 0, True)]
+# the previous version's device time (ms) at each phase-1 shape, as
+# PERF.md records it: scripts/torch_kernel_ab.py on commit d75fd01 (the
+# kernels before the shared score loop), mean of two turns on one H100
+MS_BEFORE = {"ei_diff": {(1, 24, 129): 0.04871, (4, 1000, 257): 0.09166,
+                         (128, 8192, 1025): 7.043, (8, 4096, 513): 0.1837,
+                         (2, 1024, 1025): 0.3832, (27, 1048576, 1025): 183.3,
+                         (3, 1024, 1): 0.001784, (3, 2000, 300): 0.114,
+                         (4, 1000, 129): 0.04341, (8, 1, 1025): 0.3873,
+                         (1, 1024, 2049): 0.7658},
+             "fused_sample_ei": {(1536, 24, 65): 0.04217, (1536, 4096, 129): 5.594,
+                                 (512, 24, 65): 0.03251, (64, 1000, 300): 0.1613,
+                                 (64, 1, 1): 0.003523}}
+
+
+# what the kernels line keeps of each phase-1 shape
+SHAPE_KEYS = ("shape", "dead", "below_all_dead", "bounded", "max_abs_err", "ms", "call_ms",
+              "ms_before",
+              "plain_ms", "bound_ms", "bound_share", "per_thread", "splits", "cols", "rows",
+              "blocks", "registers", "smem_bytes")
 
 
 def log(*a):
@@ -104,6 +143,27 @@ def cuda_ms(fn, reps=25, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, fragment, reps=10):
+    """Mean device time per call of the kernel whose name holds
+    ``fragment``, over ``reps`` calls of ``fn`` (torch.profiler, CUPTI):
+    the kernel alone, without the host's enqueue time that ``cuda_ms``
+    includes at launch scale.  Raises if the profiler saw no launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [a for a in prof.key_averages()
+            if a.device_type == torch.autograd.DeviceType.CUDA and fragment in a.key]
+    if not hits:
+        raise AssertionError(f"the profiler saw no launch of {fragment}")
+    return sum(a.self_device_time_total for a in hits) / 1e3 / reps
 
 
 def ei_bound(P, n, m):
@@ -150,17 +210,19 @@ def fused_inputs(P, N, m, seed, dead=0, bounded=True):
                                       tabs["wa"], tabs["ma"], tabs["sa"], low, high)]
 
 
-def ei_inputs(P, n, m, seed, dead=0):
+def ei_inputs(P, n, m, seed, dead=0, below_dead=False):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.rand(P, n, device="cuda", generator=g) * 6 - 3
     tabs = []
-    for _ in range(2):
+    for side in range(2):
         w = torch.rand(P, m, device="cuda", generator=g) + 0.1
         if dead:
             w[:, m - dead:] = 0.0
         w = (w / w.sum(1, keepdim=True)).contiguous()
+        if below_dead and side == 0:
+            w.zero_()
         mu = torch.randn(P, m, device="cuda", generator=g)
         s = torch.rand(P, m, device="cuda", generator=g) * 1.8 + 0.2
         tabs += [w, mu, s]
@@ -174,20 +236,18 @@ def phase_kernels(report):
     from hyperopt_tpu_torch import _build, megakernel
 
     t0 = time.perf_counter()
-    logs = _build.build_all(extra_flags=("-Xptxas", "-v"))
+    logs = _build.build_all()
     report["build_sec"] = time.perf_counter() - t0
+    usage = {}
     for stem, text in logs.items():
         log(f"[nvcc {stem}]\n{text.strip()}")
+        usage.update(ptxas_usage(text))
+    report["ptxas"] = usage
     log(f"kernels built in {report['build_sec']:.1f} s")
 
     rows = []
-    # (P, n, m, dead components, compare on the first n_cmp candidates)
-    shapes = [(1, 24, 129, 0, None), (4, 1000, 257, 0, None), (128, 8192, 1025, 0, None),
-              (8, 4096, 513, 100, None),
-              (2, 1024, 1025, 0, None),          # branin tick: 2 labels x 1024 candidates
-              (27, 1024 * 1024, 1025, 0, 8192)]  # hr_conditional wide ask: 27 labels
-    for P, n, m, dead, n_cmp in shapes:
-        x, tabs = ei_inputs(P, n, m, seed=P + n + m, dead=dead)
+    for P, n, m, dead, n_cmp, below_dead in EI_SHAPES:
+        x, tabs = ei_inputs(P, n, m, seed=P + n + m, dead=dead, below_dead=below_dead)
         got = megakernel.ei_diff(x, *tabs)
         torch.cuda.synchronize()
         xs = x if n_cmp is None else x[:, :n_cmp].contiguous()
@@ -196,13 +256,18 @@ def phase_kernels(report):
         err = (gs - want).abs()
         ok = bool(torch.isfinite(got).all()) and bool(
             (err <= TOL * torch.clamp(want.abs(), min=1.0)).all())
-        ms = cuda_ms(lambda: megakernel.ei_diff(x, *tabs))
+        call_ms = cuda_ms(lambda: megakernel.ei_diff(x, *tabs))
+        ms = device_ms(lambda: megakernel.ei_diff(x, *tabs), "ei_diff_kernel")
         plain_ms = cuda_ms(lambda: megakernel.ei_diff_plain(xs, *tabs), reps=5)
         bound_ms, bound_by = ei_bound(P, n, m)
-        row = {"shape": [P, n, m], "dead": dead, "compared_candidates": xs.shape[1],
-               "max_abs_err": float(err.max()), "ok": ok, "ms": ms,
+        plan = megakernel.launch_plan("ei_diff", P, n, m)
+        row = {"shape": [P, n, m], "dead": dead, "below_all_dead": below_dead,
+               "compared_candidates": xs.shape[1],
+               "max_abs_err": float(err.max()), "ok": ok, "ms": ms, "call_ms": call_ms,
+               "ms_before": MS_BEFORE["ei_diff"].get((P, n, m)),
                "plain_ms": plain_ms, "plain_ms_shape": list(xs.shape) + [m],
-               "bound_ms": bound_ms, "bound_by": bound_by}
+               "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
+               **plan, **usage_of(usage, f"ei_diff_kernelILi{plan['per_thread']}E")}
         rows.append(row)
         log(f"ei_diff {row}")
         del x, tabs, got, want, err
@@ -218,19 +283,25 @@ def phase_kernels(report):
         torch.cuda.synchronize()
         px, pei = megakernel.fused_sample_ei_plain(*args, bounded)
         err_x, err_ei = (x - px).abs(), (ei - pei).abs()
+        # x equals the plain version's bit for bit; ei within the tolerance
         ok = (bool(torch.isfinite(x).all()) and bool(torch.isfinite(ei).all())
-              and bool((err_x <= TOL * torch.clamp(px.abs(), min=1.0)).all())
+              and float(err_x.max()) == 0.0
               and bool((err_ei <= TOL * torch.clamp(pei.abs(), min=1.0)).all()))
         if bounded:
             ok = ok and bool((x >= args[-2][:, None]).all()) and bool((x < args[-1][:, None]).all())
-        ms = cuda_ms(lambda: megakernel.fused_sample_ei(*args, bounded))
+        call_ms = cuda_ms(lambda: megakernel.fused_sample_ei(*args, bounded))
+        ms = device_ms(lambda: megakernel.fused_sample_ei(*args, bounded), "fused_kernel")
         plain_ms = cuda_ms(lambda: megakernel.fused_sample_ei_plain(*args, bounded), reps=5)
         bound_ms, bound_by = fused_bound(P, N, m)
         row = {"shape": [P, N, m], "dead": dead, "bounded": bounded,
                "max_abs_err": float(max(err_x.max(), err_ei.max())),
                "max_abs_err_x": float(err_x.max()), "max_abs_err_ei": float(err_ei.max()),
-               "ok": ok, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by}
+               "ok": ok, "ms": ms, "call_ms": call_ms,
+               "ms_before": MS_BEFORE["fused_sample_ei"].get((P, N, m)),
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bound_share": bound_ms / ms,
+               **megakernel.launch_plan("fused_sample_ei", P, N, m),
+               **usage_of(usage, "fused_kernel")}
         frows.append(row)
         log(f"fused_sample_ei {row}")
         del args, x, ei, px, pei, err_x, err_ei
@@ -239,6 +310,32 @@ def phase_kernels(report):
             raise AssertionError(f"fused_sample_ei disagrees with its plain version at {row}")
     report["fused_sample_ei_shapes"] = frows
     return rows, frows
+
+
+def ptxas_usage(text):
+    """``{kernel symbol: {"registers": r, "smem_bytes": b, "spill_bytes": s}}``
+    from ``nvcc -Xptxas -v`` output."""
+    import re
+
+    out, name = {}, None
+    for line in text.splitlines():
+        hit = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if hit:
+            name = hit.group(1)
+            out.setdefault(name, {})
+        hit = re.search(r"(\d+) bytes spill stores", line)
+        if hit and name:
+            out[name]["spill_bytes"] = int(hit.group(1))
+        hit = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if hit and name:
+            out[name].update(registers=int(hit.group(1)), smem_bytes=int(hit.group(2)))
+    return out
+
+
+def usage_of(usage, fragment):
+    """The ptxas figures of the one kernel symbol containing ``fragment``."""
+    hits = [v for k, v in usage.items() if fragment in k and "registers" in v]
+    return hits[0] if len(hits) == 1 else {"registers": None, "smem_bytes": None}
 
 
 def in_space(cs, doc):
@@ -382,9 +479,11 @@ def trials_cs(dom):
 
 
 def phase_wide(report):
-    """One 1024-id TPE ask on a 1000-trial hr_conditional history."""
+    """One 1024-id TPE ask on a 1000-trial hr_conditional history, timed
+    four times, then once more under torch.profiler."""
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     import hyperopt_tpu_torch as port
     from hyperopt_tpu_torch import megakernel, zoo
@@ -411,13 +510,29 @@ def phase_wide(report):
         launches.append(megakernel.ei_diff.launches)
         if len(new) != WIDE_IDS or not all(in_space(domain.cs, d) for d in new):
             raise AssertionError("the wide ask returned a bad proposal")
+    # one more ask under torch.profiler: the device's share of the ask
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        port.tpe.suggest(ids, domain, trials, seed=200, n_EI_candidates=WIDE_CANDIDATES)
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [a for a in prof.key_averages()
+               if a.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(a.self_device_time_total for a in kernels) / 1e3
     cap = trials.history_object(domain.cs.labels).cap
     out = {"history": WIDE_HISTORY, "cap": cap, "m": cap + 1, "ids": WIDE_IDS,
-           "n_EI_candidates": WIDE_CANDIDATES,
+           "n_EI_candidates": WIDE_CANDIDATES, "ask_ms": [1e3 * t for t in times],
            "first_ask_ms": 1e3 * times[0], "median_ask_ms": 1e3 * statistics.median(times[1:]),
-           "ei_diff_launches_per_ask": launches}
+           "ei_diff_launches_per_ask": launches,
+           "profiled_ask_ms": prof_ms, "device_busy_ms": busy_ms,
+           "kernel_launches": sum(a.count for a in kernels),
+           "device_idle_share": 1.0 - busy_ms / prof_ms,
+           "top_kernels": [{"name": a.key[:80], "launches": a.count,
+                            "device_ms": a.self_device_time_total / 1e3}
+                           for a in sorted(kernels, key=lambda a: -a.self_device_time_total)[:8]]}
     report["wide_hr_conditional"] = out
-    log(f"wide ask: {out}")
+    log(f"wide ask: { {k: v for k, v in out.items() if k != 'top_kernels'} }")
     if min(launches) < 1:
         raise AssertionError("the wide ask did not launch the ei_diff kernel")
     return launches[0]
@@ -685,10 +800,11 @@ def main():
                              "service_wave": service_launches["ei_diff"]},
         "shape": tick["shape"], "max_abs_err": tick["max_abs_err"],
         "max_err": max(r["max_abs_err"] for r in rows),
-        "ms": tick["ms"], "plain_ms": tick["plain_ms"], "bound_ms": tick["bound_ms"],
-        "bound_by": tick["bound_by"], "library_ms": None,
-        "shapes": [{k: r[k] for k in ("shape", "dead", "max_abs_err", "ms", "plain_ms",
-                                      "bound_ms")} for r in rows],
+        "ms": tick["ms"], "call_ms": tick["call_ms"], "ms_before": tick["ms_before"],
+        "plain_ms": tick["plain_ms"],
+        "bound_ms": tick["bound_ms"], "bound_by": tick["bound_by"],
+        "bound_share": tick["bound_share"], "library_ms": None,
+        "shapes": [{k: r[k] for k in SHAPE_KEYS if k in r} for r in rows],
     }, {
         "name": "fused_sample_ei", "route": "cuda", "source": SOURCES["fused_sample_ei"],
         "replaces": REPLACES["fused_sample_ei"],
@@ -697,10 +813,11 @@ def main():
                              "service_wave": service_launches["fused_sample_ei"]},
         "shape": ftick["shape"], "max_abs_err": ftick["max_abs_err"],
         "max_err": max(r["max_abs_err"] for r in frows),
-        "ms": ftick["ms"], "plain_ms": ftick["plain_ms"], "bound_ms": ftick["bound_ms"],
-        "bound_by": ftick["bound_by"], "library_ms": None,
-        "shapes": [{k: r[k] for k in ("shape", "dead", "bounded", "max_abs_err", "ms",
-                                      "plain_ms", "bound_ms")} for r in frows],
+        "ms": ftick["ms"], "call_ms": ftick["call_ms"], "ms_before": ftick["ms_before"],
+        "plain_ms": ftick["plain_ms"],
+        "bound_ms": ftick["bound_ms"], "bound_by": ftick["bound_by"],
+        "bound_share": ftick["bound_share"], "library_ms": None,
+        "shapes": [{k: r[k] for k in SHAPE_KEYS if k in r} for r in frows],
     }]
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

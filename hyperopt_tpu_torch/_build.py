@@ -2,11 +2,14 @@
 
 Every ``*.cu`` source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface, named
-by the hash of that source: ``build/hyperopt_tpu_torch/lib<stem>_<sha>.so``
-beside the package.  A library that is already there is loaded as it is,
-so a source is compiled once per change.  Nothing here runs at import:
-the first launch builds, and :func:`build_all` starts one ``nvcc`` per
-source at once.
+by a hash of what the build reads: the source, every ``csrc/*.cuh``
+header it may include, and the ``nvcc`` flags
+(``build/hyperopt_tpu_torch/lib<stem>_<sha>.so`` beside the package).  A
+library that is already there is loaded as it is, so a source is
+compiled once per change of any of them.  The flags carry ``-Xptxas -v``,
+so a build's output lists each kernel's registers and shared memory.
+Nothing here runs at import: the first launch builds, and
+:func:`build_all` starts one ``nvcc`` per source at once.
 """
 
 from __future__ import annotations
@@ -26,13 +29,15 @@ _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "hyperopt_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C signatures: every pointer and the stream are c_void_p, counts c_int
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "ei_diff": {"ei_diff_f32": ([_P] * 8 + [_I, _I, _I, _P], ctypes.c_int)},
-    "fused_sample_ei": {"fused_sample_ei_f32": ([_P] * 15 + [_I] * 4 + [_P], ctypes.c_int)},
+    "ei_diff": {"ei_diff_f32": ([_P] * 8 + [_I, _I, _I, _P], ctypes.c_int),
+                "ei_diff_plan": ([_I, _I, _I, _P], None)},
+    "fused_sample_ei": {"fused_sample_ei_f32": ([_P] * 15 + [_I] * 4 + [_P], ctypes.c_int),
+                        "fused_sample_ei_plan": ([_I, _I, _I, _P], None)},
 }
 
 
@@ -49,12 +54,17 @@ def _nvcc():
 
 
 def _target(stem):
+    """The source of ``stem`` and its library's path, named by the hash of
+    the source, every header under ``csrc/`` and the flags."""
     src = CSRC / f"{stem}.cu"
-    sha = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{stem}_{sha}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
 
 
-def _start(stem, extra_flags=()):
+def _start(stem):
     """Start ``nvcc`` for one source; None when its library is built."""
     src, so = _target(stem)
     if so.exists():
@@ -62,7 +72,7 @@ def _start(stem, extra_flags=()):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp, str(src)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, tmp, so, cmd
@@ -78,10 +88,10 @@ def _finish(job):
     return log
 
 
-def build_all(extra_flags=()):
+def build_all():
     """Compile every source that is not built yet, one ``nvcc`` per source,
     all started together; returns ``{stem: compiler output}``."""
-    jobs = {stem: _start(stem, extra_flags) for stem in _SIGNATURES}
+    jobs = {stem: _start(stem) for stem in _SIGNATURES}
     return {stem: _finish(job) for stem, job in jobs.items() if job is not None}
 
 

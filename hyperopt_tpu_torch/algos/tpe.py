@@ -55,6 +55,8 @@ __all__ = [
     "categorical_posterior",
     "split_below_above",
     "erf",
+    "xla_log",
+    "xla_sqrt",
     "ndtri",
     "build_propose",
     "build_propose_with_scores",
@@ -85,8 +87,9 @@ def _fma(a, b, c):
     """``a * b + c`` rounded once, as XLA's fused multiply-add computes the
     JAX package's ``c + a * b``: the float64 product of two float32 values
     is exact.  It matters where the result feeds a steep function, such as
-    ``ndtri`` near 0 or 1."""
-    return (a.double() * b.double() + c.double()).float()
+    ``ndtri`` near 0 or 1.  ``b`` and ``c`` may be float32-exact scalars."""
+    a, b, c = (t.double() if torch.is_tensor(t) else t for t in (a, b, c))
+    return (a * b + c).float()
 
 
 def _horner(coef, x):
@@ -148,6 +151,17 @@ _EXP_M2 = float(np.float32(np.exp(-2.0)))
 _ONE_MINUS_EXP_M2 = float(np.float32(-np.expm1(-2.0)))
 _NEG_SQRT_2PI = -float(np.float32(np.sqrt(2.0 * np.pi)))
 
+# XLA's float32 log (Cephes' logf): the mantissa folded into
+# [sqrt(1/2), sqrt(2)) and shifted by -1, a degree-8 polynomial in three
+# interleaved groups of three (highest power first), the exponent added
+# back as e * (_LOG_Q2 + _LOG_Q1), a split ln 2
+_LOG_P = tuple(float(np.float32(c)) for c in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1))
+_LOG_Q1, _LOG_Q2 = float(np.float32(-2.12194440e-4)), 0.693359375
+_SQRT_HALF = float(np.float32(0.707106781186547524))
+
 
 def erf(z):
     """float32 ``erf`` by the clamped rational form XLA's CPU code uses."""
@@ -156,21 +170,49 @@ def erf(z):
     return (z * _horner(_ERF_P, z2)) / _horner(_ERF_Q, z2)
 
 
+def xla_log(x):
+    """float32 ``log`` of positive normal ``x`` as XLA's CPU code computes
+    it (bitwise): Cephes' range reduction and polynomial, its
+    multiply-adds contracted to FMAs.  ``ndtri`` gives it nothing else, so
+    XLA's special cases (zero, subnormal, negative, inf) are left out."""
+    bits = x.view(torch.int32)
+    m = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)  # in [0.5, 1)
+    small = (m < _SQRT_HALF).float()
+    e = ((bits >> 23) - 126).float() - small
+    f = (m - 1.0) + m * small
+    f2 = f * f
+    f3 = f2 * f
+    g = [_fma(_fma(f, _LOG_P[k], _LOG_P[k + 1]), f, _LOG_P[k + 2]) for k in (0, 3, 6)]
+    y = _fma(_fma(_fma(g[0], f3, g[1]), f3, g[2]), f3, e * _LOG_Q1)
+    return _fma(e, _LOG_Q2, (f - 0.5 * f2) + y)
+
+
+def xla_sqrt(v):
+    """float32 ``sqrt`` rounded correctly, as XLA's CPU code computes it
+    (``torch.sqrt`` on the CPU is an ulp off on some inputs); the float64
+    root rounds to the same float32."""
+    return torch.sqrt(v.double()).float()
+
+
 def ndtri(p):
     """Inverse standard-normal CDF of float32 ``p`` in ``(0, 1)``: Cephes'
-    piecewise-rational formula, term for term as the JAX package's
-    ``ndtri`` (the fused sample-and-score kernel carries the same one)."""
+    piecewise-rational formula as XLA compiles the JAX package's ``ndtri``
+    (bitwise): its ``log`` and ``sqrt`` (:func:`xla_log`,
+    :func:`xla_sqrt`), ``log(sqrt(y))`` rewritten as ``0.5 * log(y)`` and
+    ``a / b / z`` as ``a / (b * z)``.  The fused sample-and-score kernel
+    carries the same form."""
     mcp = torch.where(p > _ONE_MINUS_EXP_M2, 1.0 - p, p)
     s = torch.where(mcp == 0.0, torch.full_like(p, 0.5), mcp)
     w = s - 0.5
     ww = w * w
     r = _horner(_NDTRI_P0, ww) / _horner(_NDTRI_Q0, ww)
     big = _fma(w * ww, r, w) * _NEG_SQRT_2PI
-    z = torch.sqrt(-2.0 * torch.log(s))
-    first = z - torch.log(z) / z
+    y = -2.0 * xla_log(s)
+    z = xla_sqrt(y)
+    first = z - (xla_log(y) * 0.5) / z
     iz = 1.0 / z
-    tail_far = _horner(_NDTRI_P2, iz) / _horner(_NDTRI_Q2, iz) / z
-    tail = _horner(_NDTRI_P1, iz) / _horner(_NDTRI_Q1, iz) / z
+    tail_far = _horner(_NDTRI_P2, iz) / (_horner(_NDTRI_Q2, iz) * z)
+    tail = _horner(_NDTRI_P1, iz) / (_horner(_NDTRI_Q1, iz) * z)
     x = torch.where(s > _EXP_M2, big, torch.where(z >= 8.0, first - tail_far, first - tail))
     return torch.where(p > _ONE_MINUS_EXP_M2, x, -x)
 

@@ -11,9 +11,13 @@
 //
 // A component with w <= 0 contributes -1e30; inside the log, w is floored at
 // 1e-12.  No truncation terms: the caller adds -log p_b + log p_a.  ndtri is
-// Cephes' piecewise-rational formula, the one the JAX package evaluates and
-// the plain torch version (tpe.ndtri) carries; its Horner steps and the two
-// sampling products are single-rounding FMAs, as XLA contracts them.
+// Cephes' piecewise-rational formula as XLA compiles the JAX package's
+// ndtri, which the plain torch version (tpe.ndtri) carries bit for bit: its
+// Horner steps and the two sampling products are single-rounding FMAs, its
+// tail takes XLA's float32 log (tpe.xla_log, below as xla_logf) and a
+// correctly rounded sqrt, log(sqrt(y)) is 0.5 log(y) and a / b / z is
+// a / (b z).  Every rounding step is an explicit intrinsic, so nvcc's FMA
+// contraction cannot move x off the plain version's bits.
 //
 // Replaces the TPU kernel hyperopt_tpu/megakernel.py:_build_fused (body
 // _make_fused_kernel), which ran one label at a time on an (8, 128)
@@ -26,27 +30,35 @@
 // candidates share the row's tables, which are therefore read once per
 // block, never copied per id.  m = capacity + 1 grows with the history, so
 // the tables stream through shared memory in chunks and nothing is sized to
-// m; the pick pass and the score pass each walk the chunks once.
+// m.  The service tick is short (N = ids x 24), so one row per block would
+// leave most threads idle: a block holds 256 / C rows of C = next power of
+// two >= N (at least 32, at most 256) candidates each, and wide rows take
+// several blocks along N.
 //
-// What bounds it on an H100: transcendental throughput.  The score pass
-// costs two exp, two log and a division per candidate x component x model
-// (special-function units, 16 results per clock per SM); the bytes (two
-// uniforms in, two outputs, 36 bytes of tables per component and row) are
-// small beside that at the cohort's shapes.  The service tick is short
-// (N = ids x 24), so one row per block would leave most threads idle: a
-// block holds 256 / C rows of C = next power of two >= N (at least 32, at
-// most 256) candidates each, and wide rows take several blocks along N.
-// This first version keeps the TPU kernel's arithmetic term for term;
-// hoisting log w and log s and one exp per term are left to a later change.
+// What bounds it on an H100: special-function throughput in the score pass,
+// at least one exp per candidate x component x model (132 SMs x 16 MUFU
+// results per clock); the bytes (two uniforms in, two outputs, 36 bytes of
+// tables per component and row) are small beside that.  The design:
+// - pick pass: only the CDF is staged; a candidate whose uc falls in the
+//   staged chunk (uc <= its last entry, or the last chunk) finds its
+//   component by binary search there, the same lower bound as a linear
+//   scan since the CDF is non-decreasing, and then reads its four sampling
+//   entries from global memory once;
+// - score pass: mixture_lse.cuh's loop, with log w, log s and 1/s hoisted
+//   into per-(row, component) constants computed once per block while the
+//   chunk is staged, so a term is a subtract, a multiply, an FMA and one
+//   exp2 on a base-2 carry.
 
 #include <cuda_runtime.h>
+
+#include "mixture_lse.cuh"
+
+using mixture_lse::Carry;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kStage = 1024;     // staged entries per table, shared by a block's rows
-constexpr float kVeryNeg = -1e30f;
-constexpr float kLogSqrt2Pi = 0.9189385332046727f;
+constexpr int kStage = 1024;     // staged components, shared by a block's rows
 constexpr float kUTiny = 1e-7f;
 constexpr float kUHigh = 0.9999999f;  // 1 - 1e-7 in float32
 
@@ -77,6 +89,14 @@ __constant__ float kQ2[9] = {1.0f, 6.02427039364742014255e0f, 3.6798356385616085
                              1.34204006088543189037e-2f, 3.28014464682127739104e-4f,
                              2.89247864745380683936e-6f, 6.79019408009981274425e-9f};
 
+// XLA's float32 log: polynomial (highest power first), split ln 2
+__constant__ float kLogP[9] = {7.0376836292e-2f, -1.1514610310e-1f, 1.1676998740e-1f,
+                               -1.2420140846e-1f, 1.4249322787e-1f, -1.6668057665e-1f,
+                               2.0000714765e-1f, -2.4999993993e-1f, 3.3333331174e-1f};
+constexpr float kLogQ1 = -2.12194440e-4f;
+constexpr float kLogQ2 = 0.693359375f;
+constexpr float kSqrtHalf = 0.707106781186547524f;
+
 template <int N>
 __device__ __forceinline__ float horner(const float (&c)[N], float x) {
   float y = 0.0f;
@@ -85,54 +105,45 @@ __device__ __forceinline__ float horner(const float (&c)[N], float x) {
   return y;
 }
 
+// XLA's float32 log (Cephes' logf), the form tpe.xla_log carries, for the
+// positive normal inputs ndtri gives it
+__device__ __forceinline__ float xla_logf(float x) {
+  const int bits = __float_as_int(x);
+  const float mant = __int_as_float((bits & 0x007FFFFF) | 0x3F000000);  // [0.5, 1)
+  const bool small = mant < kSqrtHalf;
+  const float e = __fsub_rn(__fadd_rn((float)((bits >> 23) - 127), 1.0f), small ? 1.0f : 0.0f);
+  const float f = __fadd_rn(__fsub_rn(mant, 1.0f), small ? mant : 0.0f);
+  const float f2 = __fmul_rn(f, f);
+  const float f3 = __fmul_rn(f2, f);
+  const float g0 = __fmaf_rn(__fmaf_rn(f, kLogP[0], kLogP[1]), f, kLogP[2]);
+  const float g1 = __fmaf_rn(__fmaf_rn(f, kLogP[3], kLogP[4]), f, kLogP[5]);
+  const float g2 = __fmaf_rn(__fmaf_rn(f, kLogP[6], kLogP[7]), f, kLogP[8]);
+  const float y = __fmaf_rn(__fmaf_rn(__fmaf_rn(g0, f3, g1), f3, g2), f3, __fmul_rn(e, kLogQ1));
+  return __fmaf_rn(e, kLogQ2, __fadd_rn(__fsub_rn(f, __fmul_rn(0.5f, f2)), y));
+}
+
 __device__ float ndtri(float p) {
   const float kExpM2 = 0.1353352832366127f;          // exp(-2)
   const float kOneMinusExpM2 = 0.8646647167633873f;  // 1 - exp(-2)
   const float kNegSqrt2Pi = -2.5066282746310002f;
-  const float mcp = p > kOneMinusExpM2 ? 1.0f - p : p;
+  const float mcp = p > kOneMinusExpM2 ? __fsub_rn(1.0f, p) : p;
   const float s = mcp == 0.0f ? 0.5f : mcp;
   float x;
   if (s > kExpM2) {
-    const float w = s - 0.5f;
-    const float ww = w * w;
-    const float r = horner(kP0, ww) / horner(kQ0, ww);
-    x = __fmaf_rn(w * ww, r, w) * kNegSqrt2Pi;
+    const float w = __fsub_rn(s, 0.5f);
+    const float ww = __fmul_rn(w, w);
+    const float r = __fdiv_rn(horner(kP0, ww), horner(kQ0, ww));
+    x = __fmul_rn(__fmaf_rn(__fmul_rn(w, ww), r, w), kNegSqrt2Pi);
   } else {
-    const float z = sqrtf(-2.0f * logf(s));
-    const float first = z - logf(z) / z;
-    const float iz = 1.0f / z;
-    const float tail = z >= 8.0f ? horner(kP2, iz) / horner(kQ2, iz) / z
-                                 : horner(kP1, iz) / horner(kQ1, iz) / z;
-    x = first - tail;
+    const float y = __fmul_rn(-2.0f, xla_logf(s));
+    const float z = __fsqrt_rn(y);
+    const float first = __fsub_rn(z, __fdiv_rn(__fmul_rn(xla_logf(y), 0.5f), z));
+    const float iz = __fdiv_rn(1.0f, z);
+    const float tail = z >= 8.0f ? __fdiv_rn(horner(kP2, iz), __fmul_rn(horner(kQ2, iz), z))
+                                 : __fdiv_rn(horner(kP1, iz), __fmul_rn(horner(kQ1, iz), z));
+    x = __fsub_rn(first, tail);
   }
   return p > kOneMinusExpM2 ? x : -x;
-}
-
-__device__ __forceinline__ void lse_step(float comp, float& mx, float& se) {
-  const float nm = fmaxf(mx, comp);
-  se = se * expf(mx - nm) + expf(comp - nm);
-  mx = nm;
-}
-
-__device__ __forceinline__ float component(float x, float w, float mu, float s) {
-  const float logw = w > 0.0f ? logf(fmaxf(w, 1e-12f)) : kVeryNeg;
-  const float z = (x - mu) / s;
-  return logw - 0.5f * (z * z) - logf(s) - kLogSqrt2Pi;
-}
-
-// Copies `ntab` tables' entries [base, base + cnt) of this block's rows into
-// shared memory: row r's chunk sits at [k][r * chunk, r * chunk + cnt).
-__device__ __forceinline__ void stage(float (*tab)[kStage], const float* const* src,
-                                      int ntab, int row0, int rows, int P, int m,
-                                      int base, int cnt, int chunk) {
-  for (int t = threadIdx.x; t < rows * cnt; t += kThreads) {
-    const int r = t / cnt;
-    const int c = t - r * cnt;
-    const int p = row0 + r;
-    if (p >= P) continue;
-    const long long g = (long long)p * m + base + c;
-    for (int k = 0; k < ntab; ++k) tab[k][r * chunk + c] = src[k][g];
-  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -145,7 +156,10 @@ fused_kernel(const float* __restrict__ uc, const float* __restrict__ u0,
              const float* __restrict__ high, float* __restrict__ xo,
              float* __restrict__ eio, int P, int N, int m, int cols_log2,
              int bounded) {
-  __shared__ float tab[6][kStage];
+  // per (row, component) score constants {c, k, mu} of both mixtures; the
+  // pick pass reuses tb's storage for the staged CDF
+  __shared__ float4 tb[kStage], ta[kStage];
+  float* const scdf = reinterpret_cast<float*>(tb);
   const int cols = 1 << cols_log2;
   const int rows = kThreads >> cols_log2;  // rows per block
   const int chunk = kStage / rows;         // components per row and chunk
@@ -159,28 +173,39 @@ fused_kernel(const float* __restrict__ uc, const float* __restrict__ u0,
   const float u0v = live ? u0[ix] : 0.5f;
 
   // pass 1: the component of the first cdf entry >= uc (the last if none)
-  const float* pick_src[5] = {cdf, mb, sb, ab, bb};
-  bool done = false;
-  float mu = 0.0f, s = 1.0f, a = 0.0f, b = 1.0f;
+  bool done = !live;
+  int comp = 0;
   for (int base = 0; base < m; base += chunk) {
     const int cnt = min(chunk, m - base);
-    stage(tab, pick_src, 5, row0, rows, P, m, base, cnt, chunk);
-    __syncthreads();
-    const int o = r * chunk;
-    for (int i = 0; i < cnt && !done; ++i) {
-      if (ucv <= tab[0][o + i] || base + i == m - 1) {
-        done = true;
-        mu = tab[1][o + i];
-        s = tab[2][o + i];
-        a = tab[3][o + i];
-        b = tab[4][o + i];
-      }
+    for (int t = threadIdx.x; t < rows * cnt; t += kThreads) {
+      const int rr = t / cnt;
+      const int c = t - rr * cnt;
+      if (row0 + rr < P) scdf[rr * chunk + c] = cdf[(long long)(row0 + rr) * m + base + c];
     }
     __syncthreads();
+    const float* row = scdf + r * chunk;
+    if (!done && (ucv <= row[cnt - 1] || base + cnt == m)) {
+      int lo = 0, hi = cnt - 1;  // lower bound of uc in row[0, cnt)
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (ucv <= row[mid]) hi = mid; else lo = mid + 1;
+      }
+      comp = base + lo;
+      done = true;
+    }
+    if (__syncthreads_and(done)) break;
   }
 
   // the draw: an inverse-CDF point inside the picked component's interval
-  float u = __fmaf_rn(u0v, b - a, a);
+  float mu = 0.0f, s = 1.0f, a = 0.0f, b = 1.0f;
+  if (live) {
+    const long long g = (long long)p * m + comp;
+    mu = mb[g];
+    s = sb[g];
+    a = ab[g];
+    b = bb[g];
+  }
+  float u = __fmaf_rn(u0v, __fsub_rn(b, a), a);
   u = fminf(fmaxf(u, kUTiny), kUHigh);
   float x = __fmaf_rn(s, ndtri(u), mu);
   if (bounded && p < P) {
@@ -189,26 +214,54 @@ fused_kernel(const float* __restrict__ uc, const float* __restrict__ u0,
   }
 
   // pass 2: both mixtures' streaming log-sum-exp at x
-  const float* lse_src[6] = {wb, mb, sb, wa, ma, sa};
-  float mx_b = kVeryNeg, se_b = 0.0f, mx_a = kVeryNeg, se_a = 0.0f;
+  Carry cb = mixture_lse::empty_carry(), ca = mixture_lse::empty_carry();
   for (int base = 0; base < m; base += chunk) {
     const int cnt = min(chunk, m - base);
-    stage(tab, lse_src, 6, row0, rows, P, m, base, cnt, chunk);
+    for (int t = threadIdx.x; t < rows * cnt; t += kThreads) {
+      const int rr = t / cnt;
+      const int c = t - rr * cnt;
+      if (row0 + rr >= P) continue;
+      const long long g = (long long)(row0 + rr) * m + base + c;
+      tb[rr * chunk + c] = mixture_lse::make_term(wb[g], mb[g], sb[g]);
+      ta[rr * chunk + c] = mixture_lse::make_term(wa[g], ma[g], sa[g]);
+    }
     __syncthreads();
     const int o = r * chunk;
+#pragma unroll 4
     for (int i = 0; i < cnt; ++i) {
-      lse_step(component(x, tab[0][o + i], tab[1][o + i], tab[2][o + i]), mx_b, se_b);
-      lse_step(component(x, tab[3][o + i], tab[4][o + i], tab[5][o + i]), mx_a, se_a);
+      mixture_lse::step(tb[o + i], x, cb);
+      mixture_lse::step(ta[o + i], x, ca);
     }
     __syncthreads();
   }
   if (live) {
     xo[ix] = x;
-    eio[ix] = (mx_b + logf(se_b)) - (mx_a + logf(se_a));
+    eio[ix] = mixture_lse::score(cb, ca);
   }
 }
 
+void plan_of(int P, int N, int* plan) {
+  int cols_log2 = 5;  // 32 candidates per row at least: one warp
+  while ((1 << cols_log2) < N && cols_log2 < 8) ++cols_log2;
+  const int rows = kThreads >> cols_log2;
+  plan[0] = cols_log2;
+  plan[1] = rows;
+  plan[2] = ((N + (1 << cols_log2) - 1) >> cols_log2);  // blocks along N
+  plan[3] = (P + rows - 1) / rows;                        // blocks along P
+}
+
 }  // namespace
+
+// The launch's shape for (P, N, m): plan[0] candidates per row, plan[1]
+// rows per block, plan[2] blocks, plan[3] threads per block.
+extern "C" void fused_sample_ei_plan(int P, int N, int m, int* plan) {
+  int g[4];
+  plan_of(P, N, g);
+  plan[0] = 1 << g[0];
+  plan[1] = g[1];
+  plan[2] = g[2] * g[3];
+  plan[3] = kThreads;
+}
 
 // Launches on `stream` (a cudaStream_t) and returns cudaGetLastError().
 extern "C" int fused_sample_ei_f32(const float* uc, const float* u0, const float* cdf,
@@ -218,12 +271,11 @@ extern "C" int fused_sample_ei_f32(const float* uc, const float* u0, const float
                                    const float* high, float* x, float* ei, int P, int N,
                                    int m, int bounded, void* stream) {
   if (P <= 0 || N <= 0) return 0;
-  int cols_log2 = 5;  // 32 candidates per row at least: one warp
-  while ((1 << cols_log2) < N && cols_log2 < 8) ++cols_log2;
-  const int rows = kThreads >> cols_log2;
-  const dim3 grid((N + (1 << cols_log2) - 1) >> cols_log2, (P + rows - 1) / rows);
+  int g[4];
+  plan_of(P, N, g);
+  const dim3 grid(g[2], g[3]);
   fused_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      uc, u0, cdf, mb, sb, ab, bb, wb, wa, ma, sa, low, high, x, ei, P, N, m, cols_log2,
+      uc, u0, cdf, mb, sb, ab, bb, wb, wa, ma, sa, low, high, x, ei, P, N, m, g[0],
       bounded);
   return static_cast<int>(cudaGetLastError());
 }

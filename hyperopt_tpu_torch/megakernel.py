@@ -17,7 +17,11 @@ On a CUDA tensor each wrapper launches its hand-written kernel (and counts
 the launch in ``<wrapper>.launches``); on a CPU tensor it computes the
 plain torch version beside it (``ei_diff_plain``,
 ``fused_sample_ei_plain``); any other device raises.  A build or launch
-failure raises: nothing falls back.
+failure raises: nothing falls back.  Both kernels score with the loop of
+``csrc/mixture_lse.cuh`` (per-component constants hoisted, one exp2 per
+term on a base-2 carry); the plain versions stay the function the JAX
+package computes, and :func:`launch_plan` reports the shape each kernel's
+launch takes.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["mode", "supports", "armed", "build_cohort", "ei_diff", "ei_diff_plain",
-           "fused_sample_ei", "fused_sample_ei_plain"]
+           "fused_sample_ei", "fused_sample_ei_plain", "launch_plan"]
 
 # log(sqrt(2*pi))
 _LOG_SQRT_2PI = 0.9189385332046727
@@ -110,6 +114,21 @@ def ei_diff(x, wb, mb, sb, wa, ma, sa):
 
 
 ei_diff.launches = 0
+
+
+def launch_plan(kernel, P, n, m):
+    """The launch the C entry of ``kernel`` (``"ei_diff"`` or
+    ``"fused_sample_ei"``) makes at shape ``(P, n, m)`` on the current
+    card: ``{"per_thread" | "cols", "splits" | "rows", "blocks",
+    "threads"}``.  Builds the kernel; needs the CUDA toolkit."""
+    import ctypes
+
+    from ._build import library
+
+    out = (ctypes.c_int * 4)()
+    getattr(library(kernel), f"{kernel}_plan")(P, n, m, ctypes.cast(out, ctypes.c_void_p))
+    keys = (("per_thread", "splits") if kernel == "ei_diff" else ("cols", "rows"))
+    return dict(zip(keys + ("blocks", "threads"), out))
 
 
 # ---------------------------------------------------------------------------

@@ -38,10 +38,18 @@ def _inputs(P, n, m, device, dead=0, seed=0):
     return [t.to(device).contiguous() for t in (x, *tabs)]
 
 
-@pytest.mark.parametrize("P,n,m,dead", [(1, 24, 129, 0), (4, 1000, 257, 7),
-                                        (3, 777, 1025, 300)])
-def test_kernel_matches_plain_and_counts_launches(cuda_device, P, n, m, dead):
-    args = _inputs(P, n, m, cuda_device, dead=dead, seed=P + n)
+# (P, n, m, dead, split): whether the launch splits the component axis
+# across a cluster (a grid short of blocks) or not (P x tiles fill the card)
+@pytest.mark.parametrize("P,n,m,dead,split", [
+    (1, 24, 129, 0, True), (4, 1000, 257, 7, True), (3, 777, 1025, 300, True),
+    (2, 1024, 1025, 0, True), (1, 24, 1, 0, False), (1, 1000, 2049, 0, True),
+    (5, 300, 2049, 2049, True), (64, 4096, 257, 0, False), (27, 65536, 129, 3, False)])
+def test_kernel_matches_plain_and_counts_launches(cuda_device, P, n, m, dead, split):
+    args = _inputs(P, n, m, cuda_device, dead=dead % m, seed=P + n)
+    if dead == m:  # an all-dead above mixture
+        args[4] = torch.zeros_like(args[4])
+    plan = megakernel.launch_plan("ei_diff", P, n, m)
+    assert (plan["splits"] > 1) == split and plan["splits"] <= min(8, m)
     before = megakernel.ei_diff.launches
     got = megakernel.ei_diff(*args)
     torch.cuda.synchronize()
@@ -87,7 +95,8 @@ def _fused_inputs(P, N, m, device, dead=0, bounded=True, seed=0):
 
 @pytest.mark.parametrize("P,N,m,dead,bounded", [(6, 24, 17, 0, True), (1536, 24, 65, 0, True),
                                                 (24, 4096, 129, 0, False),
-                                                (40, 100, 300, 77, True), (3, 1000, 1025, 5, False)])
+                                                (40, 100, 300, 77, True), (3, 1000, 1025, 5, False),
+                                                (7, 1, 1, 0, True), (2, 300, 2049, 0, True)])
 def test_fused_kernel_matches_plain_and_counts_launches(cuda_device, P, N, m, dead, bounded):
     args = _fused_inputs(P, N, m, cuda_device, dead=dead, bounded=bounded, seed=P + N + m)
     before = megakernel.fused_sample_ei.launches
@@ -95,9 +104,10 @@ def test_fused_kernel_matches_plain_and_counts_launches(cuda_device, P, N, m, de
     torch.cuda.synchronize()
     assert megakernel.fused_sample_ei.launches == before + 1
     px, pei = megakernel.fused_sample_ei_plain(*args, bounded)
-    for got, want in ((x, px), (ei, pei)):
-        assert torch.isfinite(got).all()
-        assert bool(((got - want).abs() <= 1e-4 * want.abs().clamp(min=1.0)).all())
+    assert torch.isfinite(x).all() and torch.isfinite(ei).all()
+    # the binary-search pick and the carried ndtri leave x on the plain bits
+    assert float((x - px).abs().max()) == 0.0
+    assert bool(((ei - pei).abs() <= 1e-4 * pei.abs().clamp(min=1.0)).all())
     if bounded:
         assert bool((x >= -2.0).all()) and bool((x < 2.5).all())
 

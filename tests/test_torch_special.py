@@ -1,11 +1,9 @@
-"""The port's float32 ``erf`` and ``ndtri`` against the JAX package's
-(``jax.lax.erf`` and ``jax.scipy.special.ndtri`` as XLA compiles them on
-the CPU), measured on 10^6 points.  ``erf`` is bitwise: the port computes
-XLA's clamped rational form with its FMAs.  ``ndtri`` is Cephes' formula
-term for term; its tail branch still goes through torch's ``log``, which
-differs from XLA's by an ulp on some inputs, so the test pins the
-bitwise share and the largest ulp gap, and prints them with
-``torch.special.ndtri``'s for comparison (``pytest -s``)."""
+"""The port's float32 ``erf``, ``log``, ``sqrt`` and ``ndtri`` against the
+JAX package's (``jax.lax.erf``, ``jnp.log``, ``jnp.sqrt`` and
+``jax.scipy.special.ndtri`` as XLA compiles them on the CPU), each on 10^6
+points, all bitwise: the port computes XLA's forms with their FMAs.  Each
+test prints torch's own function's bitwise share beside the port's for
+comparison (``pytest -s``)."""
 
 import numpy as np
 import torch
@@ -35,6 +33,28 @@ def test_erf_is_xlas_float32_erf():
     np.testing.assert_array_equal(got, want)
 
 
+def test_log_is_xlas_float32_log():
+    # positive normal inputs, the only ones ndtri gives it
+    x = np.concatenate([np.geomspace(1e-7, 1.0, 5 * 10**5), np.geomspace(1.0, 64.0, 5 * 10**5)])
+    x = x.astype(np.float32)
+    want = np.asarray(jax.jit(jnp.log)(jnp.asarray(x)))
+    got = tpe.xla_log(torch.from_numpy(x)).numpy()
+    before = torch.log(torch.from_numpy(x)).numpy()
+    print(f"log on 1e6 points in [1e-7, 64]: torch.log bitwise {np.mean(before == want):.6f}; "
+          f"port bitwise {np.mean(got == want):.6f}")
+    np.testing.assert_array_equal(got, want)
+
+
+def test_sqrt_is_xlas_float32_sqrt():
+    x = np.linspace(1.0, 64.0, 10**6).astype(np.float32)
+    want = np.asarray(jax.jit(jnp.sqrt)(jnp.asarray(x)))
+    got = tpe.xla_sqrt(torch.from_numpy(x)).numpy()
+    before = torch.sqrt(torch.from_numpy(x)).numpy()
+    print(f"sqrt on 1e6 points in [1, 64]: torch.sqrt bitwise {np.mean(before == want):.6f}; "
+          f"port bitwise {np.mean(got == want):.6f}")
+    np.testing.assert_array_equal(got, want)
+
+
 def test_ndtri_follows_jax_ndtri():
     p = np.linspace(1e-7, 1 - 1e-7, 10**6).astype(np.float32)
     want = np.asarray(jax.jit(jax_ndtri)(jnp.asarray(p)))
@@ -43,6 +63,4 @@ def test_ndtri_follows_jax_ndtri():
     print(f"ndtri on 1e6 points in [1e-7, 1-1e-7]: torch.special.ndtri bitwise "
           f"{np.mean(before == 0):.6f}, max {before.max()} ulp; port bitwise "
           f"{np.mean(got == 0):.6f}, max {got.max()} ulp")
-    assert np.mean(got == 0) >= 0.94 and got.max() <= 6
-    central = (p > np.float32(np.exp(-2.0))) & (p < np.float32(-np.expm1(-2.0)))
-    assert (got[central] == 0).all()  # the central rational branch is exact
+    assert (got == 0).all(), f"{np.mean(got == 0)} bitwise, max {got.max()} ulp"
