@@ -8,18 +8,19 @@ Phases, each of which fails the run (non-zero exit) on its own:
 1. Build every CUDA kernel of the port from ``hyperopt_tpu_torch/csrc``
    (one ``nvcc`` per source, started together; ``-Xptxas -v`` gives each
    kernel's registers and shared memory) and hold each against its plain
-   PyTorch version on the card.  A kernel's ``ms`` is its own device time
-   (torch.profiler, mean of 10 launches after warm-up); ``call_ms`` is
-   the median of 25 calls timed with CUDA events, the host's enqueue
-   included (at launch scale that is most of it); ``plain_ms`` times the
-   plain version the second way.  ``ei_diff`` runs at the single-study
+   PyTorch version on the card.  A kernel's ``ms`` is the median of 25
+   calls timed with CUDA events, the host's enqueue included (at launch
+   scale that is most of it), as earlier versions of this script timed
+   it; ``device_ms`` is the kernel's own device time (torch.profiler, mean
+   of 10 launches after warm-up); ``plain_ms`` times the plain version
+   the first way.  ``ei_diff`` runs at the single-study
    ask's shapes and at the edges of its component split (m = 1, m off the chunk size,
    an all-dead below mixture, n = 1, m = 2049), ``fused_sample_ei`` at the
    cohort's (the service tick, the wide tick, an unbounded group, a group
    with dead components, N = m = 1), its candidates equal to the plain
    version's bit for bit.  Each shape records the launch's plan (splits
-   or rows, blocks), ``bound_share = bound_ms / ms`` and the previous
-   version's device time there (``ms_before``).
+   or rows, blocks), its registers and shared memory, and
+   ``bound_share = bound_ms / device_ms``.
 2. Check the card's main path against the port's CPU path: the same
    40-evaluation branin ``fmin`` on both devices gives the same trials.
 3. The single-study path: ``fmin`` on branin (BASELINE config 2) with
@@ -29,10 +30,12 @@ Phases, each of which fails the run (non-zero exit) on its own:
 4. A wide ask on a real-size state (BASELINE config 3's space,
    ``hr_conditional``, 28 labels): a 1000-trial history from
    ``rand.suggest``, then one ``tpe.suggest`` for 1024 new ids at
-   ``n_EI_candidates=1024``, four times, and once more under
-   ``torch.profiler``: device busy time, launches, idle share.
+   ``n_EI_candidates=1024``, four times (each with the caching
+   allocator's peak and retries), and once more under ``torch.profiler``:
+   device busy time, launches, idle share.
 5. ``torch.profiler`` over 20 more branin TPE asks: device busy time,
-   kernel launches and the device's idle share per ask.
+   kernel launches and the device's idle share per ask; then ``cProfile``
+   over 5 asks: the host's time per ask in the port's functions.
 6. The study scheduler on the card against the scheduler on the CPU: 8
    studies over branin and hartmann6, 30 trials each, the same trials.
 7. The study-batched path: ``make_study_mix(1024)`` through
@@ -95,23 +98,8 @@ EI_SHAPES = [(1, 24, 129, 0, None, False), (4, 1000, 257, 0, None, False),
 # candidates), an unbounded group, a group with dead components, N = m = 1
 FUSED_SHAPES = [(256 * 6, 24, 65, 0, True), (256 * 6, 4 * 1024, 129, 0, True),
                 (256 * 2, 24, 65, 0, False), (64, 1000, 300, 77, True), (64, 1, 1, 0, True)]
-# the previous version's device time (ms) at each phase-1 shape, as
-# PERF.md records it: scripts/torch_kernel_ab.py on commit d75fd01 (the
-# kernels before the shared score loop), mean of two turns on one H100
-MS_BEFORE = {"ei_diff": {(1, 24, 129): 0.04871, (4, 1000, 257): 0.09166,
-                         (128, 8192, 1025): 7.043, (8, 4096, 513): 0.1837,
-                         (2, 1024, 1025): 0.3832, (27, 1048576, 1025): 183.3,
-                         (3, 1024, 1): 0.001784, (3, 2000, 300): 0.114,
-                         (4, 1000, 129): 0.04341, (8, 1, 1025): 0.3873,
-                         (1, 1024, 2049): 0.7658},
-             "fused_sample_ei": {(1536, 24, 65): 0.04217, (1536, 4096, 129): 5.594,
-                                 (512, 24, 65): 0.03251, (64, 1000, 300): 0.1613,
-                                 (64, 1, 1): 0.003523}}
-
-
 # what the kernels line keeps of each phase-1 shape
-SHAPE_KEYS = ("shape", "dead", "below_all_dead", "bounded", "max_abs_err", "ms", "call_ms",
-              "ms_before",
+SHAPE_KEYS = ("shape", "dead", "below_all_dead", "bounded", "max_abs_err", "ms", "device_ms",
               "plain_ms", "bound_ms", "bound_share", "per_thread", "splits", "cols", "rows",
               "blocks", "registers", "smem_bytes")
 
@@ -256,17 +244,16 @@ def phase_kernels(report):
         err = (gs - want).abs()
         ok = bool(torch.isfinite(got).all()) and bool(
             (err <= TOL * torch.clamp(want.abs(), min=1.0)).all())
-        call_ms = cuda_ms(lambda: megakernel.ei_diff(x, *tabs))
-        ms = device_ms(lambda: megakernel.ei_diff(x, *tabs), "ei_diff_kernel")
+        ms = cuda_ms(lambda: megakernel.ei_diff(x, *tabs))
+        dev_ms = device_ms(lambda: megakernel.ei_diff(x, *tabs), "ei_diff_kernel")
         plain_ms = cuda_ms(lambda: megakernel.ei_diff_plain(xs, *tabs), reps=5)
         bound_ms, bound_by = ei_bound(P, n, m)
-        plan = megakernel.launch_plan("ei_diff", P, n, m)
+        plan = megakernel._launch_plan("ei_diff", P, n, m)
         row = {"shape": [P, n, m], "dead": dead, "below_all_dead": below_dead,
                "compared_candidates": xs.shape[1],
-               "max_abs_err": float(err.max()), "ok": ok, "ms": ms, "call_ms": call_ms,
-               "ms_before": MS_BEFORE["ei_diff"].get((P, n, m)),
+               "max_abs_err": float(err.max()), "ok": ok, "ms": ms, "device_ms": dev_ms,
                "plain_ms": plain_ms, "plain_ms_shape": list(xs.shape) + [m],
-               "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / dev_ms,
                **plan, **usage_of(usage, f"ei_diff_kernelILi{plan['per_thread']}E")}
         rows.append(row)
         log(f"ei_diff {row}")
@@ -289,18 +276,17 @@ def phase_kernels(report):
               and bool((err_ei <= TOL * torch.clamp(pei.abs(), min=1.0)).all()))
         if bounded:
             ok = ok and bool((x >= args[-2][:, None]).all()) and bool((x < args[-1][:, None]).all())
-        call_ms = cuda_ms(lambda: megakernel.fused_sample_ei(*args, bounded))
-        ms = device_ms(lambda: megakernel.fused_sample_ei(*args, bounded), "fused_kernel")
+        ms = cuda_ms(lambda: megakernel.fused_sample_ei(*args, bounded))
+        dev_ms = device_ms(lambda: megakernel.fused_sample_ei(*args, bounded), "fused_kernel")
         plain_ms = cuda_ms(lambda: megakernel.fused_sample_ei_plain(*args, bounded), reps=5)
         bound_ms, bound_by = fused_bound(P, N, m)
         row = {"shape": [P, N, m], "dead": dead, "bounded": bounded,
                "max_abs_err": float(max(err_x.max(), err_ei.max())),
                "max_abs_err_x": float(err_x.max()), "max_abs_err_ei": float(err_ei.max()),
-               "ok": ok, "ms": ms, "call_ms": call_ms,
-               "ms_before": MS_BEFORE["fused_sample_ei"].get((P, N, m)),
+               "ok": ok, "ms": ms, "device_ms": dev_ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "bound_share": bound_ms / ms,
-               **megakernel.launch_plan("fused_sample_ei", P, N, m),
+               "bound_by": bound_by, "bound_share": bound_ms / dev_ms,
+               **megakernel._launch_plan("fused_sample_ei", P, N, m),
                **usage_of(usage, "fused_kernel")}
         frows.append(row)
         log(f"fused_sample_ei {row}")
@@ -436,9 +422,10 @@ def phase_main(report):
     return launches, trials, tuned
 
 
-def phase_profile(report, trials, tuned, asks=20):
+def phase_profile(report, trials, tuned, asks=20, host_asks=5):
     """Where a main-path TPE ask spends its time: ``torch.profiler`` over
-    ``asks`` more asks on the finished branin history (cap 1024)."""
+    ``asks`` more asks on the finished branin history (cap 1024), then
+    ``cProfile`` over ``host_asks`` more."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -468,8 +455,39 @@ def phase_profile(report, trials, tuned, asks=20):
            "top_kernels": [{"name": a.key[:80], "launches_per_ask": a.count / asks,
                             "device_ms_per_ask": a.self_device_time_total / 1e3 / asks}
                            for a in top]}
+    out["host"] = host_profile(lambda seed: tuned(ids, domain, trials, seed), host_asks)
     report["profile_branin_ask"] = out
     log(f"profile: {out}")
+
+
+def host_profile(ask, asks, keep=40):
+    """The host's side of ``asks`` calls of ``ask(seed)`` under cProfile:
+    wall per ask, the time spent inside C functions (torch's operators,
+    which enqueue the launches), and the port's functions by cumulative
+    time per ask.  cProfile's own cost inflates every Python figure."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    for seed in range(asks):
+        ask(1000 + seed)
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    stats = pstats.Stats(prof).stats  # (file, line, name) -> (cc, calls, self s, cum s, callers)
+    builtin_s = sum(v[2] for (path, _, _), v in stats.items() if path == "~")
+    rows = [{"function": f"{path.rsplit('hyperopt_tpu_torch/', 1)[-1]}:{line}:{name}",
+             "calls_per_ask": calls / asks, "cum_ms_per_ask": 1e3 * cum / asks,
+             "self_ms_per_ask": 1e3 * self_s / asks}
+            for (path, line, name), (_, calls, self_s, cum, _) in stats.items()
+            if "hyperopt_tpu_torch" in path]
+    rows.sort(key=lambda r: -r["cum_ms_per_ask"])
+    return {"asks": asks, "wall_ms_per_ask": 1e3 * wall / asks,
+            "c_functions_ms_per_ask": 1e3 * builtin_s / asks, "port_functions": rows[:keep]}
 
 
 def trials_cs(dom):
@@ -499,15 +517,21 @@ def phase_wide(report):
     trials.insert_trial_docs(docs)
     trials.refresh()
     ids = list(range(WIDE_HISTORY, WIDE_HISTORY + WIDE_IDS))
-    times, launches = [], []
+    times, launches, peaks, retries = [], [], [], []
     for rep in range(4):
         megakernel.ei_diff.launches = 0
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_stats().get("num_alloc_retries", 0)
         t0 = time.perf_counter()
         new = port.tpe.suggest(ids, domain, trials, seed=100 + rep,
                                n_EI_candidates=WIDE_CANDIDATES)
         times.append(time.perf_counter() - t0)
         launches.append(megakernel.ei_diff.launches)
+        # the caching allocator's peak, and how often it had to free its
+        # cache and retry a cudaMalloc (a synchronizing slow path)
+        peaks.append(torch.cuda.max_memory_reserved() / 2**30)
+        retries.append(torch.cuda.memory_stats().get("num_alloc_retries", 0) - before)
         if len(new) != WIDE_IDS or not all(in_space(domain.cs, d) for d in new):
             raise AssertionError("the wide ask returned a bad proposal")
     # one more ask under torch.profiler: the device's share of the ask
@@ -524,8 +548,8 @@ def phase_wide(report):
     out = {"history": WIDE_HISTORY, "cap": cap, "m": cap + 1, "ids": WIDE_IDS,
            "n_EI_candidates": WIDE_CANDIDATES, "ask_ms": [1e3 * t for t in times],
            "first_ask_ms": 1e3 * times[0], "median_ask_ms": 1e3 * statistics.median(times[1:]),
-           "ei_diff_launches_per_ask": launches,
-           "profiled_ask_ms": prof_ms, "device_busy_ms": busy_ms,
+           "ei_diff_launches_per_ask": launches, "peak_reserved_gib": peaks,
+           "alloc_retries": retries, "profiled_ask_ms": prof_ms, "device_busy_ms": busy_ms,
            "kernel_launches": sum(a.count for a in kernels),
            "device_idle_share": 1.0 - busy_ms / prof_ms,
            "top_kernels": [{"name": a.key[:80], "launches": a.count,
@@ -762,6 +786,10 @@ def phase_wide_cohort(report):
 
 
 def main():
+    # torch.profiler leaves CUPTI attached after a session unless told to
+    # tear it down, and every later launch pays for it (a branin ask ~30%
+    # slower after one session); phase 1 profiles before the timed phases
+    os.environ.setdefault("TEARDOWN_CUPTI", "1")
     try:
         import torch
     except ImportError:
@@ -800,8 +828,7 @@ def main():
                              "service_wave": service_launches["ei_diff"]},
         "shape": tick["shape"], "max_abs_err": tick["max_abs_err"],
         "max_err": max(r["max_abs_err"] for r in rows),
-        "ms": tick["ms"], "call_ms": tick["call_ms"], "ms_before": tick["ms_before"],
-        "plain_ms": tick["plain_ms"],
+        "ms": tick["ms"], "device_ms": tick["device_ms"], "plain_ms": tick["plain_ms"],
         "bound_ms": tick["bound_ms"], "bound_by": tick["bound_by"],
         "bound_share": tick["bound_share"], "library_ms": None,
         "shapes": [{k: r[k] for k in SHAPE_KEYS if k in r} for r in rows],
@@ -813,8 +840,7 @@ def main():
                              "service_wave": service_launches["fused_sample_ei"]},
         "shape": ftick["shape"], "max_abs_err": ftick["max_abs_err"],
         "max_err": max(r["max_abs_err"] for r in frows),
-        "ms": ftick["ms"], "call_ms": ftick["call_ms"], "ms_before": ftick["ms_before"],
-        "plain_ms": ftick["plain_ms"],
+        "ms": ftick["ms"], "device_ms": ftick["device_ms"], "plain_ms": ftick["plain_ms"],
         "bound_ms": ftick["bound_ms"], "bound_by": ftick["bound_by"],
         "bound_share": ftick["bound_share"], "library_ms": None,
         "shapes": [{k: r[k] for k in SHAPE_KEYS if k in r} for r in frows],

@@ -7,7 +7,8 @@ header it may include, and the ``nvcc`` flags
 (``build/hyperopt_tpu_torch/lib<stem>_<sha>.so`` beside the package).  A
 library that is already there is loaded as it is, so a source is
 compiled once per change of any of them.  The flags carry ``-Xptxas -v``,
-so a build's output lists each kernel's registers and shared memory.
+so a build's output lists each kernel's registers and shared memory; it is
+kept beside the library (``lib<stem>_<sha>.log``).
 Nothing here runs at import: the first launch builds, and
 :func:`build_all` starts one ``nvcc`` per source at once.
 """
@@ -35,9 +36,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "ei_diff": {"ei_diff_f32": ([_P] * 8 + [_I, _I, _I, _P], ctypes.c_int),
-                "ei_diff_plan": ([_I, _I, _I, _P], None)},
+                "ei_diff_plan": ([_I, _I, _I, _P], ctypes.c_int)},
     "fused_sample_ei": {"fused_sample_ei_f32": ([_P] * 15 + [_I] * 4 + [_P], ctypes.c_int),
-                        "fused_sample_ei_plan": ([_I, _I, _I, _P], None)},
+                        "fused_sample_ei_plan": ([_I, _I, _I, _P], ctypes.c_int)},
 }
 
 
@@ -84,15 +85,22 @@ def _finish(job):
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    so.with_suffix(".log").write_text(log)
     os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing
     return log
 
 
 def build_all():
     """Compile every source that is not built yet, one ``nvcc`` per source,
-    all started together; returns ``{stem: compiler output}``."""
+    all started together; returns ``{stem: compiler output}``, read back
+    from the kept log for a library built earlier ("" if it has none)."""
     jobs = {stem: _start(stem) for stem in _SIGNATURES}
-    return {stem: _finish(job) for stem, job in jobs.items() if job is not None}
+    out = {}
+    for stem, job in jobs.items():
+        kept = _target(stem)[1].with_suffix(".log")
+        out[stem] = (_finish(job) if job is not None
+                     else kept.read_text() if kept.exists() else "")
+    return out
 
 
 @functools.lru_cache(maxsize=None)

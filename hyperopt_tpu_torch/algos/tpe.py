@@ -29,6 +29,7 @@ fp8 codes) decodes to float32 at the read boundary (:func:`_read_vals`).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -92,13 +93,31 @@ def _fma(a, b, c):
     return (a * b + c).float()
 
 
-def _horner(coef, x):
-    """Polynomial (coefficients highest power first) at float32 ``x``, one
-    rounding per step as XLA's contracted ``jnp.polyval`` computes it."""
+@functools.lru_cache(maxsize=None)
+def _coef_table(polys, device):
+    """``[steps, k]`` float64 table of ``k`` polynomials' float32
+    coefficients (highest power first), shorter ones led by zeros."""
+    steps = max(len(c) for c in polys)
+    tab = np.zeros((steps, len(polys)))
+    for j, c in enumerate(polys):
+        tab[steps - len(c):, j] = np.asarray(c, np.float32)
+    return torch.tensor(tab, dtype=torch.float64, device=device)
+
+
+def _horner(polys, x):
+    """The polynomials ``polys`` (a tuple of coefficient tuples, highest
+    power first) at float32 or float64-held float32 ``x``, one rounding
+    per step as XLA's contracted ``jnp.polyval`` computes it.  ``x`` is
+    ``[k, ...]`` (one row per polynomial) or ``[1, ...]`` (shared); the
+    result is ``[k, ...]`` float32.  All ``k`` are evaluated together, so
+    a step is four launches whatever ``k``; a leading zero coefficient
+    leaves a shorter polynomial's value as it would be."""
+    tab = _coef_table(polys, x.device)
+    col = (len(polys),) + (1,) * (x.dim() - 1)
     xd = x.double()
-    y = torch.zeros_like(x)
-    for c in coef:
-        y = (y.double() * xd + float(np.float32(c))).float()
+    y = tab[0].view(col)
+    for i in range(1, tab.shape[0]):
+        y = (y.double() * xd + tab[i].view(col)).float()
     return y
 
 
@@ -147,6 +166,7 @@ _NDTRI_Q2 = (1.0, 6.02427039364742014255e0, 3.67983563856160859403e0,
              1.37702099489081330271e0, 2.16236993594496635890e-1,
              1.34204006088543189037e-2, 3.28014464682127739104e-4,
              2.89247864745380683936e-6, 6.79019408009981274425e-9)
+_NDTRI_POLYS = (_NDTRI_P0, _NDTRI_Q0, _NDTRI_P2, _NDTRI_Q2, _NDTRI_P1, _NDTRI_Q1)
 _EXP_M2 = float(np.float32(np.exp(-2.0)))
 _ONE_MINUS_EXP_M2 = float(np.float32(-np.expm1(-2.0)))
 _NEG_SQRT_2PI = -float(np.float32(np.sqrt(2.0 * np.pi)))
@@ -159,6 +179,7 @@ _LOG_P = tuple(float(np.float32(c)) for c in (
     7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
     1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
     3.3333331174e-1))
+_LOG_GROUPS = (_LOG_P[0:3], _LOG_P[3:6], _LOG_P[6:9])
 _LOG_Q1, _LOG_Q2 = float(np.float32(-2.12194440e-4)), 0.693359375
 _SQRT_HALF = float(np.float32(0.707106781186547524))
 
@@ -166,8 +187,8 @@ _SQRT_HALF = float(np.float32(0.707106781186547524))
 def erf(z):
     """float32 ``erf`` by the clamped rational form XLA's CPU code uses."""
     z = torch.clamp(z, -_ERF_CLAMP, _ERF_CLAMP)
-    z2 = z * z
-    return (z * _horner(_ERF_P, z2)) / _horner(_ERF_Q, z2)
+    p, q = _horner((_ERF_P, _ERF_Q), (z * z)[None])
+    return (z * p) / q
 
 
 def xla_log(x):
@@ -181,8 +202,8 @@ def xla_log(x):
     e = ((bits >> 23) - 126).float() - small
     f = (m - 1.0) + m * small
     f2 = f * f
-    f3 = f2 * f
-    g = [_fma(_fma(f, _LOG_P[k], _LOG_P[k + 1]), f, _LOG_P[k + 2]) for k in (0, 3, 6)]
+    f3 = (f2 * f).double()
+    g = _horner(_LOG_GROUPS, f.double()[None])  # the three groups at once
     y = _fma(_fma(_fma(g[0], f3, g[1]), f3, g[2]), f3, e * _LOG_Q1)
     return _fma(e, _LOG_Q2, (f - 0.5 * f2) + y)
 
@@ -205,14 +226,15 @@ def ndtri(p):
     s = torch.where(mcp == 0.0, torch.full_like(p, 0.5), mcp)
     w = s - 0.5
     ww = w * w
-    r = _horner(_NDTRI_P0, ww) / _horner(_NDTRI_Q0, ww)
-    big = _fma(w * ww, r, w) * _NEG_SQRT_2PI
     y = -2.0 * xla_log(s)
     z = xla_sqrt(y)
     first = z - (xla_log(y) * 0.5) / z
     iz = 1.0 / z
-    tail_far = _horner(_NDTRI_P2, iz) / (_horner(_NDTRI_Q2, iz) * z)
-    tail = _horner(_NDTRI_P1, iz) / (_horner(_NDTRI_Q1, iz) * z)
+    # the six polynomials in one pass: P0/Q0 at ww, the two tails' at 1/z
+    p0, q0, p2, q2, p1, q1 = _horner(_NDTRI_POLYS, torch.stack((ww, ww, iz, iz, iz, iz)))
+    big = _fma(w * ww, p0 / q0, w) * _NEG_SQRT_2PI
+    tail_far = p2 / (q2 * z)
+    tail = p1 / (q1 * z)
     x = torch.where(s > _EXP_M2, big, torch.where(z >= 8.0, first - tail_far, first - tail))
     return torch.where(p > _ONE_MINUS_EXP_M2, x, -x)
 

@@ -130,15 +130,21 @@ ei_diff_kernel(const float* __restrict__ x,
   }
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
+// The current card's SM count, queried once.
+cudaError_t sm_count(int* sms) {
+  static int cached = 0;
+  if (cached == 0) {
     int dev = 0;
-    cudaGetDevice(&dev);
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      sms = 132;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&cached, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) {
+      cached = 0;
+      return err;
+    }
   }
-  return sms;
+  *sms = cached;
+  return cudaSuccess;
 }
 
 template <int CPT>
@@ -166,9 +172,13 @@ cudaError_t launch(const float* x, const float* wb, const float* mb, const float
 // The launch's shape for (P, n, m): plan[0] candidates per thread, plan[1]
 // component splits (the cluster size), plan[2] blocks, plan[3] threads per
 // block.  Candidates per thread shrink, then the component axis splits,
-// until the grid holds about two blocks per SM.
-extern "C" void ei_diff_plan(int P, int n, int m, int* plan) {
-  const long long target = 2LL * sm_count();
+// until the grid holds about two blocks per SM.  Returns the error of the
+// SM-count query, and then leaves plan as it was.
+extern "C" int ei_diff_plan(int P, int n, int m, int* plan) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long target = 2LL * sms;
   int cpt = 4;
   long long tiles = 0;
   for (;; cpt /= 2) {
@@ -184,6 +194,7 @@ extern "C" void ei_diff_plan(int P, int n, int m, int* plan) {
   plan[1] = (int)splits;
   plan[2] = (int)(base * splits);
   plan[3] = kThreads;
+  return 0;
 }
 
 // Launches on `stream` (a cudaStream_t) and returns cudaGetLastError().
@@ -193,7 +204,8 @@ extern "C" int ei_diff_f32(const float* x, const float* wb, const float* mb,
                            void* stream) {
   if (P <= 0 || n <= 0) return 0;
   int plan[4];
-  ei_diff_plan(P, n, m, plan);
+  const int plan_err = ei_diff_plan(P, n, m, plan);
+  if (plan_err != 0) return plan_err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (plan[0]) {

@@ -253,14 +253,16 @@ void plan_of(int P, int N, int* plan) {
 }  // namespace
 
 // The launch's shape for (P, N, m): plan[0] candidates per row, plan[1]
-// rows per block, plan[2] blocks, plan[3] threads per block.
-extern "C" void fused_sample_ei_plan(int P, int N, int m, int* plan) {
+// rows per block, plan[2] blocks, plan[3] threads per block.  Returns 0:
+// the plan depends on the shape alone.
+extern "C" int fused_sample_ei_plan(int P, int N, int m, int* plan) {
   int g[4];
   plan_of(P, N, g);
   plan[0] = 1 << g[0];
   plan[1] = g[1];
   plan[2] = g[2] * g[3];
   plan[3] = kThreads;
+  return 0;
 }
 
 // Launches on `stream` (a cudaStream_t) and returns cudaGetLastError().

@@ -20,8 +20,7 @@ plain torch version beside it (``ei_diff_plain``,
 failure raises: nothing falls back.  Both kernels score with the loop of
 ``csrc/mixture_lse.cuh`` (per-component constants hoisted, one exp2 per
 term on a base-2 carry); the plain versions stay the function the JAX
-package computes, and :func:`launch_plan` reports the shape each kernel's
-launch takes.
+package computes.
 """
 
 from __future__ import annotations
@@ -29,7 +28,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["mode", "supports", "armed", "build_cohort", "ei_diff", "ei_diff_plain",
-           "fused_sample_ei", "fused_sample_ei_plain", "launch_plan"]
+           "fused_sample_ei", "fused_sample_ei_plain"]
 
 # log(sqrt(2*pi))
 _LOG_SQRT_2PI = 0.9189385332046727
@@ -116,17 +115,21 @@ def ei_diff(x, wb, mb, sb, wa, ma, sa):
 ei_diff.launches = 0
 
 
-def launch_plan(kernel, P, n, m):
+def _launch_plan(kernel, P, n, m):
     """The launch the C entry of ``kernel`` (``"ei_diff"`` or
     ``"fused_sample_ei"``) makes at shape ``(P, n, m)`` on the current
-    card: ``{"per_thread" | "cols", "splits" | "rows", "blocks",
-    "threads"}``.  Builds the kernel; needs the CUDA toolkit."""
+    card, for reports: ``{"per_thread" | "cols", "splits" | "rows",
+    "blocks", "threads"}``.  Builds the kernel; needs the CUDA toolkit.
+    Raises if the card cannot be queried."""
     import ctypes
 
     from ._build import library
 
     out = (ctypes.c_int * 4)()
-    getattr(library(kernel), f"{kernel}_plan")(P, n, m, ctypes.cast(out, ctypes.c_void_p))
+    err = getattr(library(kernel), f"{kernel}_plan")(P, n, m,
+                                                     ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"{kernel}: launch plan failed: CUDA error {err}")
     keys = (("per_thread", "splits") if kernel == "ei_diff" else ("cols", "rows"))
     return dict(zip(keys + ("blocks", "threads"), out))
 

@@ -46,3 +46,16 @@ def test_library_name_follows_what_the_build_reads(csrc, monkeypatch, stem, edit
     assert _build._target(stem)[1] == before  # stable while nothing changes
     edit(csrc, monkeypatch, stem)
     assert _build._target(stem)[1] != before
+
+
+def test_build_all_reads_back_the_kept_log(csrc, monkeypatch, tmp_path):
+    """A library built earlier is not rebuilt; its compiler output (the
+    registers and shared memory ``-Xptxas -v`` printed) comes from the log
+    kept beside it."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    _build.BUILD_DIR.mkdir()
+    for stem in _build._SIGNATURES:
+        _build._target(stem)[1].write_bytes(b"")
+    kept = "ptxas info    : Used 40 registers, 10240 bytes smem"
+    _build._target("ei_diff")[1].with_suffix(".log").write_text(kept)
+    assert _build.build_all() == {"ei_diff": kept, "fused_sample_ei": ""}

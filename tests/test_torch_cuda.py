@@ -48,7 +48,7 @@ def test_kernel_matches_plain_and_counts_launches(cuda_device, P, n, m, dead, sp
     args = _inputs(P, n, m, cuda_device, dead=dead % m, seed=P + n)
     if dead == m:  # an all-dead above mixture
         args[4] = torch.zeros_like(args[4])
-    plan = megakernel.launch_plan("ei_diff", P, n, m)
+    plan = megakernel._launch_plan("ei_diff", P, n, m)
     assert (plan["splits"] > 1) == split and plan["splits"] <= min(8, m)
     before = megakernel.ei_diff.launches
     got = megakernel.ei_diff(*args)

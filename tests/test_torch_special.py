@@ -3,10 +3,14 @@ JAX package's (``jax.lax.erf``, ``jnp.log``, ``jnp.sqrt`` and
 ``jax.scipy.special.ndtri`` as XLA compiles them on the CPU), each on 10^6
 points, all bitwise: the port computes XLA's forms with their FMAs.  Each
 test prints torch's own function's bitwise share beside the port's for
-comparison (``pytest -s``)."""
+comparison (``pytest -s``).  The last test counts the operators each
+one runs per call: on the card, each is a launch of the sequential ask.
+"""
 
 import numpy as np
+import pytest
 import torch
+import torch.utils._python_dispatch
 
 import jax
 import jax.numpy as jnp
@@ -64,3 +68,31 @@ def test_ndtri_follows_jax_ndtri():
           f"{np.mean(before == 0):.6f}, max {before.max()} ulp; port bitwise "
           f"{np.mean(got == 0):.6f}, max {got.max()} ulp")
     assert (got == 0).all(), f"{np.mean(got == 0)} bitwise, max {got.max()} ulp"
+
+
+class _CountOps(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the operators a call runs, views aside: on a CUDA tensor each
+    is one kernel launch."""
+
+    _VIEWS = {"view", "_unsafe_view", "select", "unbind", "slice", "alias", "detach",
+              "expand", "unsqueeze", "squeeze"}
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket.__name__ not in self._VIEWS:
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+# a sequential ask is a chain of ~1,700 such launches, paid for on the host
+@pytest.mark.parametrize("name,fn,limit", [("ndtri", tpe.ndtri, 180), ("erf", tpe.erf, 35),
+                                           ("xla_log", tpe.xla_log, 50)])
+def test_special_function_stays_lean(name, fn, limit):
+    x = torch.rand(2, 1024, generator=torch.Generator().manual_seed(0)) * 0.98 + 0.01
+    with _CountOps() as count:
+        fn(x)
+    print(f"{name}: {count.n} operators per call")
+    assert count.n <= limit
