@@ -48,6 +48,16 @@ Phases, each of which fails the run (non-zero exit) on its own:
    cap 128, 4 ids, ``n_EI_candidates=1024``, in float32 and int8 storage,
    on the fused route and on the grouped ``ei_diff`` route: the routes
    agree, and the int8 history takes at most 0.30 of the float32 bytes.
+9. The on-device loop (``device_fmin``), whose steps are CUDA-graph
+   replays with ``ei_diff`` inside the TPE graph: 40 ``DeviceLoopRunner``
+   branin trials on the card follow the CPU's (rtol 1e-4), and the graph
+   replays equal the eager steps on the card bit for bit; then
+   ``fmin_device`` on branin at 1000 evaluations and 1024 candidates,
+   cold (warm-up and capture) and warm (no capture), and
+   ``fmin(device_loop=True)`` at the same size: best loss below the
+   domain's target, every proposal in the space.  One chunk of 10 TPE
+   replays under ``torch.profiler`` gives the device time and kernel
+   launches per step and must show ``ei_diff``'s kernel once per step.
 
 It imports neither JAX nor the JAX package.  Before the last line it
 prints one JSON line describing every kernel and the card's name and power
@@ -83,11 +93,15 @@ WIDE_HISTORY, WIDE_IDS, WIDE_CANDIDATES = 1000, 1024, 1024
 SERVICE_STUDIES, SERVICE_STARTUP, SERVICE_WAVES, SERVICE_PROFILED = 1024, 5, 20, 5
 COHORT_STUDIES, COHORT_TRIALS = 8, 30
 WIDE_COHORT = dict(studies=256, cap=128, ids=4, candidates=1024)
+# the device loop: card vs CPU and graph vs eager on 40 runner trials, then
+# the main size (BASELINE config 2: branin, 1000 evaluations)
+LOOP_CHECK_TRIALS, LOOP_STARTUP = 40, 20
 # ei_diff shapes (P, n, m, dead components, compare on the first n_cmp
 # candidates, all-dead below mixture)
 EI_SHAPES = [(1, 24, 129, 0, None, False), (4, 1000, 257, 0, None, False),
              (128, 8192, 1025, 0, None, False), (8, 4096, 513, 100, None, False),
              (2, 1024, 1025, 0, None, False),          # branin tick: 2 labels x 1024 candidates
+             (2, 1024, 1001, 0, None, False),          # the device loop's TPE step, cap 1000
              (27, 1024 * 1024, 1025, 0, 8192, False),  # hr_conditional wide ask: 27 labels
              # edges of the component split
              (3, 1024, 1, 0, None, False), (3, 2000, 300, 0, None, False),
@@ -785,6 +799,177 @@ def phase_wide_cohort(report):
         raise AssertionError(f"int8 history takes {out['int8_value_bytes_frac']:.3f} of f32")
 
 
+def kernel_types(kernels, steps):
+    """Launches and device ms per step of profiled kernels, grouped by the
+    first element type their name mentions (int64 lanes of the threefry
+    PRNG, float64 of the single-rounding steps, float32, bool); copies
+    and others name none."""
+    out = {}
+    for a in kernels:
+        name = a.key
+        kind = next((t for t, words in (("int64", ("<long", " long")),
+                                        ("float64", ("<double", " double")),
+                                        ("float32", ("<float", " float")),
+                                        ("bool", ("<bool", " bool")))
+                     if any(w in name for w in words)), "other")
+        n, ms = out.get(kind, (0.0, 0.0))
+        out[kind] = (n + a.count / steps, ms + a.self_device_time_total / 1e3 / steps)
+    return {k: {"launches_per_step": n, "device_ms_per_step": ms} for k, (n, ms) in out.items()}
+
+
+def _loop_runner_rows(device, capture, dom, cfg):
+    """Rows of ``LOOP_CHECK_TRIALS`` branin trials through a
+    ``DeviceLoopRunner`` on ``device`` (chunks of 10, seeds 100 + start),
+    and the final state."""
+    import numpy as np
+
+    from hyperopt_tpu_torch import device_fmin
+    from hyperopt_tpu_torch.base import Domain
+
+    runner = device_fmin.DeviceLoopRunner(Domain(dom.traceable, dom.space), cfg, LOOP_STARTUP,
+                                          LOOP_CHECK_TRIALS, device=device, capture=capture)
+    state = runner.init_state()
+    rows = []
+    for start in range(0, LOOP_CHECK_TRIALS, runner.CHUNK):
+        state, r = runner.run_chunk(state, start, start + runner.CHUNK, seed=100 + start)
+        rows.append(r)
+    return np.concatenate(rows), state
+
+
+def phase_device_loop(report):
+    """The on-device loop: card vs CPU, graph vs eager, then
+    ``fmin_device`` (cold and warm) and ``fmin(device_loop=True)`` on
+    branin at 1000 evaluations, and one profiled chunk of replays."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import hyperopt_tpu_torch as port
+    from hyperopt_tpu_torch import device_fmin, megakernel, zoo
+    from hyperopt_tpu_torch.base import Domain
+
+    dom = zoo.ZOO["branin"]
+    cfg = {"prior_weight": 1.0, "n_EI_candidates": MAIN_CANDIDATES, "gamma": 0.25, "LF": 25}
+    out = {}
+
+    # card vs CPU, and graph replays vs eager steps on the card
+    cpu, _ = _loop_runner_rows("cpu", True, dom, cfg)
+    eager, eager_state = _loop_runner_rows(DEVICE, False, dom, cfg)
+    graph, graph_state = _loop_runner_rows(DEVICE, True, dom, cfg)
+    L = len(trials_cs(dom).labels)
+    same = 0
+    for a, b in zip(cpu, graph):
+        if not (np.allclose(a[:L], b[:L], rtol=1e-4, atol=1e-5) and np.array_equal(a[L:2 * L],
+                                                                                    b[L:2 * L])):
+            break
+        same += 1
+    bitwise = bool(np.array_equal(graph, eager, equal_nan=True)) and all(
+        torch.equal(a[l], b[l]) for a, b in zip(graph_state[:2], eager_state[:2]) for l in a
+    ) and torch.equal(graph_state[2], eager_state[2])
+    out["cpu_agreement"] = {"trials": LOOP_CHECK_TRIALS, "matching_prefix": same}
+    out["graph_equals_eager_bitwise"] = bitwise
+    log(f"device loop: card follows the CPU on {same} of {LOOP_CHECK_TRIALS} trials; "
+        f"graph == eager bit for bit: {bitwise}")
+    if same != LOOP_CHECK_TRIALS:
+        raise AssertionError(f"the card's device loop left the CPU's stream at trial {same}")
+    if not bitwise:
+        raise AssertionError("the graph replays differ from the eager steps on the card")
+
+    def counts_zero():
+        megakernel.ei_diff.launches = megakernel.ei_diff.captures = 0
+        megakernel.ei_diff.graph_launches = 0
+
+    def counts():
+        return {"launches": megakernel.ei_diff.launches, "captures": megakernel.ei_diff.captures,
+                "graph_launches": megakernel.ei_diff.graph_launches}
+
+    cs = trials_cs(dom)
+
+    # fmin_device, cold (warm-up step and capture of each branch) and warm
+    runs = {}
+    for phase in ("cold", "warm"):
+        counts_zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trials = port.fmin_device(dom.traceable, dom.space, MAIN_EVALS,
+                                  n_EI_candidates=MAIN_CANDIDATES, seed=0, return_trials=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [l for l in trials.losses() if l is not None]
+        runs[phase] = {"wall_sec": wall, "best_loss": float(min(losses)),
+                       "evals": len(trials.trials), "ei_diff": counts(),
+                       "in_space": all(in_space(cs, d) for d in trials.trials)}
+    stats = [s for s in device_fmin.loop_stats()
+             if s["kind"] == "whole_run" and s["cap"] == MAIN_EVALS]
+    runs["capture_sec"] = stats[-1]["capture_sec"] if stats else None
+    runs["ei_diff_nodes"] = stats[-1]["ei_diff_nodes"] if stats else None
+    out["fmin_device"] = runs
+    log(f"fmin_device: {runs}")
+
+    # fmin(device_loop=True): chunks of 10 steps, one readback each
+    tuned = functools.partial(port.tpe.suggest, n_EI_candidates=MAIN_CANDIDATES)
+    counts_zero()
+    trials = port.Trials()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    port.fmin(dom.traceable, dom.space, algo=tuned, max_evals=MAIN_EVALS, trials=trials,
+              rstate=np.random.default_rng(0), show_progressbar=False, device_loop=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [l for l in trials.losses() if l is not None]
+    out["fmin_device_loop"] = {"wall_sec": wall, "best_loss": float(min(losses)),
+                               "evals": len(trials.trials), "ei_diff": counts(),
+                               "in_space": all(in_space(cs, d) for d in trials.trials)}
+    log(f"fmin(device_loop=True): {out['fmin_device_loop']}")
+
+    # one chunk of 10 TPE replays, timed, then one under torch.profiler
+    runner = device_fmin.DeviceLoopRunner(Domain(dom.traceable, dom.space), cfg, LOOP_STARTUP,
+                                          MAIN_EVALS)
+    state = runner.init_state()
+    state, _ = runner.run_chunk(state, 0, 30, seed=1)  # startup, then TPE (warm graphs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = runner.run_chunk(state, 30, 40, seed=2)
+    chunk_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = runner.run_chunk(state, 40, 50, seed=3)
+        torch.cuda.synchronize()
+    kernels = [a for a in prof.key_averages()
+               if a.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(a.self_device_time_total for a in kernels) / 1e3
+    ei = [a for a in kernels if "ei_diff_kernel" in a.key]
+    steps = 10
+    out["profiled_chunk"] = {
+        "steps": steps, "chunk_ms_per_step": chunk_ms / steps,
+        "device_ms_per_step": busy_ms / steps,
+        "kernel_launches_per_step": sum(a.count for a in kernels) / steps,
+        "ei_diff_kernels": sum(a.count for a in ei),
+        "ei_diff_device_ms_per_step": sum(a.self_device_time_total for a in ei) / 1e3 / steps,
+        "device_idle_share": 1.0 - busy_ms / chunk_ms,
+        "graph_launches": sum(a.count for a in prof.key_averages() if a.key == "cudaGraphLaunch"),
+        "by_type": kernel_types(kernels, steps),
+        "top_kernels": [{"name": a.key[:80], "launches_per_step": a.count / steps,
+                         "device_ms_per_step": a.self_device_time_total / 1e3 / steps}
+                        for a in sorted(kernels, key=lambda a: -a.self_device_time_total)[:8]]}
+    report["device_loop"] = out
+    log(f"device loop profile: { {k: v for k, v in out['profiled_chunk'].items() if k != 'top_kernels'} }")
+
+    for name, r in (("fmin_device cold", runs["cold"]), ("fmin_device warm", runs["warm"]),
+                    ("fmin(device_loop=True)", out["fmin_device_loop"])):
+        if r["evals"] != MAIN_EVALS or not r["in_space"]:
+            raise AssertionError(f"{name}: {r['evals']} trials, in space: {r['in_space']}")
+        if not r["best_loss"] < dom.loss_target:
+            raise AssertionError(f"{name}: best loss {r['best_loss']} misses {dom.loss_target}")
+        if r["ei_diff"]["graph_launches"] < MAIN_EVALS - LOOP_STARTUP - 1:
+            raise AssertionError(f"{name}: the TPE graph did not launch ei_diff per step: {r}")
+    if runs["warm"]["ei_diff"]["captures"] != 0:
+        raise AssertionError(f"the warm fmin_device captured again: {runs['warm']}")
+    if out["profiled_chunk"]["ei_diff_kernels"] != steps:
+        raise AssertionError(f"the profiled chunk ran ei_diff {out['profiled_chunk']['ei_diff_kernels']}"
+                             f" times in {steps} TPE steps")
+    return runs["warm"]["ei_diff"]["graph_launches"]
+
+
 def main():
     # torch.profiler leaves CUPTI attached after a session unless told to
     # tear it down, and every later launch pays for it (a branin ask ~30%
@@ -818,19 +1003,26 @@ def main():
     phase_cohort_agreement(report)
     service_launches = phase_service(report)
     phase_wide_cohort(report)
+    loop_launches = phase_device_loop(report)
     report["total_sec"] = time.perf_counter() - t_start
 
     tick, ftick = rows[4], frows[0]  # the branin ask's and the service tick's shapes
+    loop_tick = rows[5]  # the device loop's TPE step
     kernels = [{
         "name": "ei_diff", "route": "cuda", "source": SOURCES["ei_diff"],
         "replaces": REPLACES["ei_diff"], "launches": main_launches,
         "launches_by_path": {"fmin": main_launches, "wide_ask": wide_launches,
-                             "service_wave": service_launches["ei_diff"]},
+                             "service_wave": service_launches["ei_diff"],
+                             "device_loop": loop_launches,
+                             "fmin_device_loop":
+                                 report["device_loop"]["fmin_device_loop"]["ei_diff"]
+                                 ["graph_launches"]},
         "shape": tick["shape"], "max_abs_err": tick["max_abs_err"],
         "max_err": max(r["max_abs_err"] for r in rows),
         "ms": tick["ms"], "device_ms": tick["device_ms"], "plain_ms": tick["plain_ms"],
         "bound_ms": tick["bound_ms"], "bound_by": tick["bound_by"],
         "bound_share": tick["bound_share"], "library_ms": None,
+        "device_loop_shape": {k: loop_tick[k] for k in SHAPE_KEYS if k in loop_tick},
         "shapes": [{k: r[k] for k in SHAPE_KEYS if k in r} for r in rows],
     }, {
         "name": "fused_sample_ei", "route": "cuda", "source": SOURCES["fused_sample_ei"],

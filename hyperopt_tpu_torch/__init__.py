@@ -1,7 +1,9 @@
 """hyperopt_tpu_torch — the PyTorch/CUDA port of ``hyperopt_tpu``.
 
 The same public surface as the JAX package, restricted to what this port
-has so far: ``fmin`` with random search and TPE, the ``hp.*`` space
+has so far: ``fmin`` with random search and TPE, the on-device loop
+(``fmin_device``, ``fmin(device_loop=...)``: CUDA-graph replays of one
+ask→tell step for objectives written in torch ops), the ``hp.*`` space
 language, ``Trials``/``Domain``/``Ctrl`` and the padded history (float32,
 bf16 or int8/fp8 codes), and the study scheduler of ``service`` with its
 study-batched cohort.  Entry points run on the CUDA card unless the
@@ -11,7 +13,7 @@ kernel of ``csrc/ei_diff.cu``, and a cohort's sampling and scoring in
 ``hyperopt_tpu``.
 """
 
-from . import early_stop, hp, pyll, spaces
+from . import device_fmin, early_stop, hp, pyll, spaces
 from .algos import rand, tpe
 from .base import (
     JOB_STATE_CANCEL,
@@ -39,6 +41,7 @@ from .exceptions import (
     InvalidResultStatus,
     InvalidTrial,
 )
+from .device_fmin import fmin_device
 from .fmin import FMinIter, fmin, fmin_pass_expr_memo_ctrl, generate_trials_to_calculate
 from .spaces import space_eval
 
@@ -50,6 +53,8 @@ __all__ = [
     "pyll",
     "early_stop",
     "fmin",
+    "fmin_device",
+    "device_fmin",
     "FMinIter",
     "fmin_pass_expr_memo_ctrl",
     "generate_trials_to_calculate",

@@ -38,7 +38,7 @@ import torch
 from .. import megakernel, prng, quant
 from .._env import not_ported
 from ..spaces import Dist, label_hash
-from ..utils import LRUCache
+from ..utils import LRUCache, device_constant
 from . import rand
 
 __all__ = [
@@ -81,7 +81,12 @@ _F32_MAX = float(np.finfo(np.float32).max)
 
 
 def _f32(v, like):
-    return torch.as_tensor(v, dtype=torch.float32, device=like.device)
+    """float32 ``v`` on ``like``'s device: a tensor moves there, a Python
+    number or list is a cached device constant (no copy from the host on
+    later calls, so a captured step can read it)."""
+    if torch.is_tensor(v):
+        return v.to(dtype=torch.float32, device=like.device)
+    return device_constant(v, torch.float32, like.device)
 
 
 def _fma(a, b, c):
@@ -298,15 +303,14 @@ def adaptive_parzen_normal(obs, obs_mask, prior_weight, prior_mu, prior_sigma, L
     vals_c = torch.cat([torch.where(obs_mask, obs, _f32(_F32_MAX, obs)),
                         prior_mu[..., None]], -1)
     wts_c = torch.cat([lfw, torch.full_like(lfw[..., :1], float(prior_weight))], -1)
-    prior_c = torch.zeros(vals_c.shape, dtype=torch.bool, device=obs.device)
-    prior_c[..., cap] = True
+    idx = torch.arange(cap + 1, device=obs.device)
+    prior_c = (idx == cap).expand(vals_c.shape)
 
     order = torch.argsort(vals_c, dim=-1, stable=True)
     svals = torch.gather(vals_c, -1, order)
     swts = torch.gather(wts_c, -1, order)
     sprior = torch.gather(prior_c, -1, order)
 
-    idx = torch.arange(cap + 1, device=obs.device)
     prev_gap = svals - torch.cat([svals[..., :1], svals[..., :-1]], -1)
     next_gap = torch.cat([svals[..., 1:], svals[..., -1:]], -1) - svals
     prev_ok = (idx >= 1) & (idx < m)
@@ -897,9 +901,9 @@ def _propose_discrete(keys, dist, vals, below_mask, above_mask, cfg, raw=False):
     """One categorical/randint label for keys ``[B, 2]``: the group
     pipeline at width one.  Returns ``(value[B], ei[B])``, or with
     ``raw=True`` the candidate pool ``(samples[B, n], ei[B, n])``."""
-    prior_p = torch.as_tensor(_prior_probs(dist), device=vals.device)[None]
+    prior_p = device_constant([_prior_probs(dist).tolist()], torch.float32, vals.device)
     offset = int(dist.params[0]) if dist.family == "randint" else 0
-    offsets = torch.tensor([offset], device=vals.device)
+    offsets = device_constant([offset], torch.int64, vals.device)
     val, ei = _propose_discrete_group(keys[None], vals[None], below_mask[None],
                                       above_mask[None], prior_p, offsets, cfg, raw=raw)
     return val[0], ei[0]

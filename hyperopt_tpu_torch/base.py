@@ -47,6 +47,7 @@ __all__ = [
     "spec_from_misc",
     "Trials",
     "trials_from_docs",
+    "trials_from_flat_history",
     "Ctrl",
     "Domain",
     "PaddedHistory",
@@ -545,6 +546,39 @@ def trials_from_docs(docs, validate=True, **kwargs):
     return rval
 
 
+def trials_from_flat_history(cs, vals, active, losses, cmd, device=None):
+    """A reference-shaped :class:`Trials` (on ``device``) from a dense flat
+    history: one DONE document per trial, sparse idxs/vals from the active
+    masks (an inactive conditional label gets empty lists), a finite loss
+    → STATUS_OK, anything else → STATUS_FAIL.  ``vals``/``active`` are
+    ``{label: array[n]}``, ``losses`` ``array[n]``, and ``cmd`` the
+    ``misc["cmd"]`` tag of the driver that produced them
+    (``device_fmin.fmin_device(return_trials=True)``)."""
+    docs = []
+    for i in range(len(losses)):
+        idxs, vs = {}, {}
+        for l in cs.labels:
+            if active[l][i]:
+                v = vals[l][i]
+                v = int(round(float(v))) if cs.params[l].is_int else float(v)
+                idxs[l], vs[l] = [i], [v]
+            else:
+                idxs[l], vs[l] = [], []
+        loss = float(losses[i])
+        result = ({"loss": loss, "status": STATUS_OK}
+                  if np.isfinite(loss) else {"status": STATUS_FAIL})
+        docs.append({
+            "state": JOB_STATE_DONE, "tid": i, "spec": None, "result": result,
+            "misc": {"tid": i, "cmd": (cmd, None), "idxs": idxs, "vals": vs},
+            "exp_key": None, "owner": None, "version": 0,
+            "book_time": None, "refresh_time": None,
+        })
+    trials = Trials(device=device)
+    trials.insert_trial_docs(docs)
+    trials.refresh()
+    return trials
+
+
 class Domain:
     """Binds objective + compiled search space
     (hyperopt/base.py sym: Domain.__init__, Domain.evaluate)."""
@@ -602,6 +636,18 @@ class Domain:
                 for k, v in attachments.items():
                     ctrl.trials.attachments[f"ATTACH::{tid}::{k}"] = v
         return dict_rval
+
+    def make_batch_eval(self):
+        """``(flat_batch) -> losses`` for an objective written in torch
+        ops: ``torch.func.vmap`` over the traced assemble and the
+        objective, the counterpart of the JAX package's
+        ``jax.jit(jax.vmap(one))``.  ``flat_batch`` maps each label to a
+        ``[B]`` tensor (int32 for integer labels)."""
+
+        def one(flat):
+            return self.fn(self.cs.assemble(flat, traced=True))
+
+        return torch.func.vmap(one)
 
     def new_result(self):
         return {"status": STATUS_NEW}

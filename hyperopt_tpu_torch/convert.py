@@ -20,7 +20,7 @@ from ._env import resolve_device
 from .base import PaddedHistory, trials_from_docs
 
 __all__ = ["padded_history_from_numpy", "cohort_stack_from_numpy",
-           "trials_from_reference_docs"]
+           "device_loop_state_from_numpy", "trials_from_reference_docs"]
 
 # numpy dtypes that torch.from_numpy does not take (ml_dtypes' bfloat16 and
 # float8_e4m3fn, as a JAX array of that type converts), crossed as their bits
@@ -77,6 +77,21 @@ def cohort_stack_from_numpy(hist_stack, device=None):
             "active": {l: _tensor(v, dev) for l, v in hist_stack["active"].items()},
             "losses": _tensor(hist_stack["losses"], dev),
             "has_loss": _tensor(hist_stack["has_loss"], dev)}
+
+
+def device_loop_state_from_numpy(labels, vals, active, losses, has_loss, device=None):
+    """The port's device-loop state ``(vals, active, losses, has_loss)`` on
+    ``device`` from a JAX package loop state (``DeviceLoopRunner``'s
+    ``init_state`` / ``run_chunk`` tuple) as numpy arrays: ``vals`` and
+    ``active`` map each label to a ``[cap]`` array, ``losses`` and
+    ``has_loss`` are ``[cap]``, all in their storage types (float32 or
+    bfloat16) bit for bit.  ``device_fmin.DeviceLoopRunner.run_chunk``
+    continues from the result where the reference's continues from its
+    state."""
+    dev = resolve_device(device)
+    return ({l: _tensor(vals[l], dev) for l in labels},
+            {l: _tensor(active[l], dev) for l in labels},
+            _tensor(losses, dev), _tensor(has_loss, dev))
 
 
 def trials_from_reference_docs(docs, device=None):

@@ -4,7 +4,9 @@ FMinIter, space_eval, generate_trials_to_calculate,
 fmin_pass_expr_memo_ctrl).
 
 The loop is host-side control; the suggesters run on the trials' device,
-which is the CUDA card unless the caller passes ``device="cpu"``.
+which is the CUDA card unless the caller passes ``device="cpu"``.  With
+``device_loop`` a traceable objective's whole ask→tell chain runs on that
+device instead (``device_fmin``).
 """
 
 from __future__ import annotations
@@ -93,7 +95,8 @@ class FMinIter:
     def __init__(self, algo, domain, trials, rstate, max_queue_len=None,
                  max_evals=float("inf"), timeout=None, loss_threshold=None,
                  show_progressbar=True, early_stop_fn=None, trials_save_file="",
-                 lookahead=0):
+                 lookahead=0, device_loop=False):
+        self.device_loop = device_loop
         self.algo = algo
         self.domain = domain
         self.trials = trials
@@ -172,6 +175,14 @@ class FMinIter:
         self.trials.refresh()
 
     def run(self, N, block_until_done=True):
+        if self.device_loop:
+            plan, reasons = self._device_loop_plan()
+            if plan is not None:
+                return self._run_device(N, plan)
+            if self.device_loop is True:
+                raise ValueError("device_loop=True requested but the run is ineligible: "
+                                 + "; ".join(reasons))
+            logger.info("device_loop='auto': using host loop (%s)", "; ".join(reasons))
         trials = self.trials
         algo = self.algo
         async_algo = self._algo_async
@@ -275,6 +286,136 @@ class FMinIter:
                     self.serial_evaluate()
                     break
 
+    def _device_loop_plan(self):
+        """``(plan, reasons)``: plan is ``(tpe cfg, n_startup)`` when the run
+        can take the device loop, else None with the reasons it cannot: a
+        synchronous queue-1 run with a bounded budget, no lookahead, no
+        history but its own device loop's, a tpe/rand suggester (possibly
+        ``functools.partial``-tuned), and an objective the meta probe
+        (``device_fmin.objective_is_traceable``) accepts."""
+        from .algos import rand as _rand
+        from .algos import tpe as _tpe
+        from .device_fmin import objective_is_traceable
+
+        reasons = []
+        if getattr(self.trials, "asynchronous", False):
+            reasons.append("asynchronous trials backend")
+        if self.max_queue_len != 1:
+            reasons.append("max_queue_len != 1 (host loop already amortizes)")
+        if self.max_evals == float("inf"):
+            reasons.append("unbounded max_evals")
+        if self.lookahead:
+            reasons.append("lookahead > 0 (host-loop speculation; the "
+                           "device loop pipelines on device already)")
+        # a history this iter's own device loop wrote is resumable (its
+        # device-side state is kept on self); any other is not
+        if len(self.trials) != getattr(self, "_device_n_done", 0):
+            reasons.append("non-empty trials (resume is host-loop only)")
+        algo, kwargs = self.algo, {}
+        while isinstance(algo, functools.partial):
+            for k, v in (algo.keywords or {}).items():
+                kwargs.setdefault(k, v)
+            algo = algo.func
+        if algo not in (_tpe.suggest, _rand.suggest):
+            reasons.append("algo is not tpe.suggest / rand.suggest")
+        allowed = {"prior_weight", "n_startup_jobs", "n_EI_candidates", "gamma",
+                   "linear_forgetting", "ei_select", "ei_tau", "prior_eps"}
+        unknown = set(kwargs) - allowed
+        if unknown:
+            reasons.append(f"unsupported algo kwargs {sorted(unknown)}")
+        if not reasons and not objective_is_traceable(self.domain):
+            reasons.append("objective does not trace to a scalar float")
+        if reasons:
+            return None, reasons
+        # tpe's own defaults, so the host and device loops are one optimizer
+        cfg = {
+            "prior_weight": float(kwargs.get("prior_weight", _tpe._default_prior_weight)),
+            "n_EI_candidates": int(kwargs.get("n_EI_candidates",
+                                              _tpe._default_n_EI_candidates)),
+            "gamma": float(kwargs.get("gamma", _tpe._default_gamma)),
+            "LF": int(kwargs.get("linear_forgetting", _tpe._default_linear_forgetting)),
+        }
+        for k in ("ei_select", "ei_tau", "prior_eps"):
+            if k in kwargs:
+                cfg[k] = kwargs[k]
+        n_startup = (int(self.max_evals) if algo is _rand.suggest
+                     else int(kwargs.get("n_startup_jobs", _tpe._default_n_startup_jobs)))
+        return (cfg, n_startup), []
+
+    def _run_device(self, N, plan):
+        """The device-stepped queue-1 loop: ``CHUNK`` fresh-posterior
+        trials per call of ``device_fmin.DeviceLoopRunner``, one readback
+        each; reference-shaped docs, and the timeout, early stop, loss
+        threshold and checkpoint at chunk granularity.  A later ``run()``
+        continues from the device-side state this one leaves."""
+        from .algos import rand as _rand
+        from .device_fmin import DeviceLoopRunner
+
+        cfg, n_startup = plan
+        trials = self.trials
+        cs = self.domain.cs
+        L = len(cs.labels)
+        cap = int(self.max_evals)
+        runner = DeviceLoopRunner(self.domain, cfg, n_startup, cap, device=trials.device)
+        n_done = getattr(self, "_device_n_done", 0)
+        state = self._device_state if n_done else runner.init_state()
+        target = min(cap, n_done + int(N))
+        stopped = False
+        prior = [l for l in trials.losses() if l is not None] if n_done else []
+        best_loss = min(prior) if prior else float("inf")
+        with progress_mod.get_progress_callback(self.show_progressbar)(
+            initial=n_done, total=self.max_evals
+        ) as progress_ctx:
+            while n_done < target and not stopped:
+                limit = min(n_done + runner.CHUNK, target)
+                seed = (self.rstate.integers(2**31 - 1)
+                        if hasattr(self.rstate, "integers")
+                        else self.rstate.randint(2**31 - 1))
+                try:
+                    state, rows = runner.run_chunk(state, n_done, limit, seed)
+                except BaseException:
+                    # a chunk that failed part way left the state half
+                    # written: drop the resume handle, so a later run()
+                    # checks eligibility again instead of continuing from it
+                    self._device_state = None
+                    self._device_n_done = 0
+                    raise
+                k = limit - n_done
+                new_ids = trials.new_trial_ids(k)
+                now = coarse_utcnow()
+                flats = _rand.unpack_flats(cs, rows[:, :L], k)
+                docs = _rand.flat_to_new_trial_docs(self.domain, trials, new_ids, flats)
+                for j, doc in enumerate(docs):
+                    loss = float(rows[j][2 * L])
+                    if np.isfinite(loss):
+                        best_loss = min(best_loss, loss)
+                        doc["result"] = {"loss": loss, "status": STATUS_OK}
+                    else:
+                        doc["result"] = {"status": "fail"}
+                    doc["state"] = JOB_STATE_DONE
+                    doc["book_time"] = now
+                    doc["refresh_time"] = now
+                trials.insert_trial_docs(docs)
+                trials.refresh()
+                n_done = limit
+                if self.trials_save_file != "":
+                    self._save_trials()
+                if self.early_stop_fn is not None:
+                    stop, kw = self.early_stop_fn(trials, *self.early_stop_args)
+                    self.early_stop_args = kw
+                    if stop:
+                        logger.info("Early stop triggered")
+                        stopped = True
+                if np.isfinite(best_loss):
+                    progress_ctx.postfix = progress_mod.format_postfix(best_loss)
+                progress_ctx.update(k)
+                if self.timeout is not None and time.time() - self.start_time >= self.timeout:
+                    stopped = True
+                if self.loss_threshold is not None and best_loss <= self.loss_threshold:
+                    stopped = True
+                self._device_state = state
+                self._device_n_done = n_done
+
     def _save_trials(self):
         """Checkpoint trials atomically: write a temp file, then rename."""
         payload = pickle.dumps(self.trials, protocol=self.pickle_protocol)
@@ -330,11 +471,17 @@ def fmin(
     Runs on the CUDA card unless ``device="cpu"`` (or a ``trials`` built
     for the CPU) is given; with no card and no such request it raises.
     ``rstate`` defaults to ``HYPEROPT_FMIN_SEED`` when set; ``verbose`` is
-    accepted for the reference's signature and unused.  The JAX
-    package's ``device_loop``, ``obs``, ``obs_http``, ``profile`` and
+    accepted for the reference's signature and unused.
+
+    ``device_loop``: ``True`` or ``"auto"`` runs the queue-1 loop as
+    chunks of device steps (``device_fmin.DeviceLoopRunner``; CUDA-graph
+    replays on a card) when the objective is written in torch ops, with
+    the same fresh-posterior-per-trial semantics and one read-back per 10
+    trials.  ``"auto"`` takes the host loop when the run is ineligible
+    and logs why; ``True`` raises with the reasons.
+
+    The JAX package's ``obs``, ``obs_http``, ``profile`` and
     ``compile_cache`` options are not ported yet and raise."""
-    if device_loop:
-        raise not_ported("fmin(device_loop=...)", 9)
     for name, value in (("obs", obs), ("obs_http", obs_http),
                         ("profile", profile), ("compile_cache", compile_cache)):
         if value is not None:
@@ -375,6 +522,7 @@ def fmin(
         max_queue_len=max_queue_len,
         show_progressbar=show_progressbar, early_stop_fn=early_stop_fn,
         trials_save_file=trials_save_file, lookahead=lookahead,
+        device_loop=device_loop,
     )
     rval.catch_eval_exceptions = catch_eval_exceptions
     rval.exhaust()

@@ -14,7 +14,9 @@ launch per group of a tick, when :func:`armed`; ``build_cohort`` is that
 build of ``tpe.build_suggest_batched``.
 
 On a CUDA tensor each wrapper launches its hand-written kernel (and counts
-the launch in ``<wrapper>.launches``); on a CPU tensor it computes the
+the launch in ``<wrapper>.launches``, or in ``<wrapper>.captures`` when
+the launch is recorded into a CUDA graph; the device loop counts the
+graph's replays in ``<wrapper>.graph_launches``); on a CPU tensor it computes the
 plain torch version beside it (``ei_diff_plain``,
 ``fused_sample_ei_plain``); any other device raises.  A build or launch
 failure raises: nothing falls back.  Both kernels score with the loop of
@@ -106,13 +108,25 @@ def ei_diff(x, wb, mb, sb, wa, ma, sa):
         err = library("ei_diff").ei_diff_f32(
             x.data_ptr(), *(t.data_ptr() for t in tables), out.data_ptr(),
             P, n, m, stream)
+        capturing = torch.cuda.is_current_stream_capturing()
     if err != 0:
         raise RuntimeError(f"ei_diff kernel launch failed: CUDA error {err}")
-    ei_diff.launches += 1
+    _count(ei_diff, capturing)
     return out
 
 
-ei_diff.launches = 0
+def _count(wrapper, capturing):
+    """Count one call of a kernel's C entry: a launch, or, while the stream
+    is being captured into a CUDA graph, a kernel node of that graph
+    (``captures``: it launches when the graph is replayed, and the device
+    loop adds its replays to ``graph_launches``)."""
+    if capturing:
+        wrapper.captures += 1
+    else:
+        wrapper.launches += 1
+
+
+ei_diff.launches = ei_diff.captures = ei_diff.graph_launches = 0
 
 
 def _launch_plan(kernel, P, n, m):
@@ -218,13 +232,14 @@ def fused_sample_ei(uc, u0, cdf, mb, sb, ab, bb, wb, wa, ma, sa, low, high, boun
             uc.data_ptr(), u0.data_ptr(), *(t.data_ptr() for t in tables),
             low.data_ptr(), high.data_ptr(), x.data_ptr(), ei.data_ptr(),
             P, N, m, int(bool(bounded)), stream)
+        capturing = torch.cuda.is_current_stream_capturing()
     if err != 0:
         raise RuntimeError(f"fused_sample_ei kernel launch failed: CUDA error {err}")
-    fused_sample_ei.launches += 1
+    _count(fused_sample_ei, capturing)
     return x, ei
 
 
-fused_sample_ei.launches = 0
+fused_sample_ei.launches = fused_sample_ei.captures = fused_sample_ei.graph_launches = 0
 
 
 def build_cohort(cs, cfg, n_studies, cap, n_ids, donate=True, qparams=None):

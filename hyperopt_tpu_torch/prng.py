@@ -20,6 +20,8 @@ import math
 import numpy as np
 import torch
 
+from .utils import device_constant
+
 __all__ = [
     "PRNGKey",
     "fold_in",
@@ -67,7 +69,11 @@ def PRNGKey(seed, device=None):
 
 def fold_in(key, data):
     """``jax.random.fold_in``: threefry of the count ``(0, data)``; ``data``
-    broadcasts against the key's leading dimensions."""
+    broadcasts against the key's leading dimensions.  An integer ``data``
+    enters the cipher as a Python word, so no tensor is made for it."""
+    if isinstance(data, (int, np.integer)):
+        b0, b1 = threefry2x32(key, 0, int(data) & _M32)
+        return torch.stack((b0, b1), dim=-1)
     data = _words(data, key.device)
     b0, b1 = threefry2x32(key, torch.zeros_like(data), data)
     return torch.stack(torch.broadcast_tensors(b0, b1), dim=-1)
@@ -92,8 +98,12 @@ def random_bits(key, shape):
 
 def _bcast(v, nd, device):
     """A per-key bound (scalar or ``[...]``) shaped to broadcast against a
-    ``[..., *shape]`` draw with ``nd`` trailing dims."""
-    v = torch.as_tensor(v, dtype=torch.float32, device=device)
+    ``[..., *shape]`` draw with ``nd`` trailing dims; a Python bound is a
+    cached device constant."""
+    if torch.is_tensor(v):
+        v = v.to(dtype=torch.float32, device=device)
+    else:
+        v = device_constant(float(v), torch.float32, device)
     return v.reshape(v.shape + (1,) * nd)
 
 
@@ -127,8 +137,9 @@ def randint(key, shape, minval, maxval):
     ks = split(key)
     higher = random_bits(ks[..., 0, :], shape)
     lower = random_bits(ks[..., 1, :], shape)
-    lo = torch.as_tensor(minval, dtype=torch.int64, device=key.device)
-    hi = torch.as_tensor(maxval, dtype=torch.int64, device=key.device)
+    lo, hi = (v.to(dtype=torch.int64, device=key.device) if torch.is_tensor(v)
+              else device_constant(int(v), torch.int64, key.device)
+              for v in (minval, maxval))
     lo = lo.reshape(lo.shape + (1,) * len(shape))
     hi = hi.reshape(hi.shape + (1,) * len(shape))
     span = torch.where(hi <= lo, torch.ones_like(hi), (hi - lo) & _M32)

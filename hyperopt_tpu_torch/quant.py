@@ -41,6 +41,7 @@ __all__ = [
     "vals_dtype",
     "losses_dtype",
     "quant_dtype_name",
+    "mirror_float_dtype",
     "label_qparams",
     "space_qparams",
     "resolve",
@@ -106,6 +107,18 @@ def losses_dtype(name):
     """Storage dtype of ``losses``: bf16 under the code modes (they have no
     static scale and drive the below/above argsort), else the mode's own."""
     if is_quant_name(name):
+        return torch.bfloat16
+    return _STORAGE[str(name)]
+
+
+def mirror_float_dtype(name):
+    """The torch dtype of a history that is stored by a plain cast, with
+    no code path (the device loop's resident state): float32 and bf16 pass
+    through, and int8/fp8 degrade to bf16 with the warn-once fallback, as
+    a cast to int8 would truncate values, not encode them."""
+    if is_quant_name(name):
+        _fallback(f"{name} history is not supported on this path "
+                  "(affine-code reads are not wired here)", ("mirror", str(name)))
         return torch.bfloat16
     return _STORAGE[str(name)]
 

@@ -27,6 +27,7 @@ import torch
 from . import prng
 from ._env import resolve_device
 from .exceptions import DuplicateLabel, InvalidAnnotatedParameter
+from .utils import device_constant
 
 __all__ = [
     "Expr",
@@ -206,6 +207,37 @@ _OP_TABLE: dict[str, Callable] = {
 }
 
 
+def _torch_unary(fn, host):
+    """A torch op for tensors; a host value (a literal) keeps the host op."""
+    return lambda x: fn(x) if torch.is_tensor(x) else host(x)
+
+
+def _torch_extreme(fn, bound):
+    """``torch.maximum``/``minimum`` that also takes a Python number on
+    either side (as a clamp bound, so no tensor is made for it)."""
+
+    def f(a, b):
+        if torch.is_tensor(a) and torch.is_tensor(b):
+            return fn(a, b)
+        if torch.is_tensor(a) or torch.is_tensor(b):
+            t, s = (a, b) if torch.is_tensor(a) else (b, a)
+            return torch.clamp(t, **{bound: s})
+        return _OP_TABLE[fn.__name__](a, b)
+
+    return f
+
+
+# the traced assemble's ops (the JAX package's _OP_TABLE_JNP): torch ops on
+# the 0-d tensors of a traced flat sample
+_OP_TABLE_TORCH: dict[str, Callable] = dict(
+    _OP_TABLE,
+    **{name: _torch_unary(getattr(torch, name), _OP_TABLE[name])
+       for name in ("exp", "log", "sqrt", "sin", "cos", "tan")},
+    maximum=_torch_extreme(torch.maximum, "min"),
+    minimum=_torch_extreme(torch.minimum, "max"),
+)
+
+
 def _make_unary(name):
     def f(x):
         return Op(name, (as_expr(x),))
@@ -329,8 +361,8 @@ class CompiledSpace:
                 k = prng.fold_in(keys, label_hash(label))
                 out[label] = draw_dist(self.params[label].dist, k)
                 continue
-            hashes = torch.tensor([label_hash(l) for l in labels],
-                                  dtype=torch.int64, device=keys.device)
+            hashes = device_constant([label_hash(l) for l in labels], torch.int64,
+                                     keys.device)
             gkeys = prng.fold_in(keys[None, :, :], hashes[:, None])  # [G, B, 2]
             vals = draw_dist_group([self.params[l].dist for l in labels], gkeys)
             for i, label in enumerate(labels):
@@ -348,15 +380,28 @@ class CompiledSpace:
             out[label] = bool(act) if isinstance(act, (bool, np.bool_)) else act
         return out
 
-    def assemble(self, flat: dict):
-        """Rebuild the user-facing structure from flat per-label host
-        values, picking each choice's branch by its index."""
+    def assemble(self, flat: dict, *, traced: bool = False):
+        """Rebuild the user-facing structure from flat per-label values.
+
+        Host mode picks each choice's branch by its index.  Traced mode
+        (flat values are 0-d tensors, as the device loop and
+        ``Domain.make_batch_eval`` give them) evaluates every branch and
+        SELECTS per leaf with the selector tensor, so nothing is read back
+        to the host: dict branches union-merge, a key missing from the
+        selected branch reading as a zero of the leaf's type.  Branch
+        sequences of different lengths and slots mixing containers with
+        leaves raise; equal non-numeric leaves (a shared ``"kind"``
+        string) pass through, unequal ones are left out of the merged
+        dict, and a choice whose whole value would be left out raises."""
+        table = _OP_TABLE_TORCH if traced else _OP_TABLE
 
         def rec(node: Expr):
             if isinstance(node, Literal):
                 return node.value
             if isinstance(node, Param):
                 v = flat[node.label]
+                if traced:
+                    return v
                 if hasattr(v, "item"):
                     v = v.item()
                 if node.cast == "int":
@@ -364,10 +409,19 @@ class CompiledSpace:
                 return v
             if isinstance(node, Choice):
                 idx = flat[node.label]
+                if traced and torch.is_tensor(idx):
+                    merged = _union_select(idx, [rec(o) for o in node.options])
+                    if merged is _MISSING:
+                        raise InvalidAnnotatedParameter(
+                            f"hp.choice({node.label!r}) branches cannot be merged for "
+                            "traced evaluation (non-numeric or structurally "
+                            "incompatible options); encode the options as "
+                            "indices/numbers, or evaluate this space on the host")
+                    return merged
                 idx = int(idx.item()) if hasattr(idx, "item") else int(idx)
                 return rec(node.options[idx])
             if isinstance(node, Op):
-                return _OP_TABLE[node.op](*(rec(a) for a in node.args))
+                return table[node.op](*(rec(a) for a in node.args))
             if isinstance(node, Container):
                 vals = [rec(c) for c in node.children]
                 if node.kind == "dict":
@@ -409,6 +463,92 @@ def compile_space(space: Any) -> CompiledSpace:
 
 
 # ---------------------------------------------------------------------------
+# Traced assembly: selecting among choice branches by a selector tensor
+# ---------------------------------------------------------------------------
+
+_MISSING = object()  # a branch that lacks the slot
+
+
+def _canonical(dtype):
+    """The JAX package's types without 64-bit mode: float64 → float32,
+    int64 → int32."""
+    return {torch.float64: torch.float32, torch.int64: torch.int32}.get(dtype, dtype)
+
+
+def _leaf_dtype(values):
+    """``jnp.result_type`` of the branch leaves: tensors and numpy values
+    are strongly typed, Python numbers weakly (a Python float makes an
+    integer leaf float32, a Python int keeps a float leaf's type)."""
+    strong = [_canonical(v.dtype if torch.is_tensor(v)
+                         else torch.from_numpy(np.asarray(v)).dtype)
+              for v in values if isinstance(v, (torch.Tensor, np.ndarray, np.number))]
+    weak = [v for v in values if isinstance(v, (bool, int, float))]
+    if strong:
+        dtype = strong[0]
+        for d in strong[1:]:
+            dtype = torch.promote_types(dtype, d)
+    else:
+        dtype = torch.bool if all(isinstance(v, bool) for v in weak) else torch.int32
+    if any(isinstance(v, float) for v in weak) and not dtype.is_floating_point:
+        return torch.float32
+    if dtype == torch.bool and any(not isinstance(v, bool) for v in weak):
+        return torch.int32
+    return dtype
+
+
+def _leaf(v, dtype, device):
+    """One branch's leaf as a 0-d (or array) tensor of ``dtype`` on
+    ``device``; host values come from the constant cache, so selecting
+    makes no copy from the host."""
+    if v is _MISSING:
+        return torch.zeros((), dtype=dtype, device=device)
+    if torch.is_tensor(v):
+        return v.to(dtype)
+    return device_constant(np.asarray(v).tolist(), dtype, device)
+
+
+def _union_select(idx, per_branch):
+    """The value of branch ``idx`` (a 0-d integer tensor) among
+    ``per_branch`` (``_MISSING`` where a branch lacks the slot), selected
+    on the device: dicts merge key by key, sequences item by item, and
+    numeric leaves stack and are indexed by ``idx``."""
+    present = [v for v in per_branch if v is not _MISSING]
+    if all(isinstance(v, dict) for v in present):
+        out = {}
+        for k in sorted(set().union(*(v.keys() for v in present))):
+            sub = _union_select(idx, [v[k] if v is not _MISSING and k in v else _MISSING
+                                      for v in per_branch])
+            if sub is not _MISSING:
+                out[k] = sub
+        return out
+    if all(isinstance(v, (list, tuple)) for v in present):
+        lens = {len(v) for v in present}
+        if len(lens) != 1:
+            raise InvalidAnnotatedParameter(
+                "traced hp.choice branches contain sequences of different lengths "
+                f"{sorted(lens)}; static shapes cannot be selected on the device — "
+                "pad the branches or evaluate this space on the host")
+        items = [_union_select(idx, [v[i] if v is not _MISSING else _MISSING
+                                     for v in per_branch])
+                 for i in range(lens.pop())]
+        kind = type(present[0])
+        return kind(items) if kind in (list, tuple) else items
+    if not all(isinstance(v, (int, float, np.number, np.ndarray, torch.Tensor))
+               for v in present):
+        if any(isinstance(v, (dict, list, tuple)) for v in present):
+            raise InvalidAnnotatedParameter(
+                "traced hp.choice branches mix containers and leaves at the same "
+                f"slot ({present!r}); give every branch the same shape at this "
+                "position")
+        if len({repr(v) for v in present}) == 1:
+            return present[0]  # e.g. a shared "kind" string
+        return _MISSING  # unequal strings: gate on the selector value instead
+    dtype = _leaf_dtype(present)
+    stacked = torch.stack([_leaf(v, dtype, idx.device) for v in per_branch])
+    return torch.index_select(stacked, 0, idx.reshape(1).to(torch.int64))[0]
+
+
+# ---------------------------------------------------------------------------
 # Distribution draws — semantics of hyperopt/pyll/stochastic.py
 # ---------------------------------------------------------------------------
 
@@ -442,7 +582,7 @@ def draw_dist(dist: Dist, key, shape=()):
     if fam == "uniformint":
         return prng.randint(key, shape, int(p[0]), int(p[1]) + 1)
     if fam == "categorical":
-        logits = torch.log(torch.tensor(p, dtype=torch.float32, device=key.device))
+        logits = torch.log(device_constant(list(p), torch.float32, key.device))
         return prng.categorical(key, logits, shape)
     raise InvalidAnnotatedParameter(f"unknown family {fam!r}")
 
@@ -456,7 +596,7 @@ def draw_dist_group(dists, keys):
     extra = keys.dim() - 2  # batch dims after the node axis
 
     def col(i, dtype=torch.float32):
-        v = torch.tensor([d.params[i] for d in dists], dtype=dtype, device=dev)
+        v = device_constant([d.params[i] for d in dists], dtype, dev)
         return v.reshape(v.shape + (1,) * extra)
 
     if fam in ("uniform", "quniform", "loguniform", "qloguniform"):
@@ -475,13 +615,13 @@ def draw_dist_group(dists, keys):
         return x
     if fam in ("randint", "uniformint"):
         off = 1 if fam == "uniformint" else 0
-        lo = torch.tensor([int(d.params[0]) for d in dists], device=dev)
-        hi = torch.tensor([int(d.params[1]) + off for d in dists], device=dev)
+        lo = device_constant([int(d.params[0]) for d in dists], torch.int64, dev)
+        hi = device_constant([int(d.params[1]) + off for d in dists], torch.int64, dev)
         shape = lo.shape + (1,) * extra
         return prng.randint(keys, (), lo.reshape(shape), hi.reshape(shape))
     if fam == "categorical":
-        logp = torch.log(torch.tensor([list(d.params) for d in dists],
-                                      dtype=torch.float32, device=dev))
+        logp = torch.log(device_constant([list(d.params) for d in dists],
+                                         torch.float32, dev))
         logp = logp.reshape(logp.shape[:1] + (1,) * extra + logp.shape[1:])
         return prng.categorical(keys, logp)
     raise InvalidAnnotatedParameter(f"unknown family {fam!r}")

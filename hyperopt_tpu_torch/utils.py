@@ -1,15 +1,40 @@
 """General utilities (counterpart of ``hyperopt_tpu/utils.py``): the
 bounded cache the suggesters keep their per-space proposal steps in,
-and the reference's timestamp helper."""
+the reference's timestamp helper, and the cache of small device
+constants that keeps a proposal step free of host-to-device copies."""
 
 from __future__ import annotations
 
 import datetime
+import functools
 import threading
 
-__all__ = ["LRUCache", "coarse_utcnow"]
+import torch
+
+__all__ = ["LRUCache", "coarse_utcnow", "device_constant"]
 
 _LRU_MISS = object()
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(key, value, dtype, device):
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
+def device_constant(value, dtype, device):
+    """A tensor of the Python number or (nested) sequence ``value``, made
+    once per (value, dtype, device) and cached for the process.
+
+    Making a tensor from host data on a card copies it from the host,
+    which a CUDA graph cannot record; a step that takes its constants from
+    here makes them on its first (eager) run and only reads them after,
+    so it can be captured.  The values come from search spaces and fixed
+    constants, so the cache stays small, and its tensors live as long as
+    any graph that reads them.  They are shared: never write to one.  The
+    key is the value's ``repr``, so ``-0.0`` and ``0.0`` stay apart."""
+    if isinstance(value, list):
+        value = tuple(tuple(v) if isinstance(v, list) else v for v in value)
+    return _constant(repr(value), value, dtype, torch.device(device))
 
 
 def coarse_utcnow():
@@ -52,6 +77,11 @@ class LRUCache:
         """Membership without counting a hit or a miss or touching recency."""
         with self._lock:
             return key in self._d
+
+    def values(self):
+        """A snapshot of the cached values, least recently used first."""
+        with self._lock:
+            return list(self._d.values())
 
     def stats(self):
         with self._lock:

@@ -3,8 +3,14 @@ port's main path, its study scheduler and its tests drive, with host
 (numpy) objectives, and ``make_study_mix``, the standing multi-study
 workload.
 
-The objectives evaluate in float32 as the JAX package's jnp objectives
-do, so both report the same loss for the same point to float32 rounding.
+The host objectives evaluate in float32 where the JAX package's jnp
+objectives do on the host loop, so both report the same loss for the
+same point to float32 rounding.  A domain's ``traceable`` is its
+objective in torch ops on 0-d float32 tensors, the form the device loop
+(``device_fmin``) evaluates on the card, or None where the JAX package's
+objective is not traceable either; it also takes host numbers.  Its
+constant tables are cached device constants, so a captured step makes no
+copy from the host.
 """
 
 from __future__ import annotations
@@ -15,11 +21,13 @@ import math
 from typing import Any, Callable
 
 import numpy as np
+import torch
 
 from . import hp
+from .utils import device_constant
 
-__all__ = ["DomainZoo", "ZOO", "branin", "hartmann6", "rosenbrock", "StudyMixItem",
-           "make_study_mix"]
+__all__ = ["DomainZoo", "ZOO", "branin", "branin_torch", "hartmann6", "hartmann6_torch",
+           "rosenbrock", "rosenbrock_torch", "StudyMixItem", "make_study_mix"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +36,12 @@ class DomainZoo:
     space: Any
     objective: Callable
     loss_target: float  # a loss an OK optimizer reaches within ~100 evals
+    traceable: Callable | None = None  # the objective in torch ops, or None
+
+
+def _f32(v):
+    """A 0-d float32 tensor of a host number; a float32 tensor as it is."""
+    return torch.as_tensor(v, dtype=torch.float32)
 
 
 def branin(x, y):
@@ -41,6 +55,19 @@ def branin(x, y):
     f32 = np.float32
     return (f32(a * (y - b * x**2 + c * x - r) ** 2)
             + f32(s * (1 - t)) * np.cos(f32(x)) + f32(s))
+
+
+def branin_torch(x, y):
+    """:func:`branin` in float32 torch ops, as the JAX package's jnp
+    ``branin`` computes it in the device loop."""
+    a = 1.0
+    b = 5.1 / (4.0 * math.pi**2)
+    c = 5.0 / math.pi
+    r = 6.0
+    s = 10.0
+    t = 1.0 / (8.0 * math.pi)
+    x, y = _f32(x), _f32(y)
+    return a * (y - b * x**2 + c * x - r) ** 2 + s * (1 - t) * torch.cos(x) + s
 
 
 _H6_ALPHA = np.array([1.0, 1.2, 3.0, 3.2], np.float32)
@@ -64,6 +91,35 @@ def hartmann6(x):
     return float(-np.sum(_H6_ALPHA * np.exp(-inner)))
 
 
+# the jnp objective's P: the float32 product 1e-4 x table, not a rounded
+# float64 one
+_H6_P_F32 = np.float32(1e-4) * np.array([
+    [1312, 1696, 5569, 124, 8283, 5886],
+    [2329, 4135, 8307, 3736, 1004, 9991],
+    [2348, 1451, 3522, 2883, 3047, 6650],
+    [4047, 8828, 8732, 5743, 1091, 381],
+], np.float32)
+
+
+def hartmann6_torch(x):
+    """:func:`hartmann6` of ``x[6]`` in float32 torch ops, as the JAX
+    package's jnp ``hartmann6`` computes it; the tables are cached
+    constants on ``x``'s device."""
+    alpha, A, P = (device_constant(a.tolist(), torch.float32, x.device)
+                   for a in (_H6_ALPHA, _H6_A, _H6_P_F32))
+    inner = torch.sum(A * (x - P) ** 2, dim=1)
+    return -torch.sum(alpha * torch.exp(-inner))
+
+
+def rosenbrock_torch(xs):
+    """:func:`rosenbrock` of ``xs[n]`` in float32 torch ops."""
+    return torch.sum(100.0 * (xs[1:] - xs[:-1] ** 2) ** 2 + (1.0 - xs[:-1]) ** 2)
+
+
+def _stack(d, names):
+    return torch.stack([_f32(d[n]) for n in names])
+
+
 def rosenbrock(xs):
     xs = np.asarray(xs, np.float32)
     return float(np.sum(100.0 * (xs[1:] - xs[:-1] ** 2) ** 2 + (1.0 - xs[:-1]) ** 2,
@@ -76,6 +132,17 @@ def _quadratic1():
         space={"x": hp.uniform("x", -5, 5)},
         objective=lambda d: (d["x"] - 3.0) ** 2,
         loss_target=0.1,
+        traceable=lambda d: (d["x"] - 3.0) ** 2,
+    )
+
+
+def _q1_lognormal():
+    return DomainZoo(
+        name="q1_lognormal",
+        space={"x": hp.qlognormal("x", 0.0, 2.0, 1.0)},
+        objective=lambda d: float(np.maximum(np.float32(-(d["x"] ** 2)), np.float32(-100.0))),
+        loss_target=-9.0,
+        traceable=lambda d: torch.clamp(-(_f32(d["x"]) ** 2), min=-100.0),
     )
 
 
@@ -97,6 +164,7 @@ def _branin_domain():
         space={"x": hp.uniform("x", -5, 10), "y": hp.uniform("y", 0, 15)},
         objective=lambda d: branin(d["x"], d["y"]),
         loss_target=0.9,
+        traceable=lambda d: branin_torch(d["x"], d["y"]),
     )
 
 
@@ -130,6 +198,7 @@ def _hartmann6_domain():
         space={f"x{i}": hp.uniform(f"x{i}", 0, 1) for i in range(6)},
         objective=lambda d: hartmann6([d[f"x{i}"] for i in range(6)]),
         loss_target=-2.0,
+        traceable=lambda d: hartmann6_torch(_stack(d, [f"x{i}" for i in range(6)])),
     )
 
 
@@ -139,6 +208,7 @@ def _rosenbrock4():
         space={f"x{i}": hp.uniform(f"x{i}", -2, 2) for i in range(4)},
         objective=lambda d: rosenbrock([d[f"x{i}"] for i in range(4)]),
         loss_target=30.0,
+        traceable=lambda d: rosenbrock_torch(_stack(d, [f"x{i}" for i in range(4)])),
     )
 
 
@@ -187,7 +257,7 @@ def _hpob_surrogate():
     return DomainZoo(name="hpob_surrogate", space=space, objective=obj, loss_target=-0.55)
 
 
-ZOO = {d.name: d for d in (_quadratic1(), _q1_choice(), _branin_domain(),
+ZOO = {d.name: d for d in (_quadratic1(), _q1_lognormal(), _q1_choice(), _branin_domain(),
                            _hartmann6_domain(), _rosenbrock4(), _hr_conditional(),
                            _hpob_surrogate())}
 

@@ -10,8 +10,9 @@ import pytest
 import torch
 
 import hyperopt_tpu_torch as port
-from hyperopt_tpu_torch import megakernel, zoo
+from hyperopt_tpu_torch import device_fmin, hp, megakernel, zoo
 from hyperopt_tpu_torch.algos import tpe
+from hyperopt_tpu_torch.base import Domain
 from hyperopt_tpu_torch.service import StudyScheduler
 
 pytestmark = pytest.mark.cuda
@@ -136,3 +137,53 @@ def test_scheduler_on_the_card_follows_the_cpu_path(cuda_device):
         streams.append([[d["misc"]["vals"]["x0"][0] for d in sched._studies[sid].trials]
                         for sid in sids])
     np.testing.assert_allclose(streams[0], streams[1], rtol=1e-4, atol=1e-5)
+
+
+def _loop_rows(device, capture, n=40, chunk=10):
+    dom = zoo.ZOO["branin"]
+    cfg = {"prior_weight": 1.0, "n_EI_candidates": 64, "gamma": 0.25, "LF": 25}
+    runner = device_fmin.DeviceLoopRunner(Domain(dom.traceable, dom.space), cfg, 20, n,
+                                          device=device, capture=capture)
+    state = runner.init_state()
+    rows = []
+    for start in range(0, n, chunk):
+        state, r = runner.run_chunk(state, start, start + chunk, seed=100 + start)
+        rows.append(r)
+    return np.concatenate(rows), state
+
+
+def test_device_loop_graph_replay_equals_eager_and_follows_cpu(cuda_device):
+    cpu, _ = _loop_rows("cpu", True)
+    eager, eager_state = _loop_rows(cuda_device, False)
+    before = (megakernel.ei_diff.captures, megakernel.ei_diff.graph_launches)
+    graph, graph_state = _loop_rows(cuda_device, True)
+    # a replay runs the kernels the eager step runs: the same bits
+    np.testing.assert_array_equal(graph, eager)
+    for a, b in zip(graph_state[:2], eager_state[:2]):
+        for l in a:
+            assert torch.equal(a[l], b[l])
+    assert torch.equal(graph_state[2], eager_state[2])
+    # and the card follows the CPU's stream
+    np.testing.assert_allclose(graph, cpu, rtol=1e-4, atol=1e-5)
+    stats, = [s for s in device_fmin.loop_stats()
+              if s["kind"] == "chunk" and s["cap"] == 40 and s["device"].startswith("cuda")]
+    assert stats["ei_diff_nodes"] == {"prior": 0, "tpe": 1}
+    # the first TPE step is the eager warm-up, the other 19 are replays
+    assert megakernel.ei_diff.captures - before[0] == 1
+    assert megakernel.ei_diff.graph_launches - before[1] == stats["replays"]["tpe"] == 19
+
+
+def test_device_loop_capture_refuses_a_copy_from_the_host(cuda_device):
+    def obj(d):
+        # a tensor made from host data on every call: the warm-up runs it,
+        # the capture cannot record it
+        return (d["x"] - torch.tensor([1.0, 0.0], device=d["x"].device)[0]) ** 2
+
+    with pytest.raises(RuntimeError):
+        port.fmin_device(obj, {"x": hp.uniform("x", -5, 5)}, 8, n_startup_jobs=4,
+                         device=cuda_device)
+    # nothing fell back, and the card still works
+    assert float((torch.ones(2, device=cuda_device) * 2).sum()) == 4.0
+    best, loss = port.fmin_device(zoo.ZOO["quadratic1"].traceable, zoo.ZOO["quadratic1"].space,
+                                  30, device=cuda_device)
+    assert np.isfinite(loss)

@@ -99,11 +99,15 @@ def test_loss_threshold_and_checkpoint_resume(tmp_path):
 
 def test_unported_options_raise():
     dom = zoo.ZOO["quadratic1"]
-    for kw in ({"device_loop": True}, {"obs": "run.jsonl"}, {"profile": "prof"},
-               {"obs_http": 0}, {"compile_cache": "c"}):
+    for kw in ({"obs": "run.jsonl"}, {"profile": "prof"}, {"obs_http": 0},
+               {"compile_cache": "c"}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             port.fmin(dom.objective, dom.space, max_evals=2, device="cpu",
                       show_progressbar=False, **kw)
+    # device_loop is ported: a run it cannot take raises with the reasons
+    with pytest.raises(ValueError, match="ineligible"):
+        port.fmin(dom.objective, dom.space, max_evals=2, device="cpu",
+                  show_progressbar=False, device_loop=True, max_queue_len=2)
 
 
 def test_reference_trials_continue_in_the_port():

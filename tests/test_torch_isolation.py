@@ -25,6 +25,7 @@ REPO = PKG.parent
 def test_import_loads_neither_jax_nor_the_jax_package():
     code = ("import sys, hyperopt_tpu_torch, hyperopt_tpu_torch.convert, "
             "hyperopt_tpu_torch.zoo, hyperopt_tpu_torch.megakernel, "
+            "hyperopt_tpu_torch.device_fmin, "
             "hyperopt_tpu_torch.quant, hyperopt_tpu_torch.service.scheduler; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hyperopt_tpu')]; "
             "assert not bad, bad")
@@ -59,6 +60,9 @@ def test_default_device_entry_points_raise_without_cuda():
         lambda: port.fmin(lambda d: d["x"], space, max_evals=2, show_progressbar=False),
         lambda: port.generate_trials_to_calculate([{"x": 0.5}]),
         lambda: StudyScheduler(),
+        lambda: port.fmin_device(lambda d: d["x"], space, 2),
+        lambda: port.fmin(lambda d: d["x"], space, max_evals=2, show_progressbar=False,
+                          device_loop=True),
         lambda: convert.cohort_stack_from_numpy(
             {"vals": {}, "active": {}, "losses": np.zeros((1, 16), np.float32),
              "has_loss": np.zeros((1, 16), bool)}),
