@@ -58,6 +58,22 @@ Phases, each of which fails the run (non-zero exit) on its own:
    domain's target, every proposal in the space.  One chunk of 10 TPE
    replays under ``torch.profiler`` gives the device time and kernel
    launches per step and must show ``ei_diff``'s kernel once per step.
+10. The other suggesters: annealing on ``many_dists``, ``mix.suggest``
+    (0.8 TPE, 0.1 annealing, 0.1 random) and aTPE on branin, 40 trials on
+    the card and on the CPU each, the same trials (rtol 1e-4); then each
+    on branin at 1000 evaluations (BASELINE config 2) and aTPE on
+    hartmann6 at 150: wall, median ask, kernel launches, device busy ms
+    and idle share per ask (torch.profiler over a few asks).  aTPE's and
+    mix's TPE asks must launch ``ei_diff`` once each, annealing never.
+11. The widened service wave: ``make_study_mix(1024)`` through
+    ``StudyScheduler(widen=True)`` as phase 7 runs it unwidened (wave
+    p50/p99, studies/s, launches per wave, beside phase 7's figures): its
+    cohorts keep off the fused kernel and score in grouped ``ei_diff``,
+    whose every shape on this path phase 1 held against the plain version
+    (a shape it did not plan is checked after the phase).  The widened
+    scheduler on the card proposes bit for bit as the unwidened grouped
+    one (``HYPEROPT_TPU_MEGAKERNEL=0``) and follows the widened scheduler
+    on the CPU, 30 trials in 8 studies.
 
 It imports neither JAX nor the JAX package.  Before the last line it
 prints one JSON line describing every kernel and the card's name and power
@@ -96,6 +112,9 @@ WIDE_COHORT = dict(studies=256, cap=128, ids=4, candidates=1024)
 # the device loop: card vs CPU and graph vs eager on 40 runner trials, then
 # the main size (BASELINE config 2: branin, 1000 evaluations)
 LOOP_CHECK_TRIALS, LOOP_STARTUP = 40, 20
+# the other suggesters (phase 10): card vs CPU on 40 trials, then branin at
+# MAIN_EVALS and aTPE on hartmann6 at ATPE_H6_EVALS; asks profiled per run
+SUGGEST_CHECK_TRIALS, ATPE_H6_EVALS, SUGGEST_PROFILED = 40, 150, 5
 # ei_diff shapes (P, n, m, dead components, compare on the first n_cmp
 # candidates, all-dead below mixture)
 EI_SHAPES = [(1, 24, 129, 0, None, False), (4, 1000, 257, 0, None, False),
@@ -106,7 +125,15 @@ EI_SHAPES = [(1, 24, 129, 0, None, False), (4, 1000, 257, 0, None, False),
              # edges of the component split
              (3, 1024, 1, 0, None, False), (3, 2000, 300, 0, None, False),
              (4, 1000, 129, 0, None, True), (8, 1, 1025, 0, None, False),
-             (1, 1024, 2049, 0, None, False)]
+             (1, 1024, 2049, 0, None, False),
+             # phase 10: aTPE's branin ask (32 candidates), its hartmann6
+             # ask (64), mix's TPE branch (24)
+             (2, 32, 1025, 0, None, False), (6, 64, 257, 0, None, False),
+             (2, 24, 1025, 0, None, False),
+             # phase 11: the widened wave's numeric groups, S slots x G
+             # labels (hartmann6 6, rosenbrock4 4, hpob_surrogate 3, branin
+             # 2, quadratic1 1), 24 candidates, caps 16 and 32
+             *[(256 * G, 24, m, 0, None, False) for G in (6, 4, 3, 2, 1) for m in (17, 33)]]
 # fused_sample_ei shapes (P, N, m, dead components, bounded): the service
 # tick (256 slots x 6 labels, 24 candidates), the wide tick (4 x 1024
 # candidates), an unbounded group, a group with dead components, N = m = 1
@@ -247,34 +274,7 @@ def phase_kernels(report):
     report["ptxas"] = usage
     log(f"kernels built in {report['build_sec']:.1f} s")
 
-    rows = []
-    for P, n, m, dead, n_cmp, below_dead in EI_SHAPES:
-        x, tabs = ei_inputs(P, n, m, seed=P + n + m, dead=dead, below_dead=below_dead)
-        got = megakernel.ei_diff(x, *tabs)
-        torch.cuda.synchronize()
-        xs = x if n_cmp is None else x[:, :n_cmp].contiguous()
-        want = megakernel.ei_diff_plain(xs, *tabs)
-        gs = got if n_cmp is None else got[:, :n_cmp]
-        err = (gs - want).abs()
-        ok = bool(torch.isfinite(got).all()) and bool(
-            (err <= TOL * torch.clamp(want.abs(), min=1.0)).all())
-        ms = cuda_ms(lambda: megakernel.ei_diff(x, *tabs))
-        dev_ms = device_ms(lambda: megakernel.ei_diff(x, *tabs), "ei_diff_kernel")
-        plain_ms = cuda_ms(lambda: megakernel.ei_diff_plain(xs, *tabs), reps=5)
-        bound_ms, bound_by = ei_bound(P, n, m)
-        plan = megakernel._launch_plan("ei_diff", P, n, m)
-        row = {"shape": [P, n, m], "dead": dead, "below_all_dead": below_dead,
-               "compared_candidates": xs.shape[1],
-               "max_abs_err": float(err.max()), "ok": ok, "ms": ms, "device_ms": dev_ms,
-               "plain_ms": plain_ms, "plain_ms_shape": list(xs.shape) + [m],
-               "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / dev_ms,
-               **plan, **usage_of(usage, f"ei_diff_kernelILi{plan['per_thread']}E")}
-        rows.append(row)
-        log(f"ei_diff {row}")
-        del x, tabs, got, want, err
-        torch.cuda.empty_cache()
-        if not ok:
-            raise AssertionError(f"ei_diff disagrees with its plain version at {row}")
+    rows = [check_ei(*shape, usage) for shape in EI_SHAPES]
     report["ei_diff_shapes"] = rows
 
     frows = []
@@ -310,6 +310,41 @@ def phase_kernels(report):
             raise AssertionError(f"fused_sample_ei disagrees with its plain version at {row}")
     report["fused_sample_ei_shapes"] = frows
     return rows, frows
+
+
+def check_ei(P, n, m, dead, n_cmp, below_dead, usage):
+    """Hold ``ei_diff`` at (P, n, m) against its plain version and time
+    both; raises when they disagree."""
+    import torch
+
+    from hyperopt_tpu_torch import megakernel
+
+    x, tabs = ei_inputs(P, n, m, seed=P + n + m, dead=dead, below_dead=below_dead)
+    got = megakernel.ei_diff(x, *tabs)
+    torch.cuda.synchronize()
+    xs = x if n_cmp is None else x[:, :n_cmp].contiguous()
+    want = megakernel.ei_diff_plain(xs, *tabs)
+    gs = got if n_cmp is None else got[:, :n_cmp]
+    err = (gs - want).abs()
+    ok = bool(torch.isfinite(got).all()) and bool(
+        (err <= TOL * torch.clamp(want.abs(), min=1.0)).all())
+    ms = cuda_ms(lambda: megakernel.ei_diff(x, *tabs))
+    dev_ms = device_ms(lambda: megakernel.ei_diff(x, *tabs), "ei_diff_kernel")
+    plain_ms = cuda_ms(lambda: megakernel.ei_diff_plain(xs, *tabs), reps=5)
+    bound_ms, bound_by = ei_bound(P, n, m)
+    plan = megakernel._launch_plan("ei_diff", P, n, m)
+    row = {"shape": [P, n, m], "dead": dead, "below_all_dead": below_dead,
+           "compared_candidates": xs.shape[1],
+           "max_abs_err": float(err.max()), "ok": ok, "ms": ms, "device_ms": dev_ms,
+           "plain_ms": plain_ms, "plain_ms_shape": list(xs.shape) + [m],
+           "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / dev_ms,
+           **plan, **usage_of(usage, f"ei_diff_kernelILi{plan['per_thread']}E")}
+    log(f"ei_diff {row}")
+    del x, tabs, got, want, err
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"ei_diff disagrees with its plain version at {row}")
+    return row
 
 
 def ptxas_usage(text):
@@ -970,6 +1005,281 @@ def phase_device_loop(report):
     return runs["warm"]["ei_diff"]["graph_launches"]
 
 
+def suggester_algos():
+    """The phase-10 suggesters by name, each with its own counter of TPE
+    asks (a ``tpe.suggest`` call past its startup draws, counted on the
+    host apart from the kernel's count), and aTPE's featurization seconds
+    per ask under ``"atpe_featurize"``."""
+    from hyperopt_tpu_torch import anneal, atpe, mix, rand, tpe
+
+    tpe_asks = {"mix": 0, "atpe": 0, "atpe_featurize": []}
+
+    def counted(name):
+        def suggest(new_ids, domain, trials, seed, **cfg):
+            if len(trials.trials) >= cfg.get("n_startup_jobs", tpe._default_n_startup_jobs):
+                tpe_asks[name] += 1
+            return tpe.suggest(new_ids, domain, trials, seed, **cfg)
+        return suggest
+
+    class CountedATPE(atpe.ATPEOptimizer):
+        """``atpe.suggest`` (one featurization per ask) with its
+        ``tpe.suggest`` call counted."""
+
+        def suggest(self, new_ids, domain, trials, seed):
+            t0 = time.perf_counter()
+            rec = self.recommend(domain, trials)
+            tpe_asks["atpe_featurize"].append(time.perf_counter() - t0)
+            return counted("atpe")(new_ids, domain, trials, seed, **rec)
+
+    mixed = functools.partial(mix.suggest, p_suggest=[(0.8, counted("mix")),
+                                                      (0.1, anneal.suggest),
+                                                      (0.1, rand.suggest)])
+    return {"anneal": anneal.suggest, "mix": mixed, "atpe": CountedATPE().suggest}, tpe_asks
+
+
+def same_prefix(a_trials, b_trials):
+    """How many leading trials of two runs propose the same values:
+    integers equal, floats within rtol 1e-4."""
+    import numpy as np
+
+    n = 0
+    for a, b in zip(a_trials, b_trials):
+        va, vb = a["misc"]["vals"], b["misc"]["vals"]
+        if va.keys() != vb.keys() or any(len(va[k]) != len(vb[k]) for k in va):
+            break
+        if not all(np.allclose(va[k], vb[k], rtol=1e-4, atol=1e-5) for k in va):
+            break
+        n += 1
+    return n
+
+
+def profile_asks(ask, asks):
+    """``torch.profiler`` over ``asks`` calls of ``ask(seed)``: wall, device
+    busy time and kernel launches per ask, and the device's idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for seed in range(asks):
+            ask(seed + 1)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [a for a in prof.key_averages()
+               if a.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(a.self_device_time_total for a in kernels) / 1e3
+    return {"asks": asks, "profiled_wall_ms_per_ask": wall_ms / asks,
+            "device_busy_ms_per_ask": busy_ms / asks,
+            "kernel_launches_per_ask": sum(a.count for a in kernels) / asks,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "ei_diff_kernels_per_ask": sum(a.count for a in kernels
+                                           if "ei_diff_kernel" in a.key) / asks}
+
+
+def phase_suggesters(report):
+    """Annealing, mix and aTPE on the card: CPU agreement on 40 trials, then
+    the 1000-evaluation branin run of each and aTPE on hartmann6."""
+    import numpy as np
+    import torch
+
+    import hyperopt_tpu_torch as port
+    from hyperopt_tpu_torch import megakernel, zoo
+    from hyperopt_tpu_torch.base import Domain
+
+    out = {"agreement": {}, "runs": {}}
+    for name, dom_name in (("anneal", "many_dists"), ("mix", "branin"), ("atpe", "branin")):
+        dom = zoo.ZOO[dom_name]
+        runs = []
+        for device in ("cpu", DEVICE):
+            algos, _ = suggester_algos()
+            t = port.Trials(device=device)
+            port.fmin(dom.objective, dom.space, algo=algos[name], max_evals=SUGGEST_CHECK_TRIALS,
+                      trials=t, rstate=np.random.default_rng(5), show_progressbar=False)
+            runs.append(t.trials)
+        same = same_prefix(*runs)
+        out["agreement"][f"{name}/{dom_name}"] = same
+        log(f"{name} on {dom_name}: the card follows the CPU on {same} of {SUGGEST_CHECK_TRIALS}")
+        if same != SUGGEST_CHECK_TRIALS:
+            raise AssertionError(f"{name}: the card left the CPU's stream at trial {same}")
+
+    launches = {}
+    for name, dom_name, evals in (("anneal", "branin", MAIN_EVALS), ("mix", "branin", MAIN_EVALS),
+                                  ("atpe", "branin", MAIN_EVALS),
+                                  ("atpe", "hartmann6", ATPE_H6_EVALS)):
+        dom = zoo.ZOO[dom_name]
+        algos, tpe_asks = suggester_algos()
+        algo = algos[name]
+        ask_s = []  # (seconds, whether the ask ran TPE)
+
+        def timed(new_ids, domain, trials, seed, algo=algo, ask_s=ask_s, tpe_asks=tpe_asks):
+            before = tpe_asks.get(name, 0)
+            t0 = time.perf_counter()
+            docs = algo(new_ids, domain, trials, seed)
+            ask_s.append((time.perf_counter() - t0, tpe_asks.get(name, 0) > before))
+            return docs
+
+        trials = port.Trials()
+        megakernel.ei_diff.launches = megakernel.fused_sample_ei.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        port.fmin(dom.objective, dom.space, algo=timed, max_evals=evals, trials=trials,
+                  rstate=np.random.default_rng(0), show_progressbar=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_ei = megakernel.ei_diff.launches
+        n_fused = megakernel.fused_sample_ei.launches
+        n_tpe = tpe_asks.get(name, 0)
+        key = f"{name}/{dom_name}"
+        launches[key] = n_ei
+        losses = [l for l in trials.losses() if l is not None]
+        domain = Domain(dom.objective, dom.space)
+        ids = [len(trials.trials)]
+        algo(ids, domain, trials, 0)  # warm: the first ask on a new Domain
+        run = {"evals": len(trials.trials), "wall_sec": wall, "best_loss": float(min(losses)),
+               "median_ask_ms": 1e3 * statistics.median(t for t, _ in ask_s),
+               "tpe_asks": n_tpe, "ei_diff_launches": n_ei,
+               "fused_launches": n_fused,
+               "in_space": all(in_space(domain.cs, d) for d in trials.trials),
+               "profile": profile_asks(lambda seed: algo(ids, domain, trials, seed),
+                                       SUGGEST_PROFILED)}
+        if name != "anneal":
+            run["median_tpe_ask_ms"] = 1e3 * statistics.median(t for t, tpe in ask_s if tpe)
+        if name == "atpe":
+            run["median_featurize_ms"] = 1e3 * statistics.median(tpe_asks["atpe_featurize"])
+        run["ei_diff_launches_per_ask"] = n_ei / len(ask_s)
+        out["runs"][key] = run
+        log(f"{key}: {run}")
+        if run["evals"] != evals or not run["in_space"]:
+            raise AssertionError(f"{key}: {run['evals']} trials, in space: {run['in_space']}")
+        if n_fused:
+            raise AssertionError(f"{key}: launched the fused kernel {n_fused} times")
+        if name == "anneal" and n_ei:
+            raise AssertionError(f"anneal launched ei_diff {n_ei} times")
+        if name != "anneal" and (n_ei != run["tpe_asks"] or run["tpe_asks"] < 1):
+            raise AssertionError(f"{key}: {n_ei} ei_diff launches for {run['tpe_asks']} TPE asks")
+        if dom_name == "branin" and not run["best_loss"] < dom.loss_target:
+            raise AssertionError(f"{key}: best loss {run['best_loss']} misses {dom.loss_target}")
+    report["suggesters"] = out
+    return launches
+
+
+def phase_widened_service(report):
+    """``make_study_mix(1024)`` through ``StudyScheduler(widen=True)``, then
+    widened vs unwidened grouped on the card (bit for bit) and widened on
+    the card vs the CPU, 8 studies x 30 trials."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperopt_tpu_torch import megakernel, zoo
+    from hyperopt_tpu_torch.service import StudyScheduler
+
+    sched = StudyScheduler(device=DEVICE, widen=True)
+    mix = zoo.make_study_mix(SERVICE_STUDIES)
+    items = {sched.create_study(it.domain.space, seed=it.seed,
+                                n_startup_jobs=it.n_startup_jobs): it for it in mix}
+    sids = list(items)
+    objective_of = {sid: it.domain.objective for sid, it in items.items()}
+    t0 = time.perf_counter()
+    drive_waves(sched, sids, objective_of, SERVICE_STARTUP)
+    startup_sec = time.perf_counter() - t0
+    per_wave, bad = [], []
+    # the shapes ei_diff launches at on this path, (P, n, m), read from the
+    # launch checks every CUDA launch passes
+    shapes = collections.Counter()
+    launchable = megakernel._launchable
+
+    def recording(name, P, tensors):
+        if name == "ei_diff":
+            shapes[(P, tensors[0].shape[1], tensors[1].shape[1])] += 1
+        return launchable(name, P, tensors)
+
+    def check(w, answers):
+        per_wave.append(megakernel.ei_diff.launches)
+        for sid, (a,) in answers.items():
+            doc = {"misc": {"vals": {k: [v] for k, v in a["params"].items()}}}
+            if not in_space(sched._studies[sid].domain.cs, doc):
+                bad.append((sid, a))
+
+    megakernel.ei_diff.launches = megakernel.fused_sample_ei.launches = 0
+    megakernel._launchable = recording
+    try:
+        times = drive_waves(sched, sids, objective_of, SERVICE_WAVES, on_wave=check)
+    finally:
+        megakernel._launchable = launchable
+    launches = {"ei_diff": megakernel.ei_diff.launches,
+                "fused_sample_ei": megakernel.fused_sample_ei.launches}
+    ei_per_wave = [b - a for a, b in zip([0] + per_wave, per_wave)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        drive_waves(sched, sids, objective_of, SERVICE_PROFILED)
+        prof_wall = time.perf_counter() - t1
+    kernels = [a for a in prof.key_averages()
+               if a.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(a.self_device_time_total for a in kernels)
+    ms = sorted(1e3 * t for t in times)
+    out = {"studies": len(sids), "startup_sec": startup_sec, "measured_waves": SERVICE_WAVES,
+           "studies_per_sec": len(sids) * len(times) / sum(times),
+           "wave_ms_p50": statistics.median(ms),
+           "wave_ms_p99": ms[min(len(ms) - 1, math.ceil(0.99 * len(ms)) - 1)],
+           "wave_ms": [1e3 * t for t in times], "launches": launches,
+           "ei_diff_launches_per_wave": ei_per_wave,
+           "ei_diff_shapes": sorted([list(k), v] for k, v in shapes.items()),
+           "cohorts": sorted((c.cap, c.n_slots, c.n_live, len(c.cs.labels))
+                             for c in sched._cohorts.values()),
+           "profiled_wall_ms_per_wave": 1e3 * prof_wall / SERVICE_PROFILED,
+           "device_busy_ms_per_wave": busy_us / 1e3 / SERVICE_PROFILED,
+           "kernel_launches_per_wave": sum(a.count for a in kernels) / SERVICE_PROFILED,
+           "device_idle_share": (1.0 - busy_us / 1e3 / (1e3 * prof_wall)) if busy_us else None,
+           "unwidened": {k: report["service_wave"][k] for k in
+                         ("wave_ms_p50", "wave_ms_p99", "studies_per_sec",
+                          "kernel_launches_per_wave", "device_busy_ms_per_wave")}}
+    log(f"widened service wave: { {k: v for k, v in out.items() if k != 'wave_ms'} }")
+    if not all(c.widen for c in sched._cohorts.values()):
+        raise AssertionError("a cohort of the study mix did not widen")
+    if launches["fused_sample_ei"]:
+        raise AssertionError(f"the widened wave launched the fused kernel: {launches}")
+    if min(ei_per_wave) < 1:
+        raise AssertionError(f"a widened wave launched no ei_diff kernel: {ei_per_wave}")
+    if bad:
+        raise AssertionError(f"{len(bad)} proposals lie outside their space, e.g. {bad[0]}")
+
+    # bit for bit against the unwidened grouped cohort, and card vs CPU
+    knob = os.environ.get("HYPEROPT_TPU_MEGAKERNEL")
+    os.environ["HYPEROPT_TPU_MEGAKERNEL"] = "0"
+    try:
+        streams = {}
+        for device, widen in ((DEVICE, False), (DEVICE, True), ("cpu", True)):
+            s2 = StudyScheduler(device=device, widen=widen)
+            doms = [zoo.ZOO["branin" if i % 2 else "hartmann6"] for i in range(COHORT_STUDIES)]
+            ids2 = [s2.create_study(d.space, seed=40 + i, n_startup_jobs=5)
+                    for i, d in enumerate(doms)]
+            drive_waves(s2, ids2, {sid: d.objective for sid, d in zip(ids2, doms)},
+                        COHORT_TRIALS)
+            streams[(str(device), widen)] = [s2._studies[sid].trials.trials for sid in ids2]
+    finally:
+        if knob is None:
+            os.environ.pop("HYPEROPT_TPU_MEGAKERNEL", None)
+        else:
+            os.environ["HYPEROPT_TPU_MEGAKERNEL"] = knob
+    wide, grouped = streams[(DEVICE, True)], streams[(DEVICE, False)]
+    bitwise = [sum(1 for a, b in zip(ws, gs) if a["misc"]["vals"] == b["misc"]["vals"])
+               for ws, gs in zip(wide, grouped)]
+    follows = [same_prefix(c, w) for c, w in zip(streams[("cpu", True)], wide)]
+    out["widened_equals_grouped_bitwise"] = bitwise
+    out["widened_card_follows_cpu"] = follows
+    report["widened_service_wave"] = out
+    log(f"widened == grouped on the card, trials per study: {bitwise}; "
+        f"card follows the CPU: {follows}")
+    if bitwise != [COHORT_TRIALS] * COHORT_STUDIES:
+        raise AssertionError(f"the widened cohort left the grouped one's bits: {bitwise}")
+    if follows != [COHORT_TRIALS] * COHORT_STUDIES:
+        raise AssertionError(f"the widened cohort on the card left the CPU's stream: {follows}")
+    return launches["ei_diff"], sorted(shapes)
+
+
 def main():
     # torch.profiler leaves CUPTI attached after a session unless told to
     # tear it down, and every later launch pays for it (a branin ask ~30%
@@ -1004,6 +1314,15 @@ def main():
     service_launches = phase_service(report)
     phase_wide_cohort(report)
     loop_launches = phase_device_loop(report)
+    suggest_launches = phase_suggesters(report)
+    widened_launches, widened_shapes = phase_widened_service(report)
+    # every shape the widened wave gave ei_diff is held against the plain
+    # version: phase 1 planned them, and any it missed is checked here
+    planned = {tuple(r["shape"]) for r in rows}
+    extra = [check_ei(P, n, m, 0, None, False, report["ptxas"])
+             for P, n, m in widened_shapes if (P, n, m) not in planned]
+    report["ei_diff_shapes_unplanned"] = [r["shape"] for r in extra]
+    rows += extra
     report["total_sec"] = time.perf_counter() - t_start
 
     tick, ftick = rows[4], frows[0]  # the branin ask's and the service tick's shapes
@@ -1016,7 +1335,9 @@ def main():
                              "device_loop": loop_launches,
                              "fmin_device_loop":
                                  report["device_loop"]["fmin_device_loop"]["ei_diff"]
-                                 ["graph_launches"]},
+                                 ["graph_launches"],
+                             **{f"fmin {k}": v for k, v in suggest_launches.items()},
+                             "widened_service_wave": widened_launches},
         "shape": tick["shape"], "max_abs_err": tick["max_abs_err"],
         "max_err": max(r["max_abs_err"] for r in rows),
         "ms": tick["ms"], "device_ms": tick["device_ms"], "plain_ms": tick["plain_ms"],

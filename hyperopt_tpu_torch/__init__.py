@@ -1,7 +1,8 @@
 """hyperopt_tpu_torch — the PyTorch/CUDA port of ``hyperopt_tpu``.
 
 The same public surface as the JAX package, restricted to what this port
-has so far: ``fmin`` with random search and TPE, the on-device loop
+has so far: ``fmin`` with random search, TPE, annealing, the mixture of
+suggesters and adaptive TPE, the on-device loop
 (``fmin_device``, ``fmin(device_loop=...)``: CUDA-graph replays of one
 ask→tell step for objectives written in torch ops), the ``hp.*`` space
 language, ``Trials``/``Domain``/``Ctrl`` and the padded history (float32,
@@ -14,7 +15,7 @@ kernel of ``csrc/ei_diff.cu``, and a cohort's sampling and scoring in
 """
 
 from . import device_fmin, early_stop, hp, pyll, spaces
-from .algos import rand, tpe
+from .algos import anneal, atpe, mix, rand, tpe
 from .base import (
     JOB_STATE_CANCEL,
     JOB_STATE_DONE,
@@ -61,6 +62,9 @@ __all__ = [
     "space_eval",
     "rand",
     "tpe",
+    "anneal",
+    "mix",
+    "atpe",
     "Trials",
     "trials_from_docs",
     "Ctrl",

@@ -8,7 +8,7 @@ import os
 
 import torch
 
-__all__ = ["resolve_device", "parse_hist_dtype", "parse_megakernel",
+__all__ = ["resolve_device", "parse_hist_dtype", "parse_megakernel", "parse_compile_widen",
            "parse_service_max_studies", "parse_service_max_pending",
            "parse_service_idle_sec", "not_ported"]
 
@@ -66,6 +66,17 @@ def parse_megakernel():
                          "interpreter of the JAX package; hyperopt_tpu_torch "
                          "takes on|off")
     raise ValueError(f"HYPEROPT_TPU_MEGAKERNEL={raw!r}: expected on|off (1|0)")
+
+
+def parse_compile_widen():
+    """``HYPEROPT_TPU_COMPILE_WIDEN``: widen the study scheduler's cohorts
+    (``1``/``on``/``true``/``yes``; off by default).  A widened cohort (an
+    unconditional space) keeps off the fused kernel and scores in grouped
+    ``ei_diff``, as the JAX package's widened cohort does, so its proposals
+    match a fused cohort's only to the kernels' agreement; keep the flag
+    stable for a service's lifetime."""
+    raw = os.environ.get("HYPEROPT_TPU_COMPILE_WIDEN", "").strip().lower()
+    return raw in ("1", "on", "true", "yes")
 
 
 def _pos_int(var, default):

@@ -1,5 +1,6 @@
-"""Suggesters behind the ``algo=`` boundary: random search and TPE."""
+"""Suggesters behind the ``algo=`` boundary: random search, TPE,
+annealing, the mixture of suggesters and adaptive TPE."""
 
-from . import rand, tpe  # noqa: F401
+from . import anneal, atpe, mix, rand, tpe  # noqa: F401
 
-__all__ = ["rand", "tpe"]
+__all__ = ["rand", "tpe", "anneal", "mix", "atpe"]

@@ -62,6 +62,7 @@ __all__ = [
     "build_propose",
     "build_propose_with_scores",
     "build_suggest_batched",
+    "widened_profile",
     "cohort_key",
     "cohort_cache_stats",
     "cohort_cache_contains",
@@ -1196,7 +1197,7 @@ def cohort_cache_contains(key):
 
 
 def cohort_key(cs, cfg, n_studies, cap, n_ids, donate=True, mesh=None,
-               hist_dtype=None):
+               hist_dtype=None, fused=True):
     """The cohort-LRU key :func:`build_suggest_batched` uses: the space,
     cfg and slot shape, plus ``("quant", name)`` for a code storage name
     and ``("megakernel", mode)`` when the fused route is armed."""
@@ -1206,13 +1207,13 @@ def cohort_key(cs, cfg, n_studies, cap, n_ids, donate=True, mesh=None,
            int(n_studies), int(cap), int(n_ids), bool(donate))
     if hist_dtype is not None and quant.is_quant_name(hist_dtype):
         key = key + ("quant", str(hist_dtype))
-    if megakernel.armed(cs):
+    if fused and megakernel.armed(cs):
         key = key + ("megakernel", megakernel.mode())
     return key
 
 
 def build_suggest_batched(cs, cfg, n_studies, cap, n_ids, donate=True,
-                          mesh=None, hist_dtype=None):
+                          mesh=None, hist_dtype=None, fused=True):
     """The STUDY-BATCHED tell+ask program::
 
         run(hist_stack, rows_stack, seed_words[S, 2], ids[S, B])
@@ -1230,14 +1231,15 @@ def build_suggest_batched(cs, cfg, n_studies, cap, n_ids, donate=True,
     the rows into ``hist_stack`` in place and returns it; ``donate=False``
     folds into a copy.  ``hist_dtype`` is the cohort's resolved storage
     name (int8/fp8 decode and encode codes).  With the fused route armed
-    (``megakernel.armed(cs)``) the build is ``megakernel.build_cohort``.
-    Programs are cached under :func:`cohort_key`."""
+    (``megakernel.armed(cs)``) the build is ``megakernel.build_cohort``;
+    ``fused=False`` keeps the grouped ``ei_diff`` route, as a widened
+    cohort does.  Programs are cached under :func:`cohort_key`."""
     key = cohort_key(cs, cfg, n_studies, cap, n_ids, donate=donate, mesh=mesh,
-                     hist_dtype=hist_dtype)
+                     hist_dtype=hist_dtype, fused=fused)
     fn = _cohort_cache.get(key)
     if fn is None:
         qparams = _quant_qparams(cs, hist_dtype)
-        if megakernel.armed(cs):
+        if fused and megakernel.armed(cs):
             fn = megakernel.build_cohort(cs, cfg, n_studies, cap, n_ids,
                                          donate=donate, qparams=qparams)
         else:
@@ -1284,3 +1286,50 @@ def _build_cohort(cs, cfg, n_studies, cap, n_ids, donate, qparams, fused):
         return hist_stack, rand.pack_labels(cs, propose(hist_stack, keys))
 
     return run
+
+
+# ---------------------------------------------------------------------------
+# the widened profile.  The JAX package widens a cohort of an unconditional
+# space into a positional slot layout so that every space of one PROFILE
+# (its label groups, each padded to a power-of-two slot width) shares one
+# compiled program.  Torch compiles nothing, and a widened slot proposes
+# bit for bit as the grouped step (``group="all"``) does, so the port's
+# widened cohort is the grouped cohort with the fused route off; the
+# profile only decides which spaces widen.  Conditional spaces do not:
+# their activation masks couple labels.
+# ---------------------------------------------------------------------------
+
+
+def _pow2_up(n):
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+def widened_profile(cs):
+    """``(profile, slots)`` of a compiled space, or None when the space has
+    conditional parameters.
+
+    ``profile`` is a sorted tuple of group entries ``("num", quantized,
+    bounded, W)`` / ``("disc", K, W)``, ``W`` the power-of-two slot width
+    of the JAX package's positional layout; ``slots`` lists each group's
+    labels in ``cs.labels`` order.  The groups are those of the grouped
+    step (:func:`build_propose_with_scores`, ``group="all"``)."""
+    if any(info.conditions for info in cs.params.values()):
+        return None
+    groups = {}
+    for l in cs.labels:
+        d = cs.params[l].dist
+        if d.family in ("categorical", "randint"):
+            gkey = ("disc", len(_prior_probs(d)))
+        else:
+            _, _, low, high, q, _ = _parzen_from(d)
+            gkey = ("num", q is not None, math.isfinite(low) and math.isfinite(high))
+        groups.setdefault(gkey, []).append(l)
+    profile, slots = [], []
+    for gkey in sorted(groups):
+        ls = groups[gkey]
+        profile.append(gkey + (_pow2_up(len(ls)),))
+        slots.append(tuple(ls))
+    return tuple(profile), tuple(slots)

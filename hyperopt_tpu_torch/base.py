@@ -485,6 +485,11 @@ class Trials:
     def argmin(self):
         return spec_from_misc(self.best_trial["misc"])
 
+    def padded_history(self, labels):
+        """The device view of the folded history (see :meth:`history_object`
+        and ``PaddedHistory.device_view``)."""
+        return self.history_object(labels).device_view()
+
     def history_object(self, labels):
         """Fold DONE trials into the padded history and return it.
 

@@ -108,6 +108,10 @@ class FMinIter:
             b = len(pad_ids_pow2([0], min_bucket=min(int(self.max_queue_len), 64)))
             domain._ids_bucket = max(getattr(domain, "_ids_bucket", 1), b)
         self.max_evals = max_evals
+        # the eval budget for budget-aware suggesters (aTPE's
+        # featurize_trials): the suggest protocol has no budget argument
+        if max_evals != float("inf"):
+            trials.max_evals_hint = int(max_evals)
         self.timeout = timeout
         self.loss_threshold = loss_threshold
         self.start_time = time.time()

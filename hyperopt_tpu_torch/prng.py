@@ -4,9 +4,9 @@ Counterpart of the ``jax.random`` calls the JAX package makes (``PRNGKey``,
 ``fold_in``, ``split``, ``uniform``, ``normal``, ``randint``,
 ``categorical``) under ``jax_threefry_partitionable=True``: a draw of shape
 ``S`` is threefry2x32 over the (hi, lo) words of each element's flat index
-in ``S``, and a 32-bit draw is ``bits1 ^ bits2``.  Keys, uniforms and
-integer draws match jax bit for bit; ``normal`` and ``categorical`` go
-through ``erfinv``/``log`` and match to a few ulp.
+in ``S``, and a 32-bit draw is ``bits1 ^ bits2``.  Keys, uniforms, integer
+draws and normals (XLA's float32 ``erfinv``) match jax bit for bit;
+``categorical`` goes through torch's ``log`` and matches to a few ulp.
 
 A key is an int64 tensor ``[..., 2]`` holding two uint32 words.  Every
 function broadcasts over the leading key dimensions, which is how the
@@ -123,10 +123,58 @@ def uniform(key, shape=(), minval=0.0, maxval=1.0):
     return torch.maximum(lo, scaled)
 
 
+# XLA's float32 erfinv (Giles' single-precision form): a degree-8
+# polynomial in w - 2.5 (w < 5) or sqrt(w) - 3, w = -log1p(-x^2)
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+# XLA's float32 log1p below |x| < sqrt(2) - 1: Cephes' rational form
+# x - x^2/2 + x^3 P(x)/Q(x)
+_LOG1P_P = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+            6.5787325942061044846969e0, 2.9911919328553073277375e1,
+            6.0949667980987787057556e1, 5.7112963590585538103336e1,
+            2.0039553499201281259648e1)
+_LOG1P_Q = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+            2.2176239823732856465394e2, 3.0909872225312059774938e2,
+            2.1642788614495947685003e2, 6.0118660497603843919306e1)
+_LOG1P_SMALL = float(np.float32(0.41421356237309504880))
+
+
+def _log1p_xla(x):
+    """float32 ``log1p`` of ``x`` in ``(-1, 0]`` as XLA's CPU code computes
+    it (bitwise): Cephes' rational form near 0 (Horner steps as fused
+    multiply-adds, ``-x^2/2`` fused into the last product), ``log(1 + x)``
+    by XLA's ``log`` elsewhere."""
+    from .algos.tpe import _fma, _horner, xla_log
+
+    p, q = _horner((_LOG1P_P, _LOG1P_Q), x[None])
+    x2 = x * x
+    small = x + _fma(x2, -0.5, (x * x2) * (p / q))
+    one_px = x + 1.0
+    large = xla_log(torch.where(one_px > 0, one_px, torch.ones_like(one_px)))
+    return torch.where(x.abs() < _LOG1P_SMALL, small, large)
+
+
+def _erfinv_xla(u):
+    """float32 ``erfinv`` of ``u`` in ``(-1, 1)`` as XLA's CPU code computes
+    ``lax.erf_inv`` (bitwise): each Horner step a fused multiply-add, the
+    two polynomials evaluated at the same point and the branch selected
+    after."""
+    from .algos.tpe import _horner, xla_sqrt
+
+    w = -_log1p_xla(u * -u)
+    lt5 = w < 5.0
+    z = torch.where(lt5, w - 2.5, xla_sqrt(w) - 3.0)
+    lo, hi = _horner((_ERFINV_LT5, _ERFINV_GE5), z[None])
+    return torch.where(lt5, lo, hi) * u
+
+
 def normal(key, shape=()):
-    """``jax.random.normal``: ``sqrt(2) * erfinv(U(nextafter(-1, 0), 1))``."""
+    """``jax.random.normal``: ``sqrt(2) * erfinv(U(nextafter(-1, 0), 1))``,
+    with XLA's float32 ``erfinv`` (bitwise)."""
     u = uniform(key, shape, _NORMAL_LO, 1.0)
-    return _SQRT2_F32 * torch.erfinv(u)
+    return _erfinv_xla(u) * _SQRT2_F32
 
 
 def randint(key, shape, minval, maxval):

@@ -7,7 +7,12 @@ one **cohort**: a fixed-shape ``[S, cap]`` stack of device history slots.
 Every ask wave runs one study-batched tell+ask program
 (``tpe.build_suggest_batched``) per cohort instead of one tick per study.
 For a space ``megakernel.supports``, that program draws and scores its
-candidates in the fused CUDA kernel.
+candidates in the fused CUDA kernel.  With ``widen`` on, a cohort of an
+unconditional space (``tpe.widened_profile`` is not None) never takes the
+fused route, as in the JAX package, and scores in grouped ``ei_diff``.
+The JAX package's positional slot layout, which lets every space of one
+widened profile share a compiled program, has nothing to share here: the
+grouped cohort already proposes as a widened slot does, bit for bit.
 
 Determinism: a cohort of N studies proposes as N independent sequential
 ``fmin`` runs at the same per-study seeds would.  Each study's ask mirrors
@@ -36,9 +41,9 @@ import numpy as np
 import torch
 
 from .. import quant
-from .._env import (not_ported, parse_hist_dtype, parse_service_idle_sec,
-                    parse_service_max_pending, parse_service_max_studies,
-                    resolve_device)
+from .._env import (not_ported, parse_compile_widen, parse_hist_dtype,
+                    parse_service_idle_sec, parse_service_max_pending,
+                    parse_service_max_studies, resolve_device)
 from ..algos import rand, tpe
 from ..base import (JOB_STATE_DONE, STATUS_FAIL, STATUS_OK, Domain, Trials,
                     coarse_utcnow, spec_from_misc)
@@ -184,11 +189,12 @@ class _Cohort:
     """Fixed-shape device slots for studies sharing (space signature, TPE
     cfg, capacity bucket).  Owns the stacked ``[S, cap]`` device mirror;
     each study's host arrays stay authoritative: admission uploads them,
-    ticks move only the pending tell rows."""
+    ticks move only the pending tell rows.  A ``widen`` cohort keeps off
+    the fused route."""
 
     _ROW_BUCKET = 16  # pending rows folded in place; past this, re-upload
 
-    def __init__(self, cs, cfg, cap, hist_dtype, device):
+    def __init__(self, cs, cfg, cap, hist_dtype, device, widen=False):
         self.cs = cs
         self.cfg = dict(cfg)
         self.cap = int(cap)
@@ -200,6 +206,7 @@ class _Cohort:
         self.slot_of = {}    # study_id -> slot
         self._dev = None     # stacked history, or None (rebuild at next tick)
         self._synced = {}    # slot -> host rows already folded on the device
+        self.widen = bool(widen)
 
     @property
     def n_slots(self):
@@ -321,7 +328,7 @@ class _Cohort:
             ids[slot, len(slot_ids):] = slot_ids[-1]  # pad by repeating the last id
 
         run = tpe.build_suggest_batched(self.cs, self.cfg, S, self.cap, B,
-                                        hist_dtype=self.hist_dtype)
+                                        hist_dtype=self.hist_dtype, fused=not self.widen)
         try:
             self._dev, packed = run(self._dev, rows, seed_words, ids)
         except BaseException:
@@ -348,7 +355,10 @@ class StudyScheduler:
     ``device`` is where the cohorts' histories live and tick: the CUDA
     card unless ``device="cpu"`` (without a card the default raises).
     ``hist_dtype`` names their storage (``HYPEROPT_TPU_HIST_DTYPE`` by
-    default): float32, bfloat16, or int8/fp8 codes with bf16 losses."""
+    default): float32, bfloat16, or int8/fp8 codes with bf16 losses.
+    ``widen`` (``HYPEROPT_TPU_COMPILE_WIDEN`` by default, read once here)
+    widens the cohorts of unconditional spaces: they keep off the fused
+    route."""
 
     def __init__(self, max_studies=None, max_pending=None, idle_sec=None,
                  device=None, hist_dtype=None, store_root=None,
@@ -357,7 +367,7 @@ class StudyScheduler:
         for what, value, item in (("store_root=", store_root, 13), ("wal=", wal, 13),
                                   ("degrade=", degrade, 13), ("overload=", overload, 13),
                                   ("compile_plane=", compile_plane, 13),
-                                  ("widen=", widen, 8), ("quality=", quality, 14),
+                                  ("quality=", quality, 14),
                                   ("load=", load, 14), ("tenants=", tenants, 14)):
             if value is not None and value is not False:
                 raise not_ported(f"StudyScheduler({what}...)", item)
@@ -369,6 +379,7 @@ class StudyScheduler:
         self.max_pending = (parse_service_max_pending() if max_pending is None
                             else int(max_pending))
         self.idle_sec = parse_service_idle_sec() if idle_sec is None else float(idle_sec)
+        self.widen = parse_compile_widen() if widen is None else bool(widen)
         if self.idle_sec <= 0:
             self.idle_sec = math.inf  # 0 means never evict on idleness
         self._lock = threading.RLock()
@@ -422,8 +433,10 @@ class StudyScheduler:
         key = (st.domain.cs.signature(), st.cfg_key, cap)
         cohort = self._cohorts.get(key)
         if cohort is None:
-            cohort = self._cohorts[key] = _Cohort(st.domain.cs, st.cfg, cap,
-                                                  self.hist_dtype, self.device)
+            cs = st.domain.cs
+            widen = self.widen and tpe.widened_profile(cs) is not None
+            cohort = self._cohorts[key] = _Cohort(cs, st.cfg, cap, self.hist_dtype,
+                                                  self.device, widen=widen)
         if st.study_id not in cohort.slot_of:
             self._evict_from_cohort(st)  # from a smaller bucket it may hold
             cohort.admit(st)

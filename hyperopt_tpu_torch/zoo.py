@@ -1,7 +1,7 @@
-"""Benchmark domains (counterpart of ``hyperopt_tpu/zoo.py``): the ones the
-port's main path, its study scheduler and its tests drive, with host
-(numpy) objectives, and ``make_study_mix``, the standing multi-study
-workload.
+"""Benchmark domains (counterpart of ``hyperopt_tpu/zoo.py``): every domain
+of the JAX package's zoo but its two ML domains (``ml_logreg_cv``,
+``ml_model_select_cv``), with host objectives, and ``make_study_mix``,
+the standing multi-study workload.
 
 The host objectives evaluate in float32 where the JAX package's jnp
 objectives do on the host loop, so both report the same loss for the
@@ -158,6 +158,64 @@ def _q1_choice():
     )
 
 
+def _n_arms(n=2):
+    return DomainZoo(
+        name="n_arms",
+        space=hp.choice("arm", list(range(n))),
+        objective=lambda arm: 0.0 if arm == 0 else 1.0,
+        loss_target=0.0,
+    )
+
+
+def _distractor():
+    """A deep narrow global minimum at x=3 beside a wide shallow basin at
+    x=-3."""
+
+    def obj(d):
+        x = d["x"]
+        return -math.exp(-((x - 3.0) ** 2)) - 1.2 * math.exp(-0.05 * (x + 3.0) ** 2)
+
+    return DomainZoo(
+        name="distractor",
+        space={"x": hp.uniform("x", -15, 15)},
+        objective=obj,
+        loss_target=-1.1,
+    )
+
+
+def _gauss_wave():
+    """A sinusoid under a Gaussian envelope (hyperopt/tests/test_domains.py
+    sym: gauss_wave): a smooth global basin with high-frequency ripple."""
+
+    def obj(d):
+        x = d["x"]
+        return -math.exp(-((x / 8.0) ** 2)) * math.cos(x)
+
+    return DomainZoo(
+        name="gauss_wave",
+        space={"x": hp.uniform("x", -20, 20)},
+        objective=obj,
+        loss_target=-0.8,
+    )
+
+
+def _gauss_wave2():
+    def obj(d):
+        x = d["x"]
+        t = d["hf"]
+        return math.sin(x) * (1.0 if t == "sin" else 0.0) + 0.1 * x**2
+
+    return DomainZoo(
+        name="gauss_wave2",
+        space={
+            "x": hp.uniform("x", -20, 20),
+            "hf": hp.choice("hf", ["sin", "flat"]),
+        },
+        objective=obj,
+        loss_target=0.0,
+    )
+
+
 def _branin_domain():
     return DomainZoo(
         name="branin",
@@ -212,6 +270,39 @@ def _rosenbrock4():
     )
 
 
+def _many_dists():
+    """One of every ``hp.*`` family, a nested choice among them
+    (hyperopt/tests/test_domains.py sym: many_dists)."""
+    space = {
+        "a": hp.choice("a", [0, 1, 2]),
+        "b": hp.randint("b", 10),
+        "c": hp.uniform("c", 4, 7),
+        "d": hp.loguniform("d", -2, 0),
+        "e": hp.quniform("e", 0, 10, 3),
+        "f": hp.qloguniform("f", 0, 3, 2),
+        "g": hp.normal("g", 4, 7),
+        "h": hp.lognormal("h", -2, 2),
+        "i": hp.qnormal("i", 0, 10, 2),
+        "j": hp.qlognormal("j", 0, 2, 1),
+        "k": hp.pchoice("k", [(0.1, 0), (0.9, 1)]),
+        "z": hp.choice(
+            "z", [{"m": hp.uniform("m", -1, 1)}, {"n": hp.uniformint("n", 1, 5)}]
+        ),
+    }
+
+    def obj(d):
+        z = d["z"]
+        zv = z.get("m", 0.0) + z.get("n", 0)
+        return (
+            abs(d["c"] - 5.0)
+            + 0.1 * abs(d["g"])
+            + 0.01 * (d["a"] + d["b"] + d["e"] + d["k"])
+            + 0.001 * (d["d"] + d["f"] + d["h"] + d["i"] + abs(d["j"]) + zv)
+        )
+
+    return DomainZoo(name="many_dists", space=space, objective=obj, loss_target=2.5)
+
+
 @functools.lru_cache(maxsize=1)
 def _hpob_weights(hidden=64):
     """The surrogate's fixed 2-hidden-layer tanh network, drawn from
@@ -257,9 +348,11 @@ def _hpob_surrogate():
     return DomainZoo(name="hpob_surrogate", space=space, objective=obj, loss_target=-0.55)
 
 
-ZOO = {d.name: d for d in (_quadratic1(), _q1_lognormal(), _q1_choice(), _branin_domain(),
-                           _hartmann6_domain(), _rosenbrock4(), _hr_conditional(),
-                           _hpob_surrogate())}
+# the JAX package's ZOO order (its ML domains are not ported yet)
+ZOO = {d.name: d for d in (_quadratic1(), _q1_lognormal(), _q1_choice(), _n_arms(),
+                           _distractor(), _gauss_wave(), _gauss_wave2(), _branin_domain(),
+                           _hartmann6_domain(), _rosenbrock4(), _many_dists(),
+                           _hr_conditional(), _hpob_surrogate())}
 
 
 @dataclasses.dataclass(frozen=True)

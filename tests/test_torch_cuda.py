@@ -187,3 +187,68 @@ def test_device_loop_capture_refuses_a_copy_from_the_host(cuda_device):
     best, loss = port.fmin_device(zoo.ZOO["quadratic1"].traceable, zoo.ZOO["quadratic1"].space,
                                   30, device=cuda_device)
     assert np.isfinite(loss)
+
+
+def _fmin_vals(device, name, algo, n, seed):
+    dom = zoo.ZOO[name]
+    t = port.Trials(device=device)
+    port.fmin(dom.objective, dom.space, algo=algo, max_evals=n, trials=t,
+              rstate=np.random.default_rng(seed), show_progressbar=False)
+    return [d["misc"]["vals"] for d in t.trials]
+
+
+@pytest.mark.parametrize("name", ["many_dists", "branin"])
+def test_anneal_on_the_card_follows_the_cpu_path(cuda_device, name):
+    cpu = _fmin_vals("cpu", name, port.anneal.suggest, 40, 5)
+    card = _fmin_vals(cuda_device, name, port.anneal.suggest, 40, 5)
+    for a, b in zip(cpu, card):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert len(a[k]) == len(b[k])
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-4, atol=1e-5, err_msg=k)
+
+
+def test_atpe_and_mix_asks_launch_ei_diff(cuda_device):
+    """Every TPE ask of aTPE and of mix's TPE branch launches the kernel."""
+    import functools
+
+    counted = []
+
+    def counting(algo):
+        def ask(new_ids, domain, trials, seed, **kw):
+            before = megakernel.ei_diff.launches
+            docs = algo(new_ids, domain, trials, seed, **kw)
+            counted.append(megakernel.ei_diff.launches - before)
+            return docs
+        return ask
+
+    dom = zoo.ZOO["branin"]
+    mix = functools.partial(port.mix.suggest, p_suggest=[(1.0, counting(port.tpe.suggest))])
+    for algo in (counting(port.atpe.suggest), mix):
+        port.fmin(dom.objective, dom.space, algo=algo, max_evals=30,
+                  trials=port.Trials(device=cuda_device), rstate=np.random.default_rng(0),
+                  show_progressbar=False)
+    # aTPE: 10 prior draws (its startup floor at this budget), 20 TPE asks;
+    # mix's TPE branch: 20 prior draws, 10 TPE asks
+    assert counted == [0] * 10 + [1] * 20 + [0] * 20 + [1] * 10
+
+
+def test_widened_cohort_equals_the_grouped_cohort_on_the_card(cuda_device, monkeypatch):
+    """hartmann6 is a space the fused kernel takes; widened, its cohort
+    keeps off it and proposes as the grouped ``ei_diff`` cohort does, bit
+    for bit."""
+    dom = zoo.ZOO["hartmann6"]
+    streams = []
+    for widen, knob in ((False, "0"), (True, "1")):
+        monkeypatch.setenv("HYPEROPT_TPU_MEGAKERNEL", knob)
+        megakernel.fused_sample_ei.launches = megakernel.ei_diff.launches = 0
+        sched = StudyScheduler(device=cuda_device, widen=widen)
+        sids = [sched.create_study(dom.space, seed=s, n_startup_jobs=5) for s in (3, 4)]
+        for _ in range(15):
+            for sid, (a,) in sched.ask_many([(sid, 1) for sid in sids]).items():
+                sched.tell(sid, a["tid"], dom.objective(a["params"]))
+        assert all(c.widen == widen for c in sched._cohorts.values())
+        assert megakernel.fused_sample_ei.launches == 0 and megakernel.ei_diff.launches > 0
+        streams.append([[d["misc"]["vals"] for d in sched._studies[sid].trials]
+                        for sid in sids])
+    assert streams[0] == streams[1]

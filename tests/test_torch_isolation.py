@@ -26,7 +26,10 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     code = ("import sys, hyperopt_tpu_torch, hyperopt_tpu_torch.convert, "
             "hyperopt_tpu_torch.zoo, hyperopt_tpu_torch.megakernel, "
             "hyperopt_tpu_torch.device_fmin, "
-            "hyperopt_tpu_torch.quant, hyperopt_tpu_torch.service.scheduler; "
+            "hyperopt_tpu_torch.quant, hyperopt_tpu_torch.service.scheduler, "
+            "hyperopt_tpu_torch.algos.algobase, hyperopt_tpu_torch.algos.anneal, "
+            "hyperopt_tpu_torch.algos.mix, hyperopt_tpu_torch.algos.atpe, "
+            "hyperopt_tpu_torch.criteria; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hyperopt_tpu')]; "
             "assert not bad, bad")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
@@ -60,6 +63,9 @@ def test_default_device_entry_points_raise_without_cuda():
         lambda: port.fmin(lambda d: d["x"], space, max_evals=2, show_progressbar=False),
         lambda: port.generate_trials_to_calculate([{"x": 0.5}]),
         lambda: StudyScheduler(),
+        lambda: StudyScheduler(widen=True),
+        lambda: port.fmin(lambda d: d["x"], space, algo=port.anneal.suggest, max_evals=2,
+                          show_progressbar=False),
         lambda: port.fmin_device(lambda d: d["x"], space, 2),
         lambda: port.fmin(lambda d: d["x"], space, max_evals=2, show_progressbar=False,
                           device_loop=True),
@@ -80,3 +86,15 @@ def test_rand_and_tpe_run_where_the_trials_live():
               trials=t, rstate=0, show_progressbar=False)
     assert t.history_object(("c", "x")).device.type == "cpu"
     assert len(t.trials) == 3
+
+
+def test_port_tests_leave_the_jax_package_tests_alone():
+    """A port test must not change how the JAX package's own tests behave:
+    run the reference's megakernel tests after the port's in one process
+    (as an xdist worker may), and both files pass."""
+    env = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": str(REPO)}
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "-p", "no:xdist",
+         "-p", "no:randomly", "tests/test_torch_megakernel.py", "tests/test_megakernel.py"],
+        env=env, cwd=str(REPO), capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-4000:]

@@ -1,5 +1,5 @@
 """The port's threefry PRNG against ``jax.random``: keys, uniforms and
-integer draws bit for bit; normal and categorical to a few ulp."""
+integer draws and normals bit for bit; categorical to a few ulp."""
 
 import jax
 import jax.numpy as jnp
@@ -76,6 +76,17 @@ def test_normal_and_categorical_at_tolerance():
         ref = np.asarray(jax.random.categorical(jk, jnp.asarray(logits), shape=(200,)))
         got = prng.categorical(pk, torch.as_tensor(logits), (200,)).numpy()
         np.testing.assert_array_equal(ref, got)
+
+
+def test_normal_bitwise():
+    """``normal`` carries XLA's float32 ``erfinv`` and ``log1p``: 2**18
+    draws per seed equal jax's bit for bit, tails (``w >= 5``) included."""
+    for seed in SEEDS:
+        want = np.asarray(jax.jit(lambda k: jax.random.normal(k, (2**18,)))(
+            jax.random.PRNGKey(seed)))
+        got = prng.normal(prng.PRNGKey(seed, "cpu"), (2**18,)).numpy()
+        assert (np.abs(want) > 2.95).sum() > 100  # the w >= 5 branch ran
+        np.testing.assert_array_equal(want, got)
 
 
 @pytest.mark.parametrize("seed", [0, 2**31 - 1, 2**40 + 12345, 2**63 - 1])
