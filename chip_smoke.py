@@ -74,6 +74,24 @@ Phases, each of which fails the run (non-zero exit) on its own:
     scheduler on the card proposes bit for bit as the unwidened grouped
     one (``HYPEROPT_TPU_MEGAKERNEL=0``) and follows the widened scheduler
     on the CPU, 30 trials in 8 studies.
+12. The ML zoo domains and the evaluation backends (TF32 off):
+    (a) ``Domain(ml_logreg_cv).make_batch_eval()`` over 4096 prior draws,
+    4096 four-fold CV fits per dispatch: fits per second, kernels per
+    dispatch, the card against the port on the CPU at 16 points of the
+    batch; (b) the host loop, ``fmin(ml_logreg_cv, algo=tpe.suggest)`` for
+    64 evaluations, every fit on the card; (c) the device loop on both ML
+    domains at 40 evaluations (``n_EI_candidates=32``, ``gamma=0.5``):
+    graph replays equal eager steps bit for bit, ``fmin_device`` cold and
+    warm and ``fmin(device_loop=True)``, capture time, and one profiled
+    chunk of replays (kernels and device time per step); (d) ``fmin`` over
+    ``ExecutorTrials(traceable=True)`` with queues of 16, each one batch
+    evaluation on the card, 64 evaluations; (e) ``fmin`` over
+    ``FileTrials`` in a temporary directory served by two ``python -m
+    hyperopt_tpu_torch.worker`` processes on the card, 40 evaluations, no
+    trial claimed twice, every doc done.  On (b)-(e) ``ei_diff`` launches
+    (eager plus graph replays) equal the TPE asks (steps), and every shape
+    it launched at is held against the plain version (phase 1 plans them;
+    one it missed is checked after the phase).
 
 It imports neither JAX nor the JAX package.  Before the last line it
 prints one JSON line describing every kernel and the card's name and power
@@ -133,7 +151,13 @@ EI_SHAPES = [(1, 24, 129, 0, None, False), (4, 1000, 257, 0, None, False),
              # phase 11: the widened wave's numeric groups, S slots x G
              # labels (hartmann6 6, rosenbrock4 4, hpob_surrogate 3, branin
              # 2, quadratic1 1), 24 candidates, caps 16 and 32
-             *[(256 * G, 24, m, 0, None, False) for G in (6, 4, 3, 2, 1) for m in (17, 33)]]
+             *[(256 * G, 24, m, 0, None, False) for G in (6, 4, 3, 2, 1) for m in (17, 33)],
+             # phase 12: ml_logreg_cv's TPE asks at cap 128 with queues of
+             # 1, 2 and 16 ids, and the device loop's steps at cap 40 (its
+             # 3 and model selection's 5 numeric labels, 32 candidates)
+             (3, 24, 129, 0, None, False), (3, 48, 129, 0, None, False),
+             (3, 384, 129, 0, None, False), (3, 32, 41, 0, None, False),
+             (5, 32, 41, 0, None, False)]
 # fused_sample_ei shapes (P, N, m, dead components, bounded): the service
 # tick (256 slots x 6 labels, 24 candidates), the wide tick (4 x 1024
 # candidates), an unbounded group, a group with dead components, N = m = 1
@@ -1280,6 +1304,434 @@ def phase_widened_service(report):
     return launches["ei_diff"], sorted(shapes)
 
 
+# phase 12: the ML domains and the evaluation backends
+ML_BATCH, ML_BATCH_CPU_POINTS, ML_BATCH_REPS = 4096, 16, 3
+ML_HOST_EVALS, ML_LOOP_EVALS, ML_EXECUTOR_EVALS, ML_STORE_EVALS = 64, 40, 64, 40
+ML_LOOP_CFG = {"n_EI_candidates": 32, "gamma": 0.5}
+ML_QUEUE, ML_WORKERS = 16, 2
+
+
+def _ml_fit(d):
+    """``ml_logreg_cv``'s objective, reporting where its fit ran: the file
+    store's workers and the host loop both evaluate through it."""
+    from hyperopt_tpu_torch import zoo
+
+    loss = zoo.ml_logreg_cv_objective(d)
+    return {"loss": float(loss), "status": "ok", "fit_device": loss.device.type}
+
+
+def counted_tpe(asks, **tuning):
+    """``tpe.suggest`` (tuned) counting its TPE asks (calls past the
+    startup draws) into ``asks[0]``."""
+    from hyperopt_tpu_torch import tpe
+
+    def suggest(new_ids, domain, trials, seed):
+        if len(trials.trials) >= tuning.get("n_startup_jobs", tpe._default_n_startup_jobs):
+            asks[0] += 1
+        return tpe.suggest(new_ids, domain, trials, seed, **tuning)
+    return suggest
+
+
+def ei_counts_zero():
+    from hyperopt_tpu_torch import megakernel
+
+    for k in (megakernel.ei_diff, megakernel.fused_sample_ei):
+        k.launches = k.captures = k.graph_launches = 0
+
+
+def ei_counts():
+    from hyperopt_tpu_torch import megakernel
+
+    k = megakernel.ei_diff
+    return {"launches": k.launches, "captures": k.captures, "graph_launches": k.graph_launches,
+            "fused_sample_ei": megakernel.fused_sample_ei.launches}
+
+
+def _ml_prior_flats(dom, n, device, seed):
+    """``n`` prior draws of ``dom``'s space (``rand.suggest`` on ``device``)
+    as a flat batch of tensors there: float32, int32 for integer labels."""
+    import numpy as np
+    import torch
+
+    import hyperopt_tpu_torch as port
+    from hyperopt_tpu_torch.base import Domain
+
+    domain = Domain(dom.traceable, dom.space)
+    t = port.Trials(device=device)
+    docs = port.rand.suggest(list(range(n)), domain, t, seed)
+    flat = {}
+    for l in domain.cs.labels:
+        is_int = domain.cs.params[l].is_int
+        vals = [(d["misc"]["vals"][l] or [0])[0] for d in docs]
+        flat[l] = torch.as_tensor(np.asarray(vals, np.int32 if is_int else np.float32),
+                                  device=device)
+    return domain, flat
+
+
+def _ml_batch(out):
+    """(a) ``Domain.make_batch_eval`` of ``ml_logreg_cv`` over 4096 prior
+    draws on the card: fits per second, kernels per dispatch, and the
+    card against the port on the CPU at a few points of the batch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperopt_tpu_torch import zoo
+
+    dom = zoo.ZOO["ml_logreg_cv"]
+    domain, flat = _ml_prior_flats(dom, ML_BATCH, DEVICE, 1)
+    batch = domain.make_batch_eval()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = batch(flat)
+    torch.cuda.synchronize()
+    first_sec = time.perf_counter() - t0
+    secs = []
+    for _ in range(ML_BATCH_REPS):
+        t0 = time.perf_counter()
+        again = batch(flat)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        batch(flat)
+        torch.cuda.synchronize()
+        prof_sec = time.perf_counter() - t0
+    kernels = [a for a in prof.key_averages()
+               if a.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(a.self_device_time_total for a in kernels) / 1e3
+    idx = torch.linspace(0, ML_BATCH - 1, ML_BATCH_CPU_POINTS).long().to(DEVICE)
+    cpu = batch({l: v[idx].cpu() for l, v in flat.items()})
+    card = losses[idx].cpu()
+    err = (card - cpu).abs()
+    sec = statistics.median(secs)
+    out["batch_eval"] = {
+        "batch": ML_BATCH, "first_dispatch_sec": first_sec, "dispatch_sec": secs,
+        "evals_per_sec": ML_BATCH / sec, "fold_fits_per_sec": 4 * ML_BATCH / sec,
+        "kernel_launches_per_dispatch": sum(a.count for a in kernels),
+        "device_busy_ms_per_dispatch": busy_ms, "profiled_dispatch_ms": 1e3 * prof_sec,
+        "device_idle_share": 1.0 - busy_ms / (1e3 * prof_sec),
+        "finite": bool(torch.isfinite(losses).all()), "repeat_bitwise": bool(torch.equal(losses, again)),
+        "cpu_points": ML_BATCH_CPU_POINTS, "card_vs_cpu_max_abs_err": float(err.max()),
+        "loss_min": float(losses.min()), "loss_median": float(losses.median())}
+    log(f"ML batch eval: {out['batch_eval']}")
+    if not out["batch_eval"]["finite"] or losses.shape != (ML_BATCH,):
+        raise AssertionError(f"the batch evaluation gave {losses.shape}, finite: "
+                             f"{out['batch_eval']['finite']}")
+    if not bool((err <= TOL * torch.clamp(cpu.abs(), min=1.0) + 1e-5).all()):
+        raise AssertionError(f"the card's batch evaluation left the CPU's: {err.tolist()}")
+
+
+def _ml_host_loop(out):
+    """(b) ``fmin(ml_logreg_cv, algo=tpe.suggest)``, the host loop: every
+    fit on the card, ``ei_diff`` once per TPE ask."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import hyperopt_tpu_torch as port
+    from hyperopt_tpu_torch import zoo
+    from hyperopt_tpu_torch.utils import evaluation_device
+
+    dom = zoo.ZOO["ml_logreg_cv"]
+    asks = [0]
+    trials = port.Trials()
+    ei_counts_zero()
+    t0 = time.perf_counter()
+    port.fmin(_ml_fit, dom.space, algo=counted_tpe(asks), max_evals=ML_HOST_EVALS,
+              trials=trials, rstate=np.random.default_rng(0), show_progressbar=False)
+    wall = time.perf_counter() - t0
+    counts = ei_counts()
+    point = {"lr": 0.1, "l2": 1e-3, "momentum": 0.5}
+    with evaluation_device(DEVICE):
+        zoo.ml_logreg_cv_objective(point)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(5):
+            float(zoo.ml_logreg_cv_objective(point))
+        eval_ms = 1e3 * (time.perf_counter() - t1) / 5
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            float(zoo.ml_logreg_cv_objective(point))
+    kernels = [a for a in prof.key_averages()
+               if a.device_type == torch.autograd.DeviceType.CUDA]
+    devices = sorted({d["result"]["fit_device"] for d in trials.trials})
+    out["host_loop"] = {"evals": len(trials.trials), "wall_sec": wall, "tpe_asks": asks[0],
+                        "ei_diff": counts, "fit_devices": devices,
+                        "best_loss": float(min(trials.losses())),
+                        "eval_ms": eval_ms,
+                        "kernel_launches_per_eval": sum(a.count for a in kernels),
+                        "device_busy_ms_per_eval":
+                            sum(a.self_device_time_total for a in kernels) / 1e3}
+    log(f"ML host loop: {out['host_loop']}")
+    if devices != ["cuda"]:
+        raise AssertionError(f"the host loop's fits ran on {devices}")
+    if counts["launches"] != asks[0] or asks[0] < 1:
+        raise AssertionError(f"ei_diff launched {counts['launches']} times in {asks[0]} TPE asks")
+    return counts["launches"]
+
+
+def _ml_device_loop(out):
+    """(c) the device loop on both ML domains: graph replays equal eager
+    steps bit for bit, then ``fmin_device`` and ``fmin(device_loop=True)``
+    at 40 evaluations (``n_EI_candidates=32``, ``gamma=0.5``): kernels per
+    step, capture time, the warm run's wall, ``ei_diff`` once per TPE step."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import hyperopt_tpu_torch as port
+    from hyperopt_tpu_torch import device_fmin, tpe, zoo
+    from hyperopt_tpu_torch.base import Domain
+
+    startup = tpe._default_n_startup_jobs
+    tpe_steps = ML_LOOP_EVALS - startup
+    cfg = {"prior_weight": 1.0, "LF": 25, **ML_LOOP_CFG}
+    res = {}
+    # graph replays vs eager steps of the runner, on the heavier domain
+    dom = zoo.ZOO["ml_model_select_cv"]
+    rows = {}
+    for capture in (False, True):
+        runner = device_fmin.DeviceLoopRunner(Domain(dom.traceable, dom.space), cfg, startup,
+                                              ML_LOOP_EVALS, device=DEVICE, capture=capture)
+        state = runner.init_state()
+        chunks = []
+        for start in range(0, ML_LOOP_EVALS, runner.CHUNK):
+            state, r = runner.run_chunk(state, start, start + runner.CHUNK, seed=100 + start)
+            chunks.append(r)
+        rows[capture] = np.concatenate(chunks)
+    res["graph_equals_eager_bitwise"] = bool(np.array_equal(rows[True], rows[False],
+                                                            equal_nan=True))
+    log(f"ML device loop: graph == eager bit for bit: {res['graph_equals_eager_bitwise']}")
+    if not res["graph_equals_eager_bitwise"]:
+        raise AssertionError("the ML device loop's graph replays differ from its eager steps")
+    launches = 0
+    for name in ("ml_logreg_cv", "ml_model_select_cv"):
+        dom = zoo.ZOO[name]
+        runs = {}
+        for phase in ("cold", "warm"):
+            ei_counts_zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trials = port.fmin_device(dom.traceable, dom.space, ML_LOOP_EVALS, seed=0,
+                                      return_trials=True, **ML_LOOP_CFG)
+            torch.cuda.synchronize()
+            runs[phase] = {"wall_sec": time.perf_counter() - t0, "evals": len(trials.trials),
+                           "ei_diff": ei_counts(),
+                           "best_loss": float(np.nanmin([np.nan if l is None else l
+                                                         for l in trials.losses()]))}
+        stats = [s for s in device_fmin.loop_stats()
+                 if s["kind"] == "whole_run" and s["cap"] == ML_LOOP_EVALS]
+        runs["loop_stats"] = stats[-1] if stats else None
+        algo = functools.partial(port.tpe.suggest, **ML_LOOP_CFG)
+        ei_counts_zero()
+        trials = port.Trials()
+        t0 = time.perf_counter()
+        port.fmin(dom.traceable, dom.space, algo=algo, max_evals=ML_LOOP_EVALS, trials=trials,
+                  rstate=np.random.default_rng(0), show_progressbar=False, device_loop=True)
+        torch.cuda.synchronize()
+        best = trials.best_trial
+        runs["fmin_device_loop"] = {"wall_sec": time.perf_counter() - t0,
+                                    "evals": len(trials.trials), "ei_diff": ei_counts(),
+                                    "best_loss": best["result"]["loss"],
+                                    "best_vals": best["misc"]["vals"]}
+        stats = [s for s in device_fmin.loop_stats()
+                 if s["kind"] == "chunk" and s["cap"] == ML_LOOP_EVALS]
+        runs["fmin_device_loop"]["loop_stats"] = stats[-1] if stats else None
+        # the last chunk of 10 TPE replays, timed and then (over the same
+        # state, the same kernels) under torch.profiler
+        runner = device_fmin.DeviceLoopRunner(Domain(dom.traceable, dom.space), cfg, startup,
+                                              ML_LOOP_EVALS)
+        state = runner.init_state()
+        state, _ = runner.run_chunk(state, 0, ML_LOOP_EVALS - 10, seed=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.run_chunk(state, ML_LOOP_EVALS - 10, ML_LOOP_EVALS, seed=2)
+        torch.cuda.synchronize()
+        chunk_ms = 1e3 * (time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            runner.run_chunk(state, ML_LOOP_EVALS - 10, ML_LOOP_EVALS, seed=2)
+            torch.cuda.synchronize()
+            prof_ms = 1e3 * (time.perf_counter() - t0)
+        kernels = [a for a in prof.key_averages()
+                   if a.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(a.self_device_time_total for a in kernels) / 1e3
+        runs["profiled_chunk"] = {
+            "steps": 10, "chunk_ms_per_step": chunk_ms / 10, "device_ms_per_step": busy_ms / 10,
+            "profiled_ms_per_step": prof_ms / 10,
+            "kernel_launches_per_step": sum(a.count for a in kernels) / 10,
+            "ei_diff_kernels": sum(a.count for a in kernels if "ei_diff_kernel" in a.key),
+            "device_idle_share": 1.0 - busy_ms / prof_ms,
+            "top_kernels": [{"name": a.key[:80], "launches_per_step": a.count / 10,
+                             "device_ms_per_step": a.self_device_time_total / 1e3 / 10}
+                            for a in sorted(kernels, key=lambda a: -a.self_device_time_total)[:6]]}
+        res[name] = runs
+        log(f"ML device loop {name}: {runs}")
+        for what, r in (("fmin_device cold", runs["cold"]), ("fmin_device warm", runs["warm"]),
+                        ("fmin(device_loop=True)", runs["fmin_device_loop"])):
+            ei = r["ei_diff"]
+            if r["evals"] != ML_LOOP_EVALS:
+                raise AssertionError(f"{name} {what}: {r['evals']} trials")
+            if ei["launches"] + ei["graph_launches"] != tpe_steps:
+                raise AssertionError(f"{name} {what}: ei_diff ran {ei} in {tpe_steps} TPE steps")
+        if runs["warm"]["ei_diff"]["captures"] != 0:
+            raise AssertionError(f"{name}: the warm fmin_device captured again")
+        if runs["profiled_chunk"]["ei_diff_kernels"] != 10:
+            raise AssertionError(f"{name}: the profiled chunk ran ei_diff "
+                                 f"{runs['profiled_chunk']['ei_diff_kernels']} times in 10 steps")
+        if name == "ml_model_select_cv":  # the inactive family is empty in the docs
+            vals = runs["fmin_device_loop"]["best_vals"]
+            inactive = "lr_mlp" if vals["model"][0] == 0 else "lr_lin"
+            if vals[inactive] != []:
+                raise AssertionError(f"an inactive parameter has a value: {vals}")
+        launches += runs["fmin_device_loop"]["ei_diff"]["graph_launches"]
+    out["device_loop"] = res
+    return launches
+
+
+def _ml_executor(out):
+    """(d) ``fmin`` over ``ExecutorTrials(traceable=True)`` with a queue of
+    16: each queue is one batch evaluation on the card."""
+    import numpy as np
+
+    import hyperopt_tpu_torch as port
+    from hyperopt_tpu_torch import zoo
+    from hyperopt_tpu_torch.parallel import ExecutorTrials
+
+    dom = zoo.ZOO["ml_logreg_cv"]
+    asks = [0]
+    trials = ExecutorTrials(n_workers=1, traceable=True)
+    ei_counts_zero()
+    t0 = time.perf_counter()
+    try:
+        port.fmin(dom.traceable, dom.space, algo=counted_tpe(asks), max_evals=ML_EXECUTOR_EVALS,
+                  max_queue_len=ML_QUEUE, trials=trials, rstate=np.random.default_rng(0),
+                  show_progressbar=False)
+    finally:
+        trials.shutdown()
+    wall = time.perf_counter() - t0
+    counts = ei_counts()
+    states = [d["state"] for d in trials.trials]
+    out["executor"] = {"evals": len(trials.trials), "wall_sec": wall, "tpe_asks": asks[0],
+                       "ei_diff": counts, "batch_evals": trials.metrics.counter("batch_evals").value,
+                       "all_done": states == [2] * len(states),
+                       "best_loss": float(min(trials.losses()))}
+    log(f"ML executor: {out['executor']}")
+    if len(states) != ML_EXECUTOR_EVALS or not out["executor"]["all_done"]:
+        raise AssertionError(f"the executor left trials unfinished: {states}")
+    if counts["launches"] != asks[0] or asks[0] < 1:
+        raise AssertionError(f"ei_diff launched {counts['launches']} times in {asks[0]} TPE asks")
+    if out["executor"]["batch_evals"] < 2:
+        raise AssertionError("the executor evaluated no queue as one batch")
+    return counts["launches"]
+
+
+def _ml_file_store(out):
+    """(e) ``fmin`` over ``FileTrials`` in a temporary directory, served by
+    two ``python -m hyperopt_tpu_torch.worker`` processes on the card: no
+    trial claimed twice, every doc done, every fit on the card."""
+    import tempfile
+
+    import numpy as np
+
+    import hyperopt_tpu_torch as port
+    from hyperopt_tpu_torch import zoo
+    from hyperopt_tpu_torch.filestore import FileTrials
+
+    dom = zoo.ZOO["ml_logreg_cv"]
+    asks = [0]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    with tempfile.TemporaryDirectory() as store:
+        trials = FileTrials(store)
+        procs = [subprocess.Popen([sys.executable, "-m", "hyperopt_tpu_torch.worker",
+                                   "--store", store, "--poll-interval", "0.02",
+                                   "--reserve-timeout", "120"],
+                                  env=env, cwd=root, stdout=subprocess.DEVNULL,
+                                  stderr=subprocess.PIPE, text=True)
+                 for _ in range(ML_WORKERS)]
+        ei_counts_zero()
+        t0 = time.perf_counter()
+        try:
+            port.fmin(_ml_fit, dom.space, algo=counted_tpe(asks), max_evals=ML_STORE_EVALS,
+                      max_queue_len=ML_WORKERS, trials=trials, rstate=np.random.default_rng(0),
+                      show_progressbar=False)
+            wall = time.perf_counter() - t0
+        finally:
+            errs = []
+            for p in procs:
+                p.terminate()
+                try:
+                    _, e = p.communicate(timeout=60)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    _, e = p.communicate(timeout=60)
+                errs.append((e or "")[-2000:])
+        counts = ei_counts()
+        claims = [e["tid"] for e in trials.store.read_events() if e["event"] == "trial_claimed"]
+        done = sorted(os.listdir(os.path.join(store, "done")))
+        left = {s: os.listdir(os.path.join(store, s))
+                for s in ("new", "running", "error", "cancel")}
+        owners = sorted({d["owner"] for d in trials.trials})
+        devices = sorted({d["result"].get("fit_device") for d in trials.trials})
+    out["file_store"] = {"evals": len(trials.trials), "wall_sec": wall, "tpe_asks": asks[0],
+                         "ei_diff": counts, "claims": len(claims),
+                         "claimed_twice": len(claims) - len(set(claims)), "done": len(done),
+                         "left": {k: len(v) for k, v in left.items()}, "workers": len(owners),
+                         "fit_devices": devices, "best_loss": float(min(trials.losses()))}
+    log(f"ML file store: {out['file_store']}")
+    if len(done) != ML_STORE_EVALS or any(left.values()):
+        raise AssertionError(f"the store did not finish every trial: {out['file_store']}; "
+                             f"worker stderr: {errs}")
+    if len(claims) != len(set(claims)) or len(claims) != ML_STORE_EVALS:
+        raise AssertionError(f"claims: {sorted(claims)}")
+    if devices != ["cuda"]:
+        raise AssertionError(f"the workers' fits ran on {devices}")
+    if counts["launches"] != asks[0] or asks[0] < 1:
+        raise AssertionError(f"ei_diff launched {counts['launches']} times in {asks[0]} TPE asks")
+    return counts["launches"]
+
+
+def phase_ml_backends(report):
+    """Phase 12: the ML zoo domains and the evaluation backends on the
+    card, paths (a)-(e); every shape ``ei_diff`` launches at is recorded."""
+    import collections
+
+    import torch
+
+    from hyperopt_tpu_torch import megakernel
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matrix products are on")
+    out = {}
+    shapes = collections.Counter()
+    launchable = megakernel._launchable
+
+    def recording(name, P, tensors):
+        if name == "ei_diff":
+            shapes[(P, tensors[0].shape[1], tensors[1].shape[1])] += 1
+        return launchable(name, P, tensors)
+
+    launches = {}
+    t_phase = time.perf_counter()
+    megakernel._launchable = recording
+    try:
+        t0 = time.perf_counter()
+        _ml_batch(out)
+        out["batch_eval"]["phase_sec"] = time.perf_counter() - t0
+        for path, fn in (("ml_host_tpe", _ml_host_loop), ("ml_device_loop", _ml_device_loop),
+                         ("ml_executor", _ml_executor), ("ml_file_store", _ml_file_store)):
+            t0 = time.perf_counter()
+            launches[path] = fn(out)
+            out[f"{path}_sec"] = time.perf_counter() - t0
+    finally:
+        megakernel._launchable = launchable
+    out["phase_sec"] = time.perf_counter() - t_phase
+    out["ei_diff_shapes"] = sorted([list(k), v] for k, v in shapes.items())
+    report["ml_backends"] = out
+    log(f"phase 12: {out['phase_sec']:.1f} s, ei_diff shapes {out['ei_diff_shapes']}")
+    return launches, sorted(shapes)
+
+
 def main():
     # torch.profiler leaves CUPTI attached after a session unless told to
     # tear it down, and every later launch pays for it (a branin ask ~30%
@@ -1316,11 +1768,13 @@ def main():
     loop_launches = phase_device_loop(report)
     suggest_launches = phase_suggesters(report)
     widened_launches, widened_shapes = phase_widened_service(report)
-    # every shape the widened wave gave ei_diff is held against the plain
-    # version: phase 1 planned them, and any it missed is checked here
+    ml_launches, ml_shapes = phase_ml_backends(report)
+    # every shape the widened wave and phase 12 gave ei_diff is held against
+    # the plain version: phase 1 planned them, and any it missed is checked here
     planned = {tuple(r["shape"]) for r in rows}
     extra = [check_ei(P, n, m, 0, None, False, report["ptxas"])
-             for P, n, m in widened_shapes if (P, n, m) not in planned]
+             for P, n, m in sorted(set(widened_shapes) | set(ml_shapes))
+             if (P, n, m) not in planned]
     report["ei_diff_shapes_unplanned"] = [r["shape"] for r in extra]
     rows += extra
     report["total_sec"] = time.perf_counter() - t_start
@@ -1337,7 +1791,7 @@ def main():
                                  report["device_loop"]["fmin_device_loop"]["ei_diff"]
                                  ["graph_launches"],
                              **{f"fmin {k}": v for k, v in suggest_launches.items()},
-                             "widened_service_wave": widened_launches},
+                             "widened_service_wave": widened_launches, **ml_launches},
         "shape": tick["shape"], "max_abs_err": tick["max_abs_err"],
         "max_err": max(r["max_abs_err"] for r in rows),
         "ms": tick["ms"], "device_ms": tick["device_ms"], "plain_ms": tick["plain_ms"],

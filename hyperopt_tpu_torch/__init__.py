@@ -7,14 +7,16 @@ suggesters and adaptive TPE, the on-device loop
 ask→tell step for objectives written in torch ops), the ``hp.*`` space
 language, ``Trials``/``Domain``/``Ctrl`` and the padded history (float32,
 bf16 or int8/fp8 codes), and the study scheduler of ``service`` with its
-study-batched cohort.  Entry points run on the CUDA card unless the
+study-batched cohort, and the evaluation backends: ``filestore.FileTrials``
+with ``python -m hyperopt_tpu_torch.worker`` processes, and
+``parallel.ExecutorTrials``.  Entry points run on the CUDA card unless the
 caller passes ``device="cpu"``; TPE's EI scoring runs in the hand-written
 kernel of ``csrc/ei_diff.cu``, and a cohort's sampling and scoring in
 ``csrc/fused_sample_ei.cu``.  The package imports neither JAX nor
 ``hyperopt_tpu``.
 """
 
-from . import device_fmin, early_stop, hp, pyll, spaces
+from . import device_fmin, early_stop, graphviz, graphviz_mod, hp, pyll, spaces
 from .algos import anneal, atpe, mix, rand, tpe
 from .base import (
     JOB_STATE_CANCEL,
@@ -52,6 +54,8 @@ __all__ = [
     "hp",
     "spaces",
     "pyll",
+    "graphviz",
+    "graphviz_mod",
     "early_stop",
     "fmin",
     "fmin_device",

@@ -13,7 +13,7 @@ import torch
 
 from .. import prng
 
-__all__ = ["suggest", "suggest_async", "AskHandle", "flat_to_new_trial_docs",
+__all__ = ["suggest", "suggest_batch", "suggest_async", "AskHandle", "flat_to_new_trial_docs",
            "seed_to_key", "pack_labels", "unpack_flats", "pad_ids_pow2",
            "pad_ids_sticky"]
 
@@ -127,3 +127,9 @@ def suggest_async(new_ids, domain, trials, seed):
 def suggest(new_ids, domain, trials, seed):
     """Draw one prior sample per new id (hyperopt/rand.py sym: suggest)."""
     return suggest_async(new_ids, domain, trials, seed).result()
+
+
+def suggest_batch(new_ids, domain, trials, seed):
+    """Alias of :func:`suggest` (hyperopt/rand.py sym: suggest_batch): the
+    serial path already draws every id in one batched program."""
+    return suggest(new_ids, domain, trials, seed)

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from .. import megakernel, prng, quant
-from .._env import not_ported
+from .._env import not_ported, refuse_armed_knobs
 from ..spaces import Dist, label_hash
 from ..utils import LRUCache, device_constant
 from . import rand
@@ -1126,6 +1126,7 @@ def suggest_async(
     :class:`~hyperopt_tpu_torch.algos.rand.AskHandle` whose ``result()``
     reads the packed proposals back and builds the trial docs.  The first
     ``n_startup_jobs`` trials are prior draws (``rand.suggest_async``)."""
+    refuse_armed_knobs("tpe.suggest")  # HYPEROPT_TPU_SHARD: a sharded tick
     if not len(new_ids):
         return rand.AskHandle([], lambda: [])
     if len(trials.trials) < n_startup_jobs:

@@ -13,7 +13,10 @@ bf16, or int8/fp8 codes of ``quant.py`` with bf16 losses.
 
 from __future__ import annotations
 
+import contextlib
+import datetime
 import math
+import numbers
 
 import numpy as np
 import torch
@@ -28,7 +31,7 @@ from .exceptions import (
     StaleHistoryError,
 )
 from .spaces import CompiledSpace, as_expr, compile_space
-from .utils import coarse_utcnow
+from .utils import coarse_utcnow, evaluation_device
 
 __all__ = [
     "JOB_STATE_NEW",
@@ -43,6 +46,8 @@ __all__ = [
     "STATUS_OK",
     "STATUS_FAIL",
     "STATUS_STRINGS",
+    "SONify",
+    "miscs_update_idxs_vals",
     "miscs_to_idxs_vals",
     "spec_from_misc",
     "Trials",
@@ -70,6 +75,50 @@ STATUS_STRINGS = (STATUS_NEW, STATUS_RUNNING, STATUS_SUSPENDED, STATUS_OK, STATU
 
 # Smallest padded-history capacity bucket (the JAX package's _MIN_CAP).
 _MIN_CAP = 128
+
+
+def SONify(arg):
+    """Coerce to JSON/BSON-safe python types (hyperopt/base.py sym: SONify);
+    numpy arrays and torch tensors become nested lists."""
+    if isinstance(arg, dict):
+        return {SONify(k): SONify(v) for k, v in arg.items()}
+    if isinstance(arg, (list, tuple)):
+        return [SONify(a) for a in arg]
+    if isinstance(arg, torch.Tensor):
+        return SONify(arg.detach().cpu().numpy().tolist())
+    if isinstance(arg, np.ndarray):
+        return SONify(arg.tolist())
+    if isinstance(arg, (np.bool_, bool)):
+        return bool(arg)
+    if isinstance(arg, numbers.Integral):
+        return int(arg)
+    if isinstance(arg, numbers.Real):
+        return float(arg)
+    if isinstance(arg, (str, bytes, type(None), datetime.datetime)):
+        return arg
+    raise TypeError(f"cannot SONify {type(arg)}: {arg!r}")
+
+
+def miscs_update_idxs_vals(miscs, idxs, vals, assert_all_vals_used=True, idxs_map=None):
+    """Write per-label sparse (idxs, vals) into trial misc documents."""
+    if idxs_map is None:
+        idxs_map = {}
+    misc_by_id = {m["tid"]: m for m in miscs}
+    for m in miscs:
+        m.setdefault("idxs", {})
+        m.setdefault("vals", {})
+        for label in idxs:
+            m["idxs"].setdefault(label, [])
+            m["vals"].setdefault(label, [])
+    for label in idxs:
+        for tid, val in zip(idxs[label], vals[label]):
+            tid = idxs_map.get(tid, tid)
+            if tid in misc_by_id:
+                misc_by_id[tid]["idxs"][label] = [tid]
+                misc_by_id[tid]["vals"][label] = [val]
+            elif assert_all_vals_used:
+                raise InvalidTrial(f"no misc with tid {tid}")
+    return miscs
 
 
 def miscs_to_idxs_vals(miscs, keys=None):
@@ -323,10 +372,13 @@ class Ctrl:
         return self.trials.attachments
 
     def checkpoint(self, result=None):
+        """Record a partial result for the in-flight trial and persist it
+        through the backend (``Trials.checkpoint_trial``)."""
         if self.current_trial is None:
             return
         if result is not None:
             self.current_trial["result"] = result
+        self.trials.checkpoint_trial(self.current_trial)
 
     def inject_results(self, specs, results, miscs, new_tids=None):
         if new_tids is None:
@@ -395,6 +447,12 @@ class Trials:
         self._history_synced = 0
         self._history_pending = []
         self.refresh()
+
+    def checkpoint_trial(self, doc):
+        """Persist a mid-trial partial result (the ``Ctrl.checkpoint``
+        hook).  In-memory trials share doc objects with the evaluator, so
+        the mutation is already visible; the file store and the executor
+        override this."""
 
     def new_trial_ids(self, n):
         aa = len(self._ids)
@@ -485,6 +543,30 @@ class Trials:
     def argmin(self):
         return spec_from_misc(self.best_trial["misc"])
 
+    def trial_attachments(self, trial):
+        """Per-trial attachment dict view keyed under ``ATTACH::<tid>::``."""
+        tid = trial["tid"]
+        store = self.attachments
+        prefix = f"ATTACH::{tid}::"
+
+        class _View:
+            def __setitem__(_, k, v):
+                store[prefix + k] = v
+
+            def __getitem__(_, k):
+                return store[prefix + k]
+
+            def __contains__(_, k):
+                return (prefix + k) in store
+
+            def __delitem__(_, k):
+                del store[prefix + k]
+
+            def keys(_):
+                return [k[len(prefix):] for k in store if k.startswith(prefix)]
+
+        return _View()
+
     def padded_history(self, labels):
         """The device view of the folded history (see :meth:`history_object`
         and ``PaddedHistory.device_view``)."""
@@ -526,15 +608,25 @@ class Trials:
                 fold(doc)
         return self._history
 
+    def fmin(self, fn, space, **kwargs):
+        """``fmin`` over these trials (hyperopt/base.py sym: Trials.fmin);
+        ``kwargs`` are :func:`hyperopt_tpu_torch.fmin.fmin`'s."""
+        from .fmin import fmin as _fmin
+
+        return _fmin(fn, space, trials=self, **kwargs)
+
     # pickle: drop the history (rebuilt lazily) and the live Domain
-    # attachment, which closes over the user objective
+    # attachment, which closes over the user objective; an asynchronous
+    # backend's pickled Domain blob is kept
     def __getstate__(self):
         state = self.__dict__.copy()
         state["_history"] = None
         state["_history_synced"] = 0
         state["_history_pending"] = []
         attachments = dict(state.get("attachments", {}))
-        attachments.pop("FMinIter_Domain", None)
+        dom = attachments.get("FMinIter_Domain")
+        if dom is not None and not isinstance(dom, (bytes, bytearray)):
+            del attachments["FMinIter_Domain"]
         state["attachments"] = attachments
         return state
 
@@ -608,11 +700,17 @@ class Domain:
         return self.cs.labels
 
     def evaluate(self, config, ctrl, attach_attachments=True):
-        """Run the objective on one flat config."""
-        if self.pass_expr_memo_ctrl:
-            rval = self.fn(expr=self.expr, memo=dict(config), ctrl=ctrl)
-        else:
-            rval = self.fn(self.cs.assemble(config))
+        """Run the objective on one flat config.  It runs inside
+        ``utils.evaluation_device`` of the trials' device, so an objective
+        that makes tensors from host numbers (``utils.eval_device``) runs
+        where the trials live."""
+        device = getattr(getattr(ctrl, "trials", None), "device", None)
+        with (evaluation_device(device) if device is not None
+              else contextlib.nullcontext()):
+            if self.pass_expr_memo_ctrl:
+                rval = self.fn(expr=self.expr, memo=dict(config), ctrl=ctrl)
+            else:
+                rval = self.fn(self.cs.assemble(config))
 
         if isinstance(rval, (float, int, np.floating, np.integer)) or (
             isinstance(rval, (np.ndarray, torch.Tensor)) and np.ndim(rval) == 0
@@ -637,9 +735,9 @@ class Domain:
         if attach_attachments and ctrl is not None:
             attachments = dict_rval.pop("attachments", {})
             if ctrl.current_trial is not None:
-                tid = ctrl.current_trial["tid"]
+                view = ctrl.trials.trial_attachments(ctrl.current_trial)
                 for k, v in attachments.items():
-                    ctrl.trials.attachments[f"ATTACH::{tid}::{k}"] = v
+                    view[k] = v
         return dict_rval
 
     def make_batch_eval(self):

@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import contextlib
 import math
-import os
 import threading
 import time
 
@@ -37,7 +36,7 @@ import numpy as np
 import torch
 
 from . import megakernel, prng, quant
-from ._env import not_ported, parse_hist_dtype, resolve_device
+from ._env import parse_hist_dtype, refuse_armed_knobs, resolve_device
 from .algos import tpe
 from .base import trials_from_flat_history
 from .spaces import compile_space, draw_dist, label_hash
@@ -108,11 +107,6 @@ def objective_is_traceable(domain):
         return False
     return (torch.is_tensor(out) and out.device.type == "meta" and out.dim() == 0
             and out.is_floating_point())
-
-
-def _shard_requested():
-    raw = os.environ.get("HYPEROPT_TPU_SHARD", "").strip().lower()
-    return raw not in ("", "0", "off", "false", "no")
 
 
 class _Loop:
@@ -300,8 +294,7 @@ class DeviceLoopRunner:
     CHUNK = 10
 
     def __init__(self, domain, cfg, n_startup, cap, device=None, capture=True):
-        if _shard_requested():
-            raise not_ported("HYPEROPT_TPU_SHARD (a sharded device loop)", 12)
+        refuse_armed_knobs("DeviceLoopRunner")  # HYPEROPT_TPU_SHARD: a sharded loop
         cs = domain.cs
         self.cs = cs
         self.cap = int(cap)

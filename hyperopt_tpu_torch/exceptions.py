@@ -34,3 +34,11 @@ class StaleHistoryError(HyperoptTpuError):
     """Raised when a padded history's device mirror is handed out for a
     tick while an earlier tick's update was never committed
     (``PaddedHistory.commit_device``) or abandoned."""
+
+
+class StoreFullError(OSError):
+    """The backing filesystem refused a durable write for lack of space
+    (``ENOSPC``/``EDQUOT``).  Retryable: the write succeeds once space
+    frees.  Subclasses ``OSError`` so handlers that absorb store I/O
+    failures keep working; typed so the worker's retry path can back off
+    instead of burning its budget on a full disk."""

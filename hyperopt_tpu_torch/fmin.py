@@ -6,11 +6,14 @@ fmin_pass_expr_memo_ctrl).
 The loop is host-side control; the suggesters run on the trials' device,
 which is the CUDA card unless the caller passes ``device="cpu"``.  With
 ``device_loop`` a traceable objective's whole ask→tell chain runs on that
-device instead (``device_fmin``).
+device instead (``device_fmin``).  An asynchronous trials backend
+(``FileTrials``, ``ExecutorTrials``) evaluates elsewhere: the loop then
+only asks, inserts and polls.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import logging
 import os
@@ -20,7 +23,7 @@ import time
 import numpy as np
 
 from . import progress as progress_mod
-from ._env import not_ported, resolve_device
+from ._env import not_ported, refuse_armed_knobs, resolve_device
 from .base import (
     Ctrl,
     Domain,
@@ -84,29 +87,41 @@ def generate_trials_to_calculate(points, device=None):
 
 class FMinIter:
     """The ask→tell loop: ask the suggester for new trials, insert them,
-    evaluate them in-process, check the stop conditions, optionally
-    checkpoint.  ``lookahead=N`` keeps up to N asks in flight, dispatched
-    before the current trials evaluate (pending trials contribute no loss
-    to the posterior); ``lookahead=0`` is the synchronous loop."""
+    evaluate them (in-process, or by polling an asynchronous backend's
+    workers), check the stop conditions, optionally checkpoint.
+    ``lookahead=N`` keeps up to N asks in flight, dispatched before the
+    current trials evaluate (pending trials contribute no loss to the
+    posterior); ``lookahead=0`` is the synchronous loop."""
 
     catch_eval_exceptions = False
     pickle_protocol = -1
 
-    def __init__(self, algo, domain, trials, rstate, max_queue_len=None,
+    def __init__(self, algo, domain, trials, rstate, asynchronous=None,
+                 max_queue_len=None, poll_interval_secs=None,
                  max_evals=float("inf"), timeout=None, loss_threshold=None,
-                 show_progressbar=True, early_stop_fn=None, trials_save_file="",
-                 lookahead=0, device_loop=False):
+                 verbose=False, show_progressbar=True, early_stop_fn=None,
+                 trials_save_file="", lookahead=0, device_loop=False):
+        refuse_armed_knobs("fmin")  # the obs planes' knobs
         self.device_loop = device_loop
         self.algo = algo
         self.domain = domain
         self.trials = trials
+        self.asynchronous = trials.asynchronous if asynchronous is None else asynchronous
         self.rstate = rstate
-        self.max_queue_len = 1 if max_queue_len is None else max_queue_len
+        # explicit argument > the backend's own depth (an executor keeps its
+        # pool busy) > 1
+        if max_queue_len is None:
+            max_queue_len = getattr(trials, "default_max_queue_len", 1)
+        self.max_queue_len = max_queue_len
         if self.max_queue_len != float("inf"):
             from .algos.rand import pad_ids_pow2
 
             b = len(pad_ids_pow2([0], min_bucket=min(int(self.max_queue_len), 64)))
             domain._ids_bucket = max(getattr(domain, "_ids_bucket", 1), b)
+        # explicit argument > the backend's cadence > 1 s
+        if poll_interval_secs is None:
+            poll_interval_secs = getattr(trials, "poll_interval_secs", 1.0)
+        self.poll_interval_secs = poll_interval_secs
         self.max_evals = max_evals
         # the eval budget for budget-aware suggesters (aTPE's
         # featurize_trials): the suggest protocol has no budget argument
@@ -117,18 +132,33 @@ class FMinIter:
         self.start_time = time.time()
         self.early_stop_fn = early_stop_fn
         self.trials_save_file = trials_save_file
+        self.verbose = verbose
         self.show_progressbar = show_progressbar
         self.early_stop_args = []
         self.lookahead = int(lookahead)
         if self.lookahead < 0:
             raise ValueError(f"lookahead must be >= 0, got {lookahead}")
         self._algo_async = self._resolve_async_algo()
-        if self.lookahead > 0 and self._algo_async is None:
-            raise ValueError(
-                "lookahead > 0 requires a suggester with an async "
-                "dispatch/readback split (tpe.suggest or rand.suggest, "
-                "optionally functools.partial-tuned)")
-        trials.attachments["FMinIter_Domain"] = domain
+        if self.lookahead > 0:
+            if self.asynchronous:
+                raise ValueError(
+                    "lookahead > 0 applies to the serial in-process loop "
+                    "only — an asynchronous Trials backend already "
+                    "overlaps evaluation with asks via max_queue_len")
+            if self._algo_async is None:
+                raise ValueError(
+                    "lookahead > 0 requires a suggester with an async "
+                    "dispatch/readback split (tpe.suggest or rand.suggest, "
+                    "optionally functools.partial-tuned)")
+        if self.asynchronous:
+            # workers in other threads or processes load the domain from
+            # this blob (misc.cmd = ('domain_attachment', 'FMinIter_Domain'))
+            if "FMinIter_Domain" not in trials.attachments:
+                import cloudpickle
+
+                trials.attachments["FMinIter_Domain"] = cloudpickle.dumps(domain)
+        else:
+            trials.attachments["FMinIter_Domain"] = domain
 
     def _resolve_async_algo(self):
         """An ``(ids, domain, trials, seed) -> AskHandle`` dispatcher when
@@ -176,6 +206,36 @@ class FMinIter:
             N -= 1
             if N == 0:
                 break
+        self.trials.refresh()
+
+    def block_until_done(self):
+        """Poll an asynchronous backend until no NEW/RUNNING trials remain
+        (hyperopt/fmin.py sym: FMinIter.block_until_done).  Once the
+        ``timeout`` has expired, in-flight trials are cancelled (the
+        backend's ``cancel_unfinished``) instead of waited on, so a hung
+        objective never wedges the driver."""
+        if not self.asynchronous:
+            self.serial_evaluate()
+            return
+        unfinished_states = [JOB_STATE_NEW, JOB_STATE_RUNNING]
+
+        def timed_out():
+            return (self.timeout is not None
+                    and time.time() - self.start_time >= self.timeout)
+
+        cancel = getattr(self.trials, "cancel_unfinished", None)
+        if timed_out() and cancel is not None:
+            cancel()
+        qlen = self.trials.count_by_state_unsynced(unfinished_states)
+        already_printed = False
+        while qlen > 0:
+            if not already_printed and self.verbose:
+                logger.info("Waiting for %d jobs to finish ...", qlen)
+                already_printed = True
+            time.sleep(self.poll_interval_secs)
+            if timed_out() and cancel is not None:
+                cancel()
+            qlen = self.trials.count_by_state_unsynced(unfinished_states)
         self.trials.refresh()
 
     def run(self, N, block_until_done=True):
@@ -257,7 +317,10 @@ class FMinIter:
                         inflight.append(async_algo(new_ids, self.domain, trials,
                                                    next_seed()))
 
-                self.serial_evaluate()
+                if self.asynchronous:
+                    time.sleep(self.poll_interval_secs)  # workers fill in the trials
+                else:
+                    self.serial_evaluate()
                 trials.refresh()
                 if self.trials_save_file != "":
                     self._save_trials()
@@ -287,7 +350,7 @@ class FMinIter:
                 if stopped and (not block_until_done or all_trials_complete):
                     break
                 if stopped and block_until_done:
-                    self.serial_evaluate()
+                    self.block_until_done()
                     break
 
     def _device_loop_plan(self):
@@ -421,8 +484,12 @@ class FMinIter:
                 self._device_n_done = n_done
 
     def _save_trials(self):
-        """Checkpoint trials atomically: write a temp file, then rename."""
-        payload = pickle.dumps(self.trials, protocol=self.pickle_protocol)
+        """Checkpoint trials atomically: write a temp file, then rename.
+        An asynchronous backend's workers mutate docs concurrently, so
+        serialize under the backend's lock when it has one."""
+        lock = getattr(self.trials, "_lock", None)
+        with lock if lock is not None else contextlib.nullcontext():
+            payload = pickle.dumps(self.trials, protocol=self.pickle_protocol)
         tmp = self.trials_save_file + ".tmp"
         with open(tmp, "wb") as f:
             f.write(payload)
@@ -432,14 +499,14 @@ class FMinIter:
         return self
 
     def __next__(self):
-        self.run(1, block_until_done=False)
+        self.run(1, block_until_done=self.asynchronous)
         if len(self.trials) >= self.max_evals:
             raise StopIteration()
         return self.trials
 
     def exhaust(self):
         n_done = len(self.trials)
-        self.run(self.max_evals - n_done, block_until_done=False)
+        self.run(self.max_evals - n_done, block_until_done=self.asynchronous)
         self.trials.refresh()
         return self
 
@@ -523,7 +590,7 @@ def fmin(
         algo, domain, trials,
         max_evals=max_evals if max_evals is not None else float("inf"),
         timeout=timeout, loss_threshold=loss_threshold, rstate=rstate,
-        max_queue_len=max_queue_len,
+        verbose=verbose, max_queue_len=max_queue_len,
         show_progressbar=show_progressbar, early_stop_fn=early_stop_fn,
         trials_save_file=trials_save_file, lookahead=lookahead,
         device_loop=device_loop,

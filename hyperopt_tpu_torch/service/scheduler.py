@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from .. import quant
-from .._env import (not_ported, parse_compile_widen, parse_hist_dtype,
+from .._env import (not_ported, parse_compile_widen, parse_hist_dtype, refuse_armed_knobs,
                     parse_service_idle_sec, parse_service_max_pending,
                     parse_service_max_studies, resolve_device)
 from ..algos import rand, tpe
@@ -371,6 +371,7 @@ class StudyScheduler:
                                   ("load=", load, 14), ("tenants=", tenants, 14)):
             if value is not None and value is not False:
                 raise not_ported(f"StudyScheduler({what}...)", item)
+        refuse_armed_knobs("StudyScheduler")
         self.device = resolve_device(device)
         self.hist_dtype = str(hist_dtype) if hist_dtype else parse_hist_dtype()
         quant.vals_dtype(self.hist_dtype)  # an unknown name raises here

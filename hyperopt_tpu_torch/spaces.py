@@ -47,6 +47,7 @@ __all__ = [
     "space_eval",
     "label_hash",
     "rng_to_key",
+    "expr_to_config",
 ]
 
 # Families whose flat value is integral: branch indices and ints.
@@ -654,6 +655,16 @@ def sample(space: Any, key=None, device=None):
     """Sample a structured point (``hyperopt.pyll.stochastic.sample``);
     runs on CUDA unless ``device="cpu"``."""
     return compile_space(space).sample(rng_to_key(key, device))
+
+
+def expr_to_config(space: Any) -> dict:
+    """Summarize a space as ``{label: {'dist': Dist, 'cast': ..., 'conditions':
+    (...)}}`` (hyperopt/pyll_utils.py sym: expr_to_config)."""
+    cs = compile_space(space)
+    return {
+        label: {"dist": info.dist, "cast": info.cast, "conditions": info.conditions}
+        for label, info in cs.params.items()
+    }
 
 
 def space_eval(space: Any, hp_assignment: dict):

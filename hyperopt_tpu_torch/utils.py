@@ -5,13 +5,43 @@ constants that keeps a proposal step free of host-to-device copies."""
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import datetime
 import functools
 import threading
 
 import torch
 
-__all__ = ["LRUCache", "coarse_utcnow", "device_constant"]
+from ._env import resolve_device
+
+__all__ = ["LRUCache", "coarse_utcnow", "device_constant", "evaluation_device",
+           "eval_device"]
+
+_EVAL_DEVICE = contextvars.ContextVar("hyperopt_tpu_torch_eval_device", default=None)
+
+
+@contextlib.contextmanager
+def evaluation_device(device):
+    """Within the block, :func:`eval_device` is ``device``.
+    ``Domain.evaluate`` enters it with its trials' device, so an objective
+    that makes its tensors from host numbers (the ML zoo domains) runs
+    where the trials live: the worker threads and processes of the
+    evaluation backends each enter it around their own evaluation."""
+    token = _EVAL_DEVICE.set(torch.device(device))
+    try:
+        yield
+    finally:
+        _EVAL_DEVICE.reset(token)
+
+
+def eval_device():
+    """The device an objective given host numbers evaluates on: the one of
+    the enclosing :func:`evaluation_device`, else the default device of
+    the port (the CUDA card; without one this raises)."""
+    dev = _EVAL_DEVICE.get()
+    return dev if dev is not None else resolve_device(None)
+
 
 _LRU_MISS = object()
 

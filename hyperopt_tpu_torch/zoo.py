@@ -1,7 +1,9 @@
 """Benchmark domains (counterpart of ``hyperopt_tpu/zoo.py``): every domain
-of the JAX package's zoo but its two ML domains (``ml_logreg_cv``,
-``ml_model_select_cv``), with host objectives, and ``make_study_mix``,
-the standing multi-study workload.
+of the JAX package's zoo, in its order, with host objectives, and
+``make_study_mix``, the standing multi-study workload.  The two ML
+domains (``ml_logreg_cv``, ``ml_model_select_cv``) fit models by gradient
+descent in torch ops, on the device their inputs live on (for host
+numbers, ``utils.eval_device``: the trials' device, else the card).
 
 The host objectives evaluate in float32 where the JAX package's jnp
 objectives do on the host loop, so both report the same loss for the
@@ -23,11 +25,13 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from . import hp
-from .utils import device_constant
+from . import hp, prng
+from .utils import device_constant, eval_device
 
 __all__ = ["DomainZoo", "ZOO", "branin", "branin_torch", "hartmann6", "hartmann6_torch",
-           "rosenbrock", "rosenbrock_torch", "StudyMixItem", "make_study_mix"]
+           "rosenbrock", "rosenbrock_torch", "ml_dataset", "ml_logreg_cv_loss",
+           "ml_logreg_cv_objective", "ml_model_select_cv_objective", "StudyMixItem",
+           "make_study_mix"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -348,11 +352,217 @@ def _hpob_surrogate():
     return DomainZoo(name="hpob_surrogate", space=space, objective=obj, loss_target=-0.55)
 
 
-# the JAX package's ZOO order (its ML domains are not ported yet)
+_ML_N, _ML_DIM, _ML_FOLDS, _ML_STEPS, _ML_HIDDEN = 512, 16, 4, 120, 32
+
+
+@functools.lru_cache(maxsize=1)
+def ml_dataset():
+    """The synthetic binary-classification task the ML domains share:
+    ``default_rng(42)``, 512 rows of 16 features with label noise, split
+    into 4 folds; ``(X [4, 128, 16], y [4, 128])`` float32 numpy arrays,
+    the JAX package's ``_ml_data()`` bit for bit."""
+    n, dim, folds = _ML_N, _ML_DIM, _ML_FOLDS
+    rng = np.random.default_rng(42)
+    w_true = rng.standard_normal(dim).astype(np.float32)
+    X = rng.standard_normal((n, dim)).astype(np.float32)
+    margin = X @ w_true / np.sqrt(dim)
+    y = (margin + 0.6 * rng.standard_normal(n) > 0).astype(np.float32)
+    return X.reshape(folds, n // folds, dim), y.reshape(folds, n // folds)
+
+
+@functools.lru_cache(maxsize=None)
+def _ml_folds(device):
+    """The folds stacked on a leading axis, on ``device``: training rows
+    ``[4, 384, 16]`` and signs ``2y - 1`` ``[4, 384]`` (the other three
+    folds, in order), validation rows ``[4, 128, 16]`` and signs
+    ``[4, 128]``.  Made once per device and kept, so a captured step only
+    reads them."""
+    X, y = ml_dataset()
+    rest = [[j for j in range(_ML_FOLDS) if j != i] for i in range(_ML_FOLDS)]
+    tr_x = np.stack([np.concatenate([X[j] for j in r]) for r in rest])
+    tr_s = np.stack([2.0 * np.concatenate([y[j] for j in r]) - 1.0 for r in rest])
+    return tuple(torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
+                 for a in (tr_x, tr_s, X, 2.0 * y - 1.0))
+
+
+@functools.lru_cache(maxsize=None)
+def _mlp_normals(device):
+    """The MLP's unscaled initial weights, ``jax.random.normal`` on the two
+    halves of ``split(PRNGKey(7))``: ``[16, 32]`` and ``[32]``."""
+    k1, k2 = prng.split(prng.PRNGKey(7, device=device))
+    return prng.normal(k1, (_ML_DIM, _ML_HIDDEN)), prng.normal(k2, (_ML_HIDDEN,))
+
+
+def _ml_args(*vals):
+    """The hyperparameters as float32 tensors and the device the fit runs
+    on: the tensors' own device, or for host numbers ``utils.eval_device``
+    (the trials' device inside ``Domain.evaluate``, else the card)."""
+    dev = next((v.device for v in vals if torch.is_tensor(v)), None)
+    if dev is None:
+        dev = eval_device()
+    return [torch.as_tensor(v, dtype=torch.float32, device=dev) for v in vals], dev
+
+
+def _nll(z, s):
+    """Mean logistic loss of margins ``z`` against signs ``s``, per fold
+    (the last axis is the rows)."""
+    return torch.mean(torch.log1p(torch.exp(-s * z)), dim=-1)
+
+
+def _sumsq(p):
+    """Per fold: the sum of squares of a ``[4, ...]`` parameter."""
+    return torch.sum((p ** 2).reshape(p.shape[0], -1), dim=1)
+
+
+def _linear_forward(p, X):
+    w, b = p
+    return torch.matmul(X, w.unsqueeze(-1)).squeeze(-1) + b.unsqueeze(-1)
+
+
+def _mlp_forward(p, X):
+    W1, b1, W2, b2 = p
+    h = torch.tanh(torch.matmul(X, W1) + b1.unsqueeze(1))
+    return torch.matmul(h, W2.unsqueeze(-1)).squeeze(-1) + b2.unsqueeze(-1)
+
+
+def _folds_grad(forward, l2, folds, n_reg):
+    """The gradient of every fold's training loss, L2-regularized on its
+    first ``n_reg`` parameters, with respect to its own parameters
+    (``torch.func.grad`` of their sum: the folds share no parameter, so
+    each fold's gradient is its loss's own)."""
+    tr_x, tr_s = folds[0], folds[1]
+
+    def loss_fn(params):
+        reg = sum(_sumsq(p) for p in params[:n_reg])
+        return torch.sum(_nll(forward(params, tr_x), tr_s) + l2 * reg)
+
+    return torch.func.grad(loss_fn)
+
+
+def _logreg_cv(lr, l2, mom, dev):
+    """4-fold CV log-loss of L2 logistic regression, 120 momentum steps;
+    the four folds train side by side on the leading axis."""
+    folds = _ml_folds(dev)
+    grad = _folds_grad(_linear_forward, l2, folds, n_reg=1)  # the bias is not penalized
+    params = (torch.zeros(_ML_FOLDS, _ML_DIM, device=dev), torch.zeros(_ML_FOLDS, device=dev))
+    vel = tuple(torch.zeros_like(p) for p in params)
+    for _ in range(_ML_STEPS):
+        g = grad(params)
+        vel = tuple(mom * v - lr * gg for v, gg in zip(vel, g))
+        params = tuple(p + v for p, v in zip(params, vel))
+    return torch.mean(_nll(_linear_forward(params, folds[2]), folds[3]))
+
+
+def _gd_cv(params, forward, lr, l2, dev):
+    """4-fold CV log-loss of ``forward`` from ``params`` (``[4, ...]``), 120
+    plain gradient-descent steps."""
+    folds = _ml_folds(dev)
+    grad = _folds_grad(forward, l2, folds, n_reg=len(params))
+    for _ in range(_ML_STEPS):
+        g = grad(params)
+        params = tuple(p - lr * gg for p, gg in zip(params, g))
+    return torch.mean(_nll(forward(params, folds[2]), folds[3]))
+
+
+def ml_logreg_cv_loss(lr, l2, momentum):
+    """4-fold cross-validated logistic regression on :func:`ml_dataset`:
+    each fold 120 float32 steps of gradient descent with momentum (a Python
+    loop over ``torch.func.grad``), the mean validation log-loss, 50.0 for
+    a diverged fit.  Host numbers or 0-d float32 tensors."""
+    (lr, l2, mom), dev = _ml_args(lr, l2, momentum)
+    loss = _logreg_cv(lr, l2, mom, dev)
+    # a diverged fit (weights blown up to inf/NaN) is a finite, terrible
+    # loss: NaN would fail the trial instead of teaching TPE the region is
+    # bad.  50 is ~100x the task's tuned CV logloss.
+    return torch.where(torch.isfinite(loss), loss, device_constant(50.0, torch.float32, dev))
+
+
+def _cv_logreg(lr, l2, dev):
+    p0 = (torch.zeros(_ML_FOLDS, _ML_DIM, device=dev), torch.zeros(_ML_FOLDS, device=dev))
+    return _gd_cv(p0, _linear_forward, lr, l2, dev)
+
+
+def _mlp_init(w_scale, dev):
+    """The MLP's initial ``(W1, b1, W2, b2)``: the JAX package's
+    ``w_scale * normal / sqrt(fan_in)`` on ``PRNGKey(7)``, bit for bit."""
+    n1, n2 = _mlp_normals(dev)
+    return (w_scale * n1 / math.sqrt(_ML_DIM), torch.zeros(_ML_HIDDEN, device=dev),
+            w_scale * n2 / math.sqrt(_ML_HIDDEN), torch.zeros((), device=dev))
+
+
+def _cv_mlp(lr, l2, w_scale, dev):
+    p0 = tuple(p.expand(_ML_FOLDS, *p.shape) for p in _mlp_init(w_scale, dev))
+    return _gd_cv(p0, _mlp_forward, lr, l2, dev)
+
+
+def ml_logreg_cv_objective(d):
+    """The ``ml_logreg_cv`` objective on an assembled point."""
+    return ml_logreg_cv_loss(d["lr"], d["l2"], d["momentum"])
+
+
+def ml_model_select_cv_objective(d):
+    """The ``ml_model_select_cv`` objective: an L2 logistic regression
+    (``m == 0``) or a 16→32→1 tanh MLP (``m == 1``), each 4-fold
+    cross-validated by 120 plain gradient-descent steps.  A host point
+    (``m`` an int) fits only its family; a traced point (``m`` a tensor)
+    fits both and selects, so nothing is read back to the host.  As in the
+    JAX package, a diverged fit is not replaced here: its loss is not
+    finite."""
+    m = d.get("m")
+    if isinstance(m, int):
+        if m == 0:
+            (lr, l2), dev = _ml_args(d["lr_lin"], d["l2_lin"])
+            return _cv_logreg(lr, l2, dev)
+        (lr, l2, ws), dev = _ml_args(d["lr_mlp"], d["l2_mlp"], d["w_scale"])
+        return _cv_mlp(lr, l2, ws, dev)
+    (lr0, l20, lr1, l21, ws), dev = _ml_args(d["lr_lin"], d["l2_lin"], d["lr_mlp"],
+                                             d["l2_mlp"], d["w_scale"])
+    loss_lin = _cv_logreg(lr0, l20, dev)
+    loss_mlp = _cv_mlp(lr1, l21, ws, dev)
+    return torch.where(m == 0, loss_lin, loss_mlp)
+
+
+def _ml_logreg_cv():
+    """A real machine-learning objective (BASELINE config #4 analog):
+    learning rate (log), L2 (log) and momentum of a 4-fold cross-validated
+    logistic regression; lr too high diverges, L2 too high underfits."""
+    return DomainZoo(
+        name="ml_logreg_cv",
+        space={
+            "lr": hp.loguniform("lr", math.log(1e-4), math.log(10.0)),
+            "l2": hp.loguniform("l2", math.log(1e-6), math.log(1.0)),
+            "momentum": hp.uniform("momentum", 0.0, 0.98),
+        },
+        objective=ml_logreg_cv_objective,
+        loss_target=0.45,  # a well-tuned CV logloss on this task
+        traceable=ml_logreg_cv_objective,
+    )
+
+
+def _ml_model_select_cv():
+    """Model-family selection (BASELINE config #4, full shape): ``hp.choice``
+    between an L2 logistic regression and a one-hidden-layer MLP, with
+    per-family hyperparameters, on :func:`ml_dataset`."""
+    space = hp.choice("model", [
+        {"m": 0,
+         "lr_lin": hp.loguniform("lr_lin", math.log(1e-4), math.log(10.0)),
+         "l2_lin": hp.loguniform("l2_lin", math.log(1e-6), math.log(1.0))},
+        {"m": 1,
+         "lr_mlp": hp.loguniform("lr_mlp", math.log(1e-4), math.log(1.0)),
+         "l2_mlp": hp.loguniform("l2_mlp", math.log(1e-6), math.log(1.0)),
+         "w_scale": hp.loguniform("w_scale", math.log(0.1), math.log(3.0))},
+    ])
+    return DomainZoo(name="ml_model_select_cv", space=space,
+                     objective=ml_model_select_cv_objective, loss_target=0.45,
+                     traceable=ml_model_select_cv_objective)
+
+
+# the JAX package's ZOO order
 ZOO = {d.name: d for d in (_quadratic1(), _q1_lognormal(), _q1_choice(), _n_arms(),
                            _distractor(), _gauss_wave(), _gauss_wave2(), _branin_domain(),
                            _hartmann6_domain(), _rosenbrock4(), _many_dists(),
-                           _hr_conditional(), _hpob_surrogate())}
+                           _hr_conditional(), _ml_logreg_cv(), _hpob_surrogate())}
+ZOO["ml_model_select_cv"] = _ml_model_select_cv()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -51,9 +51,7 @@ NEW = ("n_arms", "distractor", "gauss_wave", "gauss_wave2", "many_dists")
 
 
 def test_zoo_keeps_the_reference_order():
-    ported = [n for n in ref_zoo.ZOO if n in zoo.ZOO]
-    assert list(zoo.ZOO) == ported
-    assert set(ref_zoo.ZOO) - set(zoo.ZOO) == {"ml_logreg_cv", "ml_model_select_cv"}
+    assert list(zoo.ZOO) == list(ref_zoo.ZOO)
 
 
 @pytest.mark.parametrize("name", NEW)

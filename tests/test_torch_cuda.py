@@ -252,3 +252,72 @@ def test_widened_cohort_equals_the_grouped_cohort_on_the_card(cuda_device, monke
         streams.append([[d["misc"]["vals"] for d in sched._studies[sid].trials]
                         for sid in sids])
     assert streams[0] == streams[1]
+
+
+@pytest.mark.parametrize("name", ["ml_logreg_cv", "ml_model_select_cv"])
+def test_ml_objective_on_the_card_follows_the_cpu(cuda_device, name):
+    """Host numbers fit on the card inside the card's evaluation device
+    and agree with the CPU's fit (card tolerance); TF32 stays off."""
+    from hyperopt_tpu_torch.utils import evaluation_device
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(2)
+    pts = []
+    for i in range(4):
+        if name == "ml_logreg_cv":
+            pts.append({"lr": float(np.exp(rng.uniform(-9, 1))),
+                        "l2": float(np.exp(rng.uniform(-13, 0))),
+                        "momentum": float(rng.uniform(0, 0.98))})
+        else:
+            pts.append({"m": i % 2, "lr_lin": float(np.exp(rng.uniform(-9, 1))),
+                        "l2_lin": float(np.exp(rng.uniform(-13, 0))),
+                        "lr_mlp": float(np.exp(rng.uniform(-9, 0))),
+                        "l2_mlp": float(np.exp(rng.uniform(-13, 0))),
+                        "w_scale": float(np.exp(rng.uniform(-2.3, 1.1)))})
+    fn = zoo.ZOO[name].objective
+    for p in pts:
+        with evaluation_device(cuda_device):
+            card = fn(p)
+        with evaluation_device("cpu"):
+            cpu = fn(p)
+        assert card.device.type == "cuda" and cpu.device.type == "cpu"
+        np.testing.assert_allclose(float(card), float(cpu), rtol=1e-4, atol=1e-5)
+
+
+def test_executor_batch_on_the_card_equals_per_trial_losses(cuda_device):
+    """``ExecutorTrials(traceable=True)`` evaluates a queue of 8 as one
+    batch on the card; each loss equals the trial's own fit there."""
+    from hyperopt_tpu_torch.parallel import ExecutorTrials
+    from hyperopt_tpu_torch.utils import evaluation_device
+
+    dom = zoo.ZOO["ml_logreg_cv"]
+    et = ExecutorTrials(n_workers=1, traceable=True)
+    try:
+        port.fmin(dom.traceable, dom.space, algo=port.rand.suggest, max_evals=8, max_queue_len=8,
+                  trials=et, rstate=0, show_progressbar=False)
+    finally:
+        et.shutdown()
+    assert et.metrics.counter("batch_evals").value == 1
+    for d in et.trials:
+        point = {k: v[0] for k, v in d["misc"]["vals"].items()}
+        with evaluation_device(cuda_device):
+            own = float(dom.objective(point))
+        np.testing.assert_allclose(d["result"]["loss"], own, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["ml_logreg_cv", "ml_model_select_cv"])
+def test_ml_domain_tpe_asks_launch_ei_diff_once_each(cuda_device, name):
+    dom = zoo.ZOO[name]
+    asks = [0]
+
+    def counted(new_ids, domain, trials, seed):
+        if len(trials.trials) >= 5:
+            asks[0] += 1
+        return tpe.suggest(new_ids, domain, trials, seed, n_startup_jobs=5)
+
+    before = megakernel.ei_diff.launches
+    # a diverged model-selection fit is a NaN loss, an errored trial
+    port.fmin(dom.objective, dom.space, algo=counted, max_evals=9, trials=port.Trials(),
+              rstate=0, show_progressbar=False, catch_eval_exceptions=True)
+    assert asks[0] >= 3
+    assert megakernel.ei_diff.launches - before == asks[0]

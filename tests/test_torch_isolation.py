@@ -29,7 +29,13 @@ def test_import_loads_neither_jax_nor_the_jax_package():
             "hyperopt_tpu_torch.quant, hyperopt_tpu_torch.service.scheduler, "
             "hyperopt_tpu_torch.algos.algobase, hyperopt_tpu_torch.algos.anneal, "
             "hyperopt_tpu_torch.algos.mix, hyperopt_tpu_torch.algos.atpe, "
-            "hyperopt_tpu_torch.criteria; "
+            "hyperopt_tpu_torch.criteria, hyperopt_tpu_torch.retry, hyperopt_tpu_torch.chaos, "
+            "hyperopt_tpu_torch.obs, hyperopt_tpu_torch.obs.flight, "
+            "hyperopt_tpu_torch.obs.metrics, hyperopt_tpu_torch.obs.events, "
+            "hyperopt_tpu_torch.obs.trace, hyperopt_tpu_torch.obs.watchdog, "
+            "hyperopt_tpu_torch.filestore, hyperopt_tpu_torch.worker, "
+            "hyperopt_tpu_torch.parallel, hyperopt_tpu_torch.parallel.executor, "
+            "hyperopt_tpu_torch.graphviz, hyperopt_tpu_torch.graphviz_mod; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hyperopt_tpu')]; "
             "assert not bad, bad")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
@@ -79,6 +85,24 @@ def test_default_device_entry_points_raise_without_cuda():
     assert port.Trials(device="cpu").device.type == "cpu"
 
 
+def test_backend_entry_points_raise_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device, so the default device is valid")
+    from hyperopt_tpu_torch import filestore, worker, zoo
+    from hyperopt_tpu_torch.parallel import ExecutorTrials
+
+    calls = [
+        lambda: filestore.FileTrials(tmp_path),
+        lambda: ExecutorTrials(),
+        lambda: worker.FileWorker(tmp_path),
+        # an objective given host numbers fits on the card unless told
+        lambda: zoo.ZOO["ml_logreg_cv"].objective({"lr": 0.1, "l2": 0.01, "momentum": 0.5}),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
 def test_rand_and_tpe_run_where_the_trials_live():
     space = {"x": hp.uniform("x", 0, 1), "c": hp.choice("c", [0, 1])}
     t = port.Trials(device="cpu")
@@ -88,13 +112,19 @@ def test_rand_and_tpe_run_where_the_trials_live():
     assert len(t.trials) == 3
 
 
-def test_port_tests_leave_the_jax_package_tests_alone():
+@pytest.mark.parametrize("files", [
+    ("tests/test_torch_megakernel.py", "tests/test_megakernel.py"),
+    # the backends' process-global flight recorder, watchdog and chaos plan
+    ("tests/test_torch_backends.py", "-k", "reserve or timeout or retries or chaos_io",
+     "tests/test_flight.py", "tests/test_chaos.py"),
+])
+def test_port_tests_leave_the_jax_package_tests_alone(files):
     """A port test must not change how the JAX package's own tests behave:
-    run the reference's megakernel tests after the port's in one process
-    (as an xdist worker may), and both files pass."""
+    run the reference's tests after the port's in one process (as an xdist
+    worker may), and all of them pass."""
     env = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": str(REPO)}
     out = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "-p", "no:xdist",
-         "-p", "no:randomly", "tests/test_torch_megakernel.py", "tests/test_megakernel.py"],
+         "-p", "no:randomly", *files],
         env=env, cwd=str(REPO), capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stdout[-4000:]
