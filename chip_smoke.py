@@ -17,7 +17,8 @@ Phases, each of which fails the run (non-zero exit) on its own:
    ask's shapes and at the edges of its component split (m = 1, m off the chunk size,
    an all-dead below mixture, n = 1, m = 2049), ``fused_sample_ei`` at the
    cohort's (the service tick, the wide tick, an unbounded group, a group
-   with dead components, N = m = 1), its candidates equal to the plain
+   with dead components, N = m = 1, phase 13's cohort and one shard of
+   it), its candidates equal to the plain
    version's bit for bit.  Each shape records the launch's plan (splits
    or rows, blocks), its registers and shared memory, and
    ``bound_share = bound_ms / device_ms``.
@@ -92,6 +93,39 @@ Phases, each of which fails the run (non-zero exit) on its own:
     (eager plus graph replays) equal the TPE asks (steps), and every shape
     it launched at is held against the plain version (phase 1 plans them;
     one it missed is checked after the phase).
+13. The multi-device path on ``hpob_surrogate`` (BASELINE config 5's
+    surrogate), every mesh naming the one card more than once:
+    (a) ``suggest_batch_sharded`` on a 2x1 (trials x cand) mesh against a
+    1-entry mesh, and ``propose_sharded_candidates`` on a 1x2 mesh
+    against every shard's candidates in one launch (``_propose_fused_pool``),
+    single and batched, 24 and 1000 candidates, 64 keys, on a
+    1000-trial history (cap 1024): bit for bit where every launch planned
+    the same component splits as its one-device launch (the plans are
+    printed), else at rtol 1e-4, atol 1e-5 with at most one flipped
+    proposal; (b) ``fmin(algo=tpe.suggest_sharded(...))`` on the 1x2 mesh,
+    queues of 16, 64 evaluations: the card follows the same run on the
+    CPU, and ``ei_diff`` launches = TPE asks x 2 shards x 3 numeric
+    labels; (c) ``HYPEROPT_TPU_SHARD=auto`` on ``tpe.suggest`` and on
+    ``StudyScheduler`` equal the knob unset bit for bit, on the one card
+    (a 1-entry mesh) and with the card named twice as the local devices
+    (every cohort tick split over 2 entries, tells folded into the split
+    stack, ``fused_sample_ei`` launched twice where the unsharded tick
+    launched once), and ``build_suggest_batched(mesh=<2 entries>)`` for 256
+    hartmann6 studies equals the unsharded cohort bit for bit with one
+    ``fused_sample_ei`` launch per shard and tick; (d)
+    ``fmin_multihost`` at the driver's defaults, batch 1024, 4096
+    evaluations (one startup and three TPE generations, cap 4096): in this
+    process (``_force_single``; once more with one proposal profiled),
+    then as two controller processes sharing the card over gloo, whose
+    checksums must equal the single run's: wall, propose and evaluate ms
+    per generation, ``ei_diff`` launches and shapes, peak memory, the idle
+    share of a proposal; (e) ``fmin_multihost(fleet_dir=...)`` with two
+    controller processes for 2 generations equals the collective run, and
+    one controller resuming the store for a third generation too.  A
+    controller that fails fails the phase; every collective has a
+    deadline.  Every shape either kernel launched at in the phase and
+    phase 1 did not plan is then held against its plain version on
+    every candidate (``plain_cmp``).
 
 It imports neither JAX nor the JAX package.  Before the last line it
 prints one JSON line describing every kernel and the card's name and power
@@ -118,6 +152,10 @@ SOURCES = {"ei_diff": "hyperopt_tpu_torch/csrc/ei_diff.cu",
 SFU_PER_S = 132 * 16 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 TOL = 1e-4
+# the plain ei_diff materializes [P, n, m] float32 tensors, a few at once:
+# up to 2**31 elements (8 GiB each) it takes every candidate of a launch;
+# only the wide ask (27 x 1M x 1025, ~113 GB each) compares a prefix
+PLAIN_CMP_ELEMS = 2 ** 31
 DEVICE = "cuda"  # where the study-batched phases run (a rehearsal sets "cpu")
 # sizes of the main path (BASELINE configs 2 and 3)
 MAIN_EVALS, MAIN_CANDIDATES = 1000, 1024
@@ -160,9 +198,12 @@ EI_SHAPES = [(1, 24, 129, 0, None, False), (4, 1000, 257, 0, None, False),
              (5, 32, 41, 0, None, False)]
 # fused_sample_ei shapes (P, N, m, dead components, bounded): the service
 # tick (256 slots x 6 labels, 24 candidates), the wide tick (4 x 1024
-# candidates), an unbounded group, a group with dead components, N = m = 1
+# candidates), an unbounded group, a group with dead components, N = m = 1,
+# and phase 13's cohort of 256 hartmann6 studies (4 ids x 24 candidates,
+# cap 128) unsharded and one shard of it on a 2-entry mesh
 FUSED_SHAPES = [(256 * 6, 24, 65, 0, True), (256 * 6, 4 * 1024, 129, 0, True),
-                (256 * 2, 24, 65, 0, False), (64, 1000, 300, 77, True), (64, 1, 1, 0, True)]
+                (256 * 2, 24, 65, 0, False), (64, 1000, 300, 77, True), (64, 1, 1, 0, True),
+                (256 * 6, 4 * 24, 129, 0, True), (128 * 6, 4 * 24, 129, 0, True)]
 # what the kernels line keeps of each phase-1 shape
 SHAPE_KEYS = ("shape", "dead", "below_all_dead", "bounded", "max_abs_err", "ms", "device_ms",
               "plain_ms", "bound_ms", "bound_share", "per_thread", "splits", "cols", "rows",
@@ -283,10 +324,8 @@ def ei_inputs(P, n, m, seed, dead=0, below_dead=False):
 
 
 def phase_kernels(report):
-    """Build the kernels and hold ei_diff against its plain version."""
-    import torch
-
-    from hyperopt_tpu_torch import _build, megakernel
+    """Build the kernels and hold both against their plain versions."""
+    from hyperopt_tpu_torch import _build
 
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -301,39 +340,16 @@ def phase_kernels(report):
     rows = [check_ei(*shape, usage) for shape in EI_SHAPES]
     report["ei_diff_shapes"] = rows
 
-    frows = []
-    for P, N, m, dead, bounded in FUSED_SHAPES:
-        args = fused_inputs(P, N, m, seed=P + N + m, dead=dead, bounded=bounded)
-        x, ei = megakernel.fused_sample_ei(*args, bounded)
-        torch.cuda.synchronize()
-        px, pei = megakernel.fused_sample_ei_plain(*args, bounded)
-        err_x, err_ei = (x - px).abs(), (ei - pei).abs()
-        # x equals the plain version's bit for bit; ei within the tolerance
-        ok = (bool(torch.isfinite(x).all()) and bool(torch.isfinite(ei).all())
-              and float(err_x.max()) == 0.0
-              and bool((err_ei <= TOL * torch.clamp(pei.abs(), min=1.0)).all()))
-        if bounded:
-            ok = ok and bool((x >= args[-2][:, None]).all()) and bool((x < args[-1][:, None]).all())
-        ms = cuda_ms(lambda: megakernel.fused_sample_ei(*args, bounded))
-        dev_ms = device_ms(lambda: megakernel.fused_sample_ei(*args, bounded), "fused_kernel")
-        plain_ms = cuda_ms(lambda: megakernel.fused_sample_ei_plain(*args, bounded), reps=5)
-        bound_ms, bound_by = fused_bound(P, N, m)
-        row = {"shape": [P, N, m], "dead": dead, "bounded": bounded,
-               "max_abs_err": float(max(err_x.max(), err_ei.max())),
-               "max_abs_err_x": float(err_x.max()), "max_abs_err_ei": float(err_ei.max()),
-               "ok": ok, "ms": ms, "device_ms": dev_ms,
-               "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "bound_share": bound_ms / dev_ms,
-               **megakernel._launch_plan("fused_sample_ei", P, N, m),
-               **usage_of(usage, "fused_kernel")}
-        frows.append(row)
-        log(f"fused_sample_ei {row}")
-        del args, x, ei, px, pei, err_x, err_ei
-        torch.cuda.empty_cache()
-        if not ok:
-            raise AssertionError(f"fused_sample_ei disagrees with its plain version at {row}")
+    frows = [check_fused(*shape, usage) for shape in FUSED_SHAPES]
     report["fused_sample_ei_shapes"] = frows
     return rows, frows
+
+
+def plain_cmp(P, n, m):
+    """Candidates of a launch to hold against the plain version: all of
+    them, unless its [P, n, m] float32 intermediates pass PLAIN_CMP_ELEMS
+    elements (it keeps a few alive at once)."""
+    return None if P * n * m <= PLAIN_CMP_ELEMS else PLAIN_CMP_ELEMS // (P * m)
 
 
 def check_ei(P, n, m, dead, n_cmp, below_dead, usage):
@@ -368,6 +384,45 @@ def check_ei(P, n, m, dead, n_cmp, below_dead, usage):
     torch.cuda.empty_cache()
     if not ok:
         raise AssertionError(f"ei_diff disagrees with its plain version at {row}")
+    return row
+
+
+def check_fused(P, N, m, dead, bounded, usage):
+    """Hold ``fused_sample_ei`` at (P, N, m) against its plain version and
+    time both: x bit for bit, ei within the tolerance; raises when they
+    disagree."""
+    import torch
+
+    from hyperopt_tpu_torch import megakernel
+
+    args = fused_inputs(P, N, m, seed=P + N + m, dead=dead, bounded=bounded)
+    x, ei = megakernel.fused_sample_ei(*args, bounded)
+    torch.cuda.synchronize()
+    px, pei = megakernel.fused_sample_ei_plain(*args, bounded)
+    err_x, err_ei = (x - px).abs(), (ei - pei).abs()
+    # x equals the plain version's bit for bit; ei within the tolerance
+    ok = (bool(torch.isfinite(x).all()) and bool(torch.isfinite(ei).all())
+          and float(err_x.max()) == 0.0
+          and bool((err_ei <= TOL * torch.clamp(pei.abs(), min=1.0)).all()))
+    if bounded:
+        ok = ok and bool((x >= args[-2][:, None]).all()) and bool((x < args[-1][:, None]).all())
+    ms = cuda_ms(lambda: megakernel.fused_sample_ei(*args, bounded))
+    dev_ms = device_ms(lambda: megakernel.fused_sample_ei(*args, bounded), "fused_kernel")
+    plain_ms = cuda_ms(lambda: megakernel.fused_sample_ei_plain(*args, bounded), reps=5)
+    bound_ms, bound_by = fused_bound(P, N, m)
+    row = {"shape": [P, N, m], "dead": dead, "bounded": bounded,
+           "max_abs_err": float(max(err_x.max(), err_ei.max())),
+           "max_abs_err_x": float(err_x.max()), "max_abs_err_ei": float(err_ei.max()),
+           "ok": ok, "ms": ms, "device_ms": dev_ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bound_share": bound_ms / dev_ms,
+           **megakernel._launch_plan("fused_sample_ei", P, N, m),
+           **usage_of(usage, "fused_kernel")}
+    log(f"fused_sample_ei {row}")
+    del args, x, ei, px, pei, err_x, err_ei
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"fused_sample_ei disagrees with its plain version at {row}")
     return row
 
 
@@ -1732,7 +1787,691 @@ def phase_ml_backends(report):
     return launches, sorted(shapes)
 
 
+# phase 13: the multi-device path on BASELINE config 5's surrogate
+# (hpob_surrogate).  (a) a 1000-trial history, cap 1024, 64 keys, 24 and an
+# indivisible 1000 candidates; (b) suggest_sharded in fmin; (c) the
+# HYPEROPT_TPU_SHARD knob and a 2-entry cohort of 256 hartmann6 studies;
+# (d) fmin_multihost at the driver's defaults, batch 1024, 4096
+# evaluations, in one process and in two controllers on the one card;
+# (e) the elastic fleet at (d)'s parameters, 2 generations, then one more
+MD_HISTORY, MD_CAP, MD_KEYS, MD_CANDIDATES = 1000, 1024, 64, (24, 1000)
+MD_FMIN_EVALS, MD_FMIN_QUEUE, MD_KNOB_EVALS = 64, 16, 40
+MD_COHORT = dict(studies=256, cap=128, ids=4, candidates=24, ticks=3)
+MD_BATCH, MD_EVALS, MD_SEED = 1024, 4096, 0
+MD_FLEET_GENS = 2
+MD_CONTROLLER_SEC = 600  # a controller process's limit; collectives time out before it
+MD_TOL = (1e-4, 1e-5)  # rtol, atol of a comparison held at the card tolerance
+
+
+class LaunchLog:
+    """The shapes ``ei_diff`` and ``fused_sample_ei`` launch at, in order,
+    read from the launch checks every CUDA launch passes; the CPU's plain
+    twins pass none."""
+
+    def __init__(self):
+        from hyperopt_tpu_torch import megakernel
+
+        self.shapes = []
+        self._mk = megakernel
+        self._real = megakernel._launchable
+
+    def __enter__(self):
+        real = self._real
+
+        def recording(name, P, tensors):
+            self.shapes.append((name, P, tensors[0].shape[1], tensors[-1 if name == "ei_diff"
+                                                                     else 2].shape[1]))
+            return real(name, P, tensors)
+
+        self._mk._launchable = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._mk._launchable = self._real
+
+    def take(self):
+        out, self.shapes = self.shapes, []
+        return out
+
+
+def _md_plans(shapes):
+    """The component splits ``ei_diff`` plans for each (name, P, n, m)."""
+    from hyperopt_tpu_torch import megakernel
+
+    return [megakernel._launch_plan("ei_diff", P, n, m)["splits"] if DEVICE == "cuda" else None
+            for name, P, n, m in shapes if name == "ei_diff"]
+
+
+def _md_compare(what, got, want, got_shapes, want_shapes, parts):
+    """Hold a sharded result against the one-device program's.  Bit for
+    bit when every launch of each of the ``parts`` entries planned the
+    one-device launch's component splits; otherwise at the card tolerance
+    with the flipped proposals counted (at most one allowed)."""
+    import torch
+
+    gp, wp = _md_plans(got_shapes), _md_plans(want_shapes)
+    k = len(wp)
+    same_plans = len(gp) == parts * k and all(gp[p * k + j] == wp[j] for p in range(parts)
+                                              for j in range(k))
+    got, want = got.cpu(), want.cpu()
+    rtol, atol = MD_TOL
+    close = torch.isclose(got, want, rtol=rtol, atol=atol).all(dim=-1)
+    row = {"what": what, "shapes_sharded": [list(s) for s in got_shapes],
+           "shapes_one_device": [list(s) for s in want_shapes],
+           "splits_sharded": gp, "splits_one_device": wp, "plans_match": same_plans,
+           "bitwise": bool(torch.equal(got, want)), "rows": int(close.numel()),
+           "flips": int((~close).sum()),
+           "max_abs_diff": float((got - want).abs().max()) if got.numel() else 0.0}
+    log(f"phase 13 compare: {row}")
+    if same_plans and not row["bitwise"]:
+        raise AssertionError(f"{what}: the same plans gave different bits: {row}")
+    if not same_plans and row["flips"] > 1:
+        raise AssertionError(f"{what}: {row['flips']} flipped proposals: {row}")
+    return row
+
+
+def _md_history(device, n, cap, seed=3):
+    """A padded hpob_surrogate history of ``n`` prior draws on ``device``."""
+    import numpy as np
+    import torch
+
+    from hyperopt_tpu_torch import prng, zoo
+    from hyperopt_tpu_torch.spaces import compile_space
+
+    dom = zoo.ZOO["hpob_surrogate"]
+    cs = compile_space(dom.space)
+    keys = prng.fold_in(prng.PRNGKey(seed, "cpu"), torch.arange(cap))
+    flats = {l: v.numpy() for l, v in cs.sample_flat(keys).items()}
+    live = np.arange(cap) < n
+    losses = np.full(cap, np.inf, np.float32)
+    for i in range(n):
+        losses[i] = dom.objective(cs.assemble({l: (int(flats[l][i]) if cs.params[l].is_int
+                                                   else float(flats[l][i]))
+                                               for l in cs.labels}))
+    acts = cs.active_flat(flats)
+    return cs, {"losses": torch.tensor(losses, device=device),
+                "has_loss": torch.tensor(live, device=device),
+                "vals": {l: torch.tensor(np.where(live, flats[l], 0).astype(np.float32),
+                                         device=device) for l in cs.labels},
+                "active": {l: torch.tensor(np.asarray(acts[l]) * np.ones(cap, bool) & live,
+                                           device=device) for l in cs.labels}}
+
+
+def _md_numeric_labels(cs):
+    """The labels ``ei_diff`` scores: numeric and un-quantized."""
+    from hyperopt_tpu_torch.algos import tpe
+
+    return [l for l in cs.labels if cs.params[l].dist.family not in ("categorical", "randint")
+            and tpe._parzen_from(cs.params[l].dist)[4] is None]
+
+
+def _md_sharded_call(what, step, args, rec, parts, n_numeric):
+    """Run one sharded step with ``ei_diff``'s count set to 0 just before
+    and read just after; every entry must score every numeric label."""
+    from hyperopt_tpu_torch import megakernel
+
+    megakernel.ei_diff.launches = 0
+    got = step(*args)
+    n_launch = megakernel.ei_diff.launches
+    shapes = rec.take()
+    rows = sum(P for name, P, _, _ in shapes if name == "ei_diff")
+    if n_launch < parts or rows < parts * n_numeric:
+        raise AssertionError(f"{what}: {n_launch} ei_diff launches over {rows} label rows "
+                             f"for {parts} entries x {n_numeric} numeric labels")
+    return got, shapes, n_launch
+
+
+def _md_sharded_proposals(out, launches):
+    """(a) suggest_batch_sharded on a 2x1 mesh of the card's two entries and
+    propose_sharded_candidates on a 1x2 mesh, against the one-device
+    program: a 1-entry mesh, and every shard's candidates in one launch.
+    The launches counted are the sharded calls' own."""
+    from hyperopt_tpu_torch import prng
+    from hyperopt_tpu_torch.parallel import driver, sharding
+
+    import torch
+
+    cs, hist = _md_history(DEVICE, MD_HISTORY, MD_CAP)
+    n_numeric = len(_md_numeric_labels(cs))
+    keys = prng.fold_in(prng.PRNGKey(5, DEVICE), torch.arange(MD_KEYS, device=DEVICE))
+    two = sharding.make_mesh(devices=[DEVICE, DEVICE])
+    one = sharding.make_mesh(devices=[DEVICE])
+    cand = sharding.make_mesh(n_cand_shards=2, devices=[DEVICE, DEVICE])
+    rows, counted = [], 0
+    with LaunchLog() as rec:
+        for n_cand in MD_CANDIDATES:
+            cfg = dict(driver._default_cfg(MD_KEYS), n_EI_candidates=n_cand)
+            what = f"suggest_batch_sharded 2x1, {n_cand} candidates"
+            got, got_shapes, n_launch = _md_sharded_call(
+                what, sharding.suggest_batch_sharded(cs, cfg, two, packed=True), (hist, keys),
+                rec, 2, n_numeric)
+            counted += n_launch
+            want = sharding.suggest_batch_sharded(cs, cfg, one, packed=True)(hist, keys)
+            rows.append(_md_compare(what, got, want, got_shapes, rec.take(), 2))
+            for batch in (None, MD_KEYS):
+                k = keys if batch else keys[0]
+                what = f"propose_sharded_candidates 1x2, batch {batch}, {n_cand} candidates"
+                step = sharding.propose_sharded_candidates(cs, cfg, cand, packed=True,
+                                                           batch=batch)
+                got, got_shapes, n_launch = _md_sharded_call(what, step, (hist, k), rec, 2,
+                                                             n_numeric)
+                counted += n_launch
+                fused = sharding._propose_fused_pool(cs, cfg, cand, packed=True, batch=batch)
+                want = fused(hist, k)
+                rows.append(_md_compare(what, got, want, got_shapes, rec.take(), 2))
+                bad = ~torch.isfinite(got)
+                if bool(bad.any()):
+                    raise AssertionError("a sharded proposal is not finite")
+    launches["sharded_proposals"] = counted
+    out["sharded_proposals"] = rows
+
+
+def _md_counted(algo, asks, n_startup=20):
+    def counted(new_ids, domain, trials, seed):
+        if len(trials.trials) >= n_startup:
+            asks[0] += 1
+        return algo(new_ids, domain, trials, seed)
+    return counted
+
+
+def _md_suggest_sharded(out, launches, shapes):
+    """(b) fmin(algo=tpe.suggest_sharded(n_cand_shards=2), max_queue_len=16)
+    on the 1x2 mesh of the card's two entries, against the same on two CPU
+    entries; ei_diff launches = TPE asks x 2 shards x 3 numeric labels."""
+    import numpy as np
+    import torch
+
+    import hyperopt_tpu_torch as port
+    from hyperopt_tpu_torch import megakernel, zoo
+    from hyperopt_tpu_torch.parallel import sharding
+
+    dom = zoo.ZOO["hpob_surrogate"]
+    runs = {}
+    for device in ("cpu", DEVICE):
+        mesh = sharding.make_mesh(n_cand_shards=2, devices=[device, device])
+        asks = [0]
+        algo = _md_counted(port.tpe.suggest_sharded(mesh=mesh), asks)
+        t = port.Trials(device=device)
+        megakernel.ei_diff.launches = 0
+        with LaunchLog() as rec:
+            t0 = time.perf_counter()
+            port.fmin(dom.objective, dom.space, algo=algo, max_evals=MD_FMIN_EVALS,
+                      max_queue_len=MD_FMIN_QUEUE, trials=t, rstate=np.random.default_rng(0),
+                      show_progressbar=False)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        runs[device] = (t, asks[0], megakernel.ei_diff.launches, wall, rec.take())
+    t, asks, n_launch, wall, got_shapes = runs[DEVICE]
+    shapes.update(tuple(s[1:]) for s in got_shapes if s[0] == "ei_diff")
+    same = same_prefix(runs["cpu"][0].trials, t.trials)
+    res = {"evals": len(t.trials), "tpe_asks": asks, "ei_diff_launches": n_launch,
+           "wall_sec": wall, "card_follows_cpu": same,
+           "shapes": sorted({tuple(s) for s in got_shapes}),
+           "best_loss": float(min(l for l in t.losses() if l is not None))}
+    out["suggest_sharded_fmin"] = res
+    launches["suggest_sharded_fmin"] = n_launch
+    log(f"phase 13 (b): {res}")
+    if same != MD_FMIN_EVALS:
+        raise AssertionError(f"the card's sharded fmin left the CPU's stream: {res}")
+    if asks < 1 or n_launch != asks * 2 * 3:
+        raise AssertionError(f"ei_diff launched {n_launch} times in {asks} TPE asks")
+    if not all(in_space(trials_cs(dom), d) for d in t.trials):
+        raise AssertionError("a sharded proposal lies outside the space")
+
+
+def _md_set_env(name, value):
+    old = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    return old
+
+
+def _md_shard_knob(out, launches, shapes, fused_shapes):
+    """(c) HYPEROPT_TPU_SHARD=auto on tpe.suggest and on StudyScheduler equal
+    the knob unset bit for bit, on the one card (a one-entry mesh) and with
+    the card named twice as the local devices (a 2-entry mesh: the
+    scheduler's cohorts split their studies over it); then the
+    cohort program over a 2-entry mesh for 256 hartmann6 studies equals the
+    unsharded cohort bit for bit, one fused_sample_ei launch per shard and
+    tick."""
+    import numpy as np
+    import torch
+
+    import hyperopt_tpu_torch as port
+    from hyperopt_tpu_torch import megakernel, zoo
+    from hyperopt_tpu_torch.algos import tpe
+    from hyperopt_tpu_torch.base import Domain
+    from hyperopt_tpu_torch.parallel import sharding
+    from hyperopt_tpu_torch.service import StudyScheduler, scheduler
+
+    dom = zoo.ZOO["hpob_surrogate"]
+    res = {}
+    streams, ticks_of = {}, {}
+    rec = LaunchLog()
+    real_local, real_tick = sharding.local_devices, scheduler._Cohort.tick
+    for knob, entries in ((None, 1), ("auto", 1), ("auto", 2)):
+        old = _md_set_env("HYPEROPT_TPU_SHARD", knob)
+        ticks_of[knob, entries] = tick_log = []
+
+        def tick(cohort, demand, mesh=None, tick_log=tick_log):
+            before = megakernel.fused_sample_ei.launches
+            packed = real_tick(cohort, demand, mesh=mesh)
+            tick_log.append((mesh.size if mesh is not None else 1,
+                             megakernel.fused_sample_ei.launches - before))
+            return packed
+
+        # two entries: the one card named twice as this process's devices,
+        # as the CPU tests repeat the CPU
+        sharding.local_devices = (lambda device=None: real_local(device) * 2) if entries == 2 \
+            else real_local
+        scheduler._Cohort.tick = tick
+        try:
+            rec.__enter__()
+            t = port.Trials(device=DEVICE)
+            port.fmin(dom.objective, dom.space, algo=port.tpe.suggest, max_evals=MD_KNOB_EVALS,
+                      trials=t, rstate=np.random.default_rng(2), show_progressbar=False)
+            sched = StudyScheduler(device=DEVICE)
+            doms = [zoo.ZOO["branin" if i % 2 else "hartmann6"] for i in range(COHORT_STUDIES)]
+            sids = [sched.create_study(d.space, seed=40 + i, n_startup_jobs=5)
+                    for i, d in enumerate(doms)]
+            drive_waves(sched, sids, {sid: d.objective for sid, d in zip(sids, doms)}, 12)
+            streams[knob, entries] = (
+                [(d["misc"]["vals"], d["result"]) for d in t.trials],
+                [[(d["misc"]["vals"], d["result"]) for d in sched._studies[sid].trials]
+                 for sid in sids])
+        finally:
+            rec.__exit__()
+            _md_set_env("HYPEROPT_TPU_SHARD", old)
+            sharding.local_devices, scheduler._Cohort.tick = real_local, real_tick
+        for name, *shape in rec.take():
+            (fused_shapes if name == "fused_sample_ei" else shapes).add(tuple(shape))
+    want = streams[None, 1]
+    res["tpe_suggest_bitwise"] = want[0] == streams["auto", 1][0]
+    res["scheduler_bitwise"] = want[1] == streams["auto", 1][1]
+    res["tpe_suggest_2_entries_bitwise"] = want[0] == streams["auto", 2][0]
+    res["scheduler_2_entries_bitwise"] = want[1] == streams["auto", 2][1]
+    plain_ticks, two_ticks = ticks_of[None, 1], ticks_of["auto", 2]
+    res["scheduler_ticks"] = len(two_ticks)
+    res["scheduler_sharded_ticks"] = sum(n > 1 for n, _ in two_ticks)
+    res["scheduler_fused_launches"] = {"unsharded": sum(f for _, f in plain_ticks),
+                                       "2_entries": sum(f for _, f in two_ticks)}
+    launches["sharded_scheduler_fused"] = res["scheduler_fused_launches"]["2_entries"]
+    log(f"phase 13 (c): scheduler ticks {res['scheduler_ticks']}, sharded "
+        f"{res['scheduler_sharded_ticks']}, fused_sample_ei {res['scheduler_fused_launches']}")
+    if not all(res[k] for k in ("tpe_suggest_bitwise", "scheduler_bitwise",
+                                "tpe_suggest_2_entries_bitwise", "scheduler_2_entries_bitwise")):
+        raise AssertionError(f"HYPEROPT_TPU_SHARD=auto moved the stream: {res}")
+    # every cohort tick splits its slots over both entries and launches
+    # the fused kernel once per entry where the unsharded tick launched once
+    if (len(two_ticks) != len(plain_ticks) or res["scheduler_sharded_ticks"] != len(two_ticks)
+            or any(f2 != n * f1 for (n, f2), (_, f1) in zip(two_ticks, plain_ticks))
+            or res["scheduler_fused_launches"]["unsharded"] < 1):
+        raise AssertionError(f"the 2-entry scheduler's fused_sample_ei launches {two_ticks} are "
+                             f"not 2 x the unsharded ticks' {plain_ticks}")
+
+    S, cap, B, n, ticks = (MD_COHORT[k] for k in ("studies", "cap", "ids", "candidates",
+                                                   "ticks"))
+    hdom = zoo.ZOO["hartmann6"]
+    cs = Domain(hdom.objective, hdom.space).cs
+    cfg = {"prior_weight": 1.0, "n_EI_candidates": n, "gamma": 0.25, "LF": 25,
+           "ei_select": "argmax", "ei_tau": 1.0, "prior_eps": 0.0}
+    rng = np.random.default_rng(13)
+    live = rng.integers(cap // 4, cap - 8, S)
+    active = np.arange(cap)[None, :] < live[:, None]
+    vals = {l: rng.uniform(0, 1, (S, cap)).astype(np.float32) for l in cs.labels}
+    losses = np.where(active, rng.normal(size=(S, cap)), np.inf).astype(np.float32)
+
+    def stack():
+        return {"vals": {l: torch.tensor(v, device=DEVICE) for l, v in vals.items()},
+                "active": {l: torch.tensor(active, device=DEVICE) for l in cs.labels},
+                "losses": torch.tensor(losses, device=DEVICE),
+                "has_loss": torch.tensor(active, device=DEVICE)}
+
+    rows = np.zeros((S, 1, 2 * len(cs.labels) + 3), np.float32)
+    rows[:, :, -1] = cap
+    ids = (np.arange(S * B).reshape(S, B) + 77).astype(np.uint32)
+    mesh = sharding.suggest_mesh(devices=[DEVICE, DEVICE])
+    old = _md_set_env("HYPEROPT_TPU_MEGAKERNEL", "on")
+    try:
+        plain = tpe.build_suggest_batched(cs, cfg, S, cap, B, donate=False)
+        run = tpe.build_suggest_batched(cs, cfg, S, cap, B, mesh=mesh)
+        hist_one, hist_two = stack(), stack()
+        same, fused = [], 0
+        with LaunchLog() as rec:
+            for tick in range(ticks):
+                seeds = np.stack([tpe._seed_words(100 * tick + s) for s in range(S)])
+                _, want = plain(hist_one, rows, seeds, ids)
+                rec.take()
+                megakernel.fused_sample_ei.launches = 0
+                hist_two, got = run(hist_two, rows, seeds, ids)
+                fused += megakernel.fused_sample_ei.launches
+                cohort_shapes = rec.take()
+                res.setdefault("cohort_fused_shapes", sorted({tuple(s) for s in cohort_shapes}))
+                fused_shapes.update(tuple(s[1:]) for s in cohort_shapes)
+                same.append(bool(torch.equal(got.cpu(), want.cpu())))
+    finally:
+        _md_set_env("HYPEROPT_TPU_MEGAKERNEL", old)
+    res.update(cohort_studies=S, cohort_ticks=ticks, cohort_bitwise=same,
+               cohort_fused_launches=fused)
+    launches["sharded_cohort_fused"] = fused
+    out["shard_knob"] = res
+    log(f"phase 13 (c): {res}")
+    if not all(same):
+        raise AssertionError(f"the sharded cohort left the unsharded one's bits: {res}")
+    if fused != 2 * ticks:
+        raise AssertionError(f"fused_sample_ei launched {fused} times for 2 shards x {ticks} "
+                             "ticks")
+
+
+def _md_instrument(driver, per_gen, profile_call):
+    """Time every proposal call of the driver (synchronized), with its
+    ei_diff launches, shapes and peak memory, profile proposal call
+    ``profile_call`` (device busy and idle share; None: none), time each
+    generation's evaluation (``per_gen`` objective calls each, or one
+    window over the run when None), and keep the driver's span totals;
+    returns the records, the objective and the undo."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperopt_tpu_torch import megakernel, zoo
+
+    rec = {"propose": [], "evaluate": {}}
+    real_build = driver.tpe.build_propose
+
+    def build(cs, cfg, **kw):
+        propose = real_build(cs, cfg, **kw)
+
+        def timed(history, keys):
+            i = len(rec["propose"])
+            if DEVICE == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            before = megakernel.ei_diff.launches
+            prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    if i == profile_call and DEVICE == "cuda" else None)
+            with LaunchLog() as log_:
+                if prof is not None:
+                    prof.__enter__()
+                t0 = time.perf_counter()
+                outp = propose(history, keys)
+                if DEVICE == "cuda":
+                    torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                if prof is not None:
+                    prof.__exit__(None, None, None)
+            row = {"ms": ms, "keys": int(keys.shape[0]),
+                   "ei_diff_launches": megakernel.ei_diff.launches - before,
+                   "shapes": [list(s) for s in log_.take()],
+                   "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                                if DEVICE == "cuda" else None)}
+            if prof is not None:
+                kernels = [a for a in prof.key_averages()
+                           if a.device_type == torch.autograd.DeviceType.CUDA]
+                busy = sum(a.self_device_time_total for a in kernels) / 1e3
+                row.update(profiled=True, device_busy_ms=busy, kernel_launches=sum(
+                    a.count for a in kernels), device_idle_share=1.0 - busy / ms,
+                    top_kernels=[{"name": a.key[:80], "launches": a.count,
+                                  "device_ms": a.self_device_time_total / 1e3}
+                                 for a in sorted(kernels,
+                                                 key=lambda a: -a.self_device_time_total)[:8]])
+            rec["propose"].append(row)
+            return outp
+        return timed
+
+    driver.tpe.build_propose = build
+    real_obs = driver._DriverObs
+
+    class Obs(real_obs):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            rec["spans"] = self.tracer.totals
+
+    driver._DriverObs = Obs
+    dom = zoo.ZOO["hpob_surrogate"]
+    calls = [0]
+
+    def objective(d):
+        gen = 0 if per_gen is None else calls[0] // per_gen
+        calls[0] += 1
+        t = time.perf_counter()
+        first = rec["evaluate"].setdefault(gen, [t, t])
+        loss = dom.objective(d)
+        first[1] = time.perf_counter()
+        return loss
+
+    def restore():
+        driver.tpe.build_propose = real_build
+        driver._DriverObs = real_obs
+
+    return rec, objective, restore
+
+
+def _md_run(max_evals, fleet_dir=None, single=True, per_gen=MD_BATCH, profile_call=None):
+    """One fmin_multihost run at phase 13's parameters, instrumented:
+    ``{"checksum", "wall_sec", "propose", "evaluate_ms", "spans", ...}``
+    (a profiled run's wall includes the profiler's start and stop)."""
+    import torch
+
+    from hyperopt_tpu_torch import megakernel, zoo
+    from hyperopt_tpu_torch.parallel import driver
+
+    rec, objective, restore = _md_instrument(driver, per_gen, profile_call)
+    megakernel.ei_diff.launches = 0
+    try:
+        t0 = time.perf_counter()
+        res = driver.fmin_multihost(objective, zoo.ZOO["hpob_surrogate"].space, max_evals,
+                                    batch=MD_BATCH, seed=MD_SEED, _force_single=single,
+                                    fleet_dir=fleet_dir, device=DEVICE)
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    return {"checksum": res.checksum, "n_evals": res.n_evals, "best_loss": res.best_loss,
+            "wall_sec": wall, "ei_diff_launches": megakernel.ei_diff.launches,
+            "propose": rec["propose"], "spans": dict(rec.get("spans", {})),
+            "evaluate_ms": [1e3 * (b - a) for _, (a, b) in sorted(rec["evaluate"].items())]}
+
+
+def md_controller(argv):
+    """A controller process of phase 13 (``chip_smoke.py --md-controller
+    collective|fleet RANK PORT|DIR OUT DEVICE MAX_EVALS BATCH``): one rank
+    of the two-controller gloo run on the card, or one fleet controller."""
+    global DEVICE, MD_BATCH
+    mode, rank, where, out, DEVICE, max_evals, batch = argv[:7]
+    rank, max_evals, MD_BATCH = int(rank), int(max_evals), int(batch)
+    from hyperopt_tpu_torch.parallel import multihost
+
+    if mode == "collective":
+        kw = {"device": "cpu"} if DEVICE == "cpu" else {"local_device_ids": [0]}
+        multihost.initialize(f"127.0.0.1:{where}", 2, rank, timeout=MD_CONTROLLER_SEC, **kw)
+        res = _md_run(max_evals, single=False, per_gen=MD_BATCH // 2)
+    else:
+        res = _md_run(max_evals, fleet_dir=where, per_gen=None)
+    with open(f"{out}.{rank}", "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _md_spawn(mode, where, out, max_evals, n=2):
+    """Start ``n`` controller processes; returns them."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", ""),
+           "HYPEROPT_TPU_WATCHDOG": "0",
+           "HYPEROPT_TPU_ALLGATHER_TIMEOUT": str(MD_CONTROLLER_SEC // 2),
+           # two processes share the card: return freed blocks' address space
+           "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--md-controller", mode,
+                              str(r), str(where), out, DEVICE, str(max_evals),
+                              str(MD_BATCH)],
+                             env=env, cwd=root, stdout=subprocess.DEVNULL,
+                             stderr=subprocess.PIPE, text=True)
+            for r in range(n)]
+
+
+def _md_wait(procs, out, what):
+    """Wait for every controller; a controller that fails or times out
+    fails the phase.  Returns their result records."""
+    errs = []
+    deadline = time.monotonic() + MD_CONTROLLER_SEC
+    try:
+        for p in procs:
+            _, e = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            errs.append((e or "")[-3000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"{what}: a controller failed: "
+                             f"{[(p.returncode, e) for p, e in zip(procs, errs)]}")
+    results = []
+    for r in range(len(procs)):
+        with open(f"{out}.{r}") as f:
+            results.append(json.load(f))
+    return results
+
+
+def _md_release():
+    """Hand the caching allocator's blocks back to the card before
+    controller processes share it."""
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def _md_free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _md_driver(out, launches, shapes):
+    """(d) fmin_multihost at the driver's defaults, batch 1024, 4096
+    evaluations: in this process (_force_single), then as two controller
+    processes on the one card over gloo; the checksums must be equal."""
+    import tempfile
+
+    single = _md_run(MD_EVALS)
+    # the same run again with the third generation's proposal profiled
+    profiled = _md_run(MD_EVALS, profile_call=2)
+    out["fmin_multihost"] = {"single": single, "single_profiled": profiled}
+    rows = [{k: r.get(k) for k in ("ms", "peak_gib")} for r in single["propose"]]
+    log(f"phase 13 (d): single wall {single['wall_sec']:.2f} s, propose {rows}")
+    _md_release()
+    launches["fmin_multihost"] = single["ei_diff_launches"]
+    for row in single["propose"]:
+        shapes.update(tuple(s[1:]) for s in row["shapes"] if s[0] == "ei_diff")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = _md_spawn("collective", _md_free_port(), os.path.join(tmp, "c"), MD_EVALS)
+        ctl = _md_wait(procs, os.path.join(tmp, "c"), "two controllers")
+        wall2 = time.perf_counter() - t0
+    for c in ctl:
+        for row in c["propose"]:
+            shapes.update(tuple(s[1:]) for s in row["shapes"] if s[0] == "ei_diff")
+    launches["fmin_multihost_controllers"] = sum(c["ei_diff_launches"] for c in ctl)
+    res = out["fmin_multihost"]
+    res.update(batch=MD_BATCH, evals=MD_EVALS, controllers=ctl,
+               two_controller_wall_sec=wall2,
+               checksums_equal=all(c["checksum"] == single["checksum"] for c in ctl))
+    log(f"phase 13 (d): two controllers {[round(c['wall_sec'], 2) for c in ctl]} s (spawn to "
+        f"exit {wall2:.1f} s), propose {[[round(r['ms'], 1) for r in c['propose']] for c in ctl]}"
+        f", checksums equal {res['checksums_equal']}")
+    if profiled["checksum"] != single["checksum"]:
+        raise AssertionError("the profiled single run left the single run's checksum")
+    if not res["checksums_equal"]:
+        raise AssertionError(f"two controllers' checksums {[c['checksum'] for c in ctl]} != "
+                             f"the single run's {single['checksum']}")
+    for run in [single] + ctl:
+        if not run["propose"] or min(r["ei_diff_launches"] for r in run["propose"]) < 1:
+            raise AssertionError(f"a TPE generation launched no ei_diff kernel: {run}")
+    return single
+
+
+def _md_fleet(out, launches, shapes):
+    """(e) the elastic fleet: two controller processes at (d)'s parameters
+    for 2 generations equal the collective single run; then one controller
+    (this process) resumes the store for one more generation, bit for
+    bit."""
+    import tempfile
+
+    n1, n2 = MD_FLEET_GENS * MD_BATCH, (MD_FLEET_GENS + 1) * MD_BATCH
+    want1, want2 = _md_run(n1), _md_run(n2)
+    _md_release()
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "fleet")
+        t0 = time.perf_counter()
+        procs = _md_spawn("fleet", store, os.path.join(tmp, "f"), n1)
+        ctl = _md_wait(procs, os.path.join(tmp, "f"), "the fleet")
+        wall = time.perf_counter() - t0
+        resumed = _md_run(n2, fleet_dir=store, per_gen=None)
+    launches["fleet"] = sum(c["ei_diff_launches"] for c in ctl) + resumed["ei_diff_launches"]
+    for run in ctl + [resumed]:
+        for row in run["propose"]:
+            shapes.update(tuple(s[1:]) for s in row["shapes"] if s[0] == "ei_diff")
+    res = {"generations": MD_FLEET_GENS, "controllers": ctl, "fleet_wall_sec": wall,
+           "resumed": resumed,
+           "fleet_equals_collective": all(c["checksum"] == want1["checksum"] for c in ctl),
+           "resume_equals_collective": resumed["checksum"] == want2["checksum"]}
+    out["fleet"] = res
+    log(f"phase 13 (e): fleet {[round(c['wall_sec'], 2) for c in ctl]} s, equal "
+        f"{res['fleet_equals_collective']}; resumed {resumed['wall_sec']:.2f} s, equal "
+        f"{res['resume_equals_collective']}")
+    if not (res["fleet_equals_collective"] and res["resume_equals_collective"]):
+        raise AssertionError(f"the fleet left the collective run's checksum: "
+                             f"{[c['checksum'] for c in ctl]}, {resumed['checksum']} vs "
+                             f"{want1['checksum']}, {want2['checksum']}")
+
+
+def phase_multi_device(report):
+    """Phase 13: the multi-device path on one card, paths (a)-(e); every
+    shape ``ei_diff`` and ``fused_sample_ei`` launch at is recorded."""
+    out = report["multi_device"] = {}  # filled as the paths finish
+    launches = {}
+    shapes, fused_shapes = set(), set()
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    _md_sharded_proposals(out, launches)
+    for row in out["sharded_proposals"]:
+        shapes.update(tuple(s[1:]) for s in row["shapes_sharded"] + row["shapes_one_device"]
+                      if s[0] == "ei_diff")
+    out["a_sec"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _md_suggest_sharded(out, launches, shapes)
+    out["b_sec"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _md_shard_knob(out, launches, shapes, fused_shapes)
+    out["c_sec"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _md_driver(out, launches, shapes)
+    out["d_sec"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _md_fleet(out, launches, shapes)
+    out["e_sec"] = time.perf_counter() - t0
+    out["phase_sec"] = time.perf_counter() - t_phase
+    out["ei_diff_shapes"] = sorted(list(s) for s in shapes)
+    out["fused_sample_ei_shapes"] = sorted(list(s) for s in fused_shapes)
+    out["launches"] = launches
+    log(f"phase 13: {out['phase_sec']:.1f} s, launches {launches}, "
+        f"ei_diff shapes {out['ei_diff_shapes']}, fused_sample_ei shapes "
+        f"{out['fused_sample_ei_shapes']}")
+    return launches, sorted(shapes), sorted(fused_shapes)
+
+
 def main():
+    if sys.argv[1:2] == ["--md-controller"]:
+        return md_controller(sys.argv[2:])
     # torch.profiler leaves CUPTI attached after a session unless told to
     # tear it down, and every later launch pays for it (a branin ask ~30%
     # slower after one session); phase 1 profiles before the timed phases
@@ -1769,14 +2508,23 @@ def main():
     suggest_launches = phase_suggesters(report)
     widened_launches, widened_shapes = phase_widened_service(report)
     ml_launches, ml_shapes = phase_ml_backends(report)
-    # every shape the widened wave and phase 12 gave ei_diff is held against
-    # the plain version: phase 1 planned them, and any it missed is checked here
+    md_launches, md_shapes, md_fused_shapes = phase_multi_device(report)
+    # every shape the widened wave and phases 12-13 gave ei_diff is held
+    # against the plain version on every candidate: phase 1 planned them,
+    # and any it missed is checked here
     planned = {tuple(r["shape"]) for r in rows}
-    extra = [check_ei(P, n, m, 0, None, False, report["ptxas"])
-             for P, n, m in sorted(set(widened_shapes) | set(ml_shapes))
+    extra = [check_ei(P, n, m, 0, plain_cmp(P, n, m), False, report["ptxas"])
+             for P, n, m in sorted(set(widened_shapes) | set(ml_shapes) | set(md_shapes))
              if (P, n, m) not in planned]
     report["ei_diff_shapes_unplanned"] = [r["shape"] for r in extra]
     rows += extra
+    # and every shape phase 13 gave fused_sample_ei (its spaces are uniform:
+    # bounded)
+    fplanned = {tuple(r["shape"]) for r in frows}
+    fextra = [check_fused(P, N, m, 0, True, report["ptxas"])
+              for P, N, m in md_fused_shapes if (P, N, m) not in fplanned]
+    report["fused_sample_ei_shapes_unplanned"] = [r["shape"] for r in fextra]
+    frows += fextra
     report["total_sec"] = time.perf_counter() - t_start
 
     tick, ftick = rows[4], frows[0]  # the branin ask's and the service tick's shapes
@@ -1791,7 +2539,10 @@ def main():
                                  report["device_loop"]["fmin_device_loop"]["ei_diff"]
                                  ["graph_launches"],
                              **{f"fmin {k}": v for k, v in suggest_launches.items()},
-                             "widened_service_wave": widened_launches, **ml_launches},
+                             "widened_service_wave": widened_launches, **ml_launches,
+                             **{k: v for k, v in md_launches.items()
+                                if k not in ("sharded_cohort_fused",
+                                             "sharded_scheduler_fused")}},
         "shape": tick["shape"], "max_abs_err": tick["max_abs_err"],
         "max_err": max(r["max_abs_err"] for r in rows),
         "ms": tick["ms"], "device_ms": tick["device_ms"], "plain_ms": tick["plain_ms"],
@@ -1804,7 +2555,9 @@ def main():
         "replaces": REPLACES["fused_sample_ei"],
         "launches": service_launches["fused_sample_ei"],
         "launches_by_path": {"fmin": report["fmin_path_launches"]["fused_sample_ei"],
-                             "service_wave": service_launches["fused_sample_ei"]},
+                             "service_wave": service_launches["fused_sample_ei"],
+                             "sharded_cohort": md_launches["sharded_cohort_fused"],
+                             "sharded_scheduler": md_launches["sharded_scheduler_fused"]},
         "shape": ftick["shape"], "max_abs_err": ftick["max_abs_err"],
         "max_err": max(r["max_abs_err"] for r in frows),
         "ms": ftick["ms"], "device_ms": ftick["device_ms"], "plain_ms": ftick["plain_ms"],

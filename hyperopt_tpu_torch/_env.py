@@ -29,7 +29,8 @@ import torch
 
 __all__ = ["resolve_device", "parse_hist_dtype", "parse_megakernel", "parse_compile_widen",
            "parse_service_max_studies", "parse_service_max_pending",
-           "parse_service_idle_sec", "not_ported", "Knob", "KNOBS",
+           "parse_service_idle_sec", "parse_shard", "parse_hist_shard_min",
+           "parse_allgather_timeout", "DEFAULT_HIST_SHARD_MIN", "not_ported", "Knob", "KNOBS",
            "refuse_armed_knobs"]
 
 
@@ -136,6 +137,55 @@ def parse_service_idle_sec():
     return sec
 
 
+def parse_shard():
+    """``HYPEROPT_TPU_SHARD``: how many local devices the single-study tick
+    and the cohorts shard over, or None (unset, ``0``/``off``: unsharded).
+    ``auto``/``on``/``all`` means every local device (returned as ``-1``),
+    an integer ``k >= 1`` the first ``k``.  Any other value raises."""
+    raw = os.environ.get("HYPEROPT_TPU_SHARD", "").strip().lower()
+    if raw in ("",) + _OFF:
+        return None
+    if raw in ("on", "true", "yes", "auto", "all"):
+        return -1
+    try:
+        k = int(raw)
+    except ValueError:
+        raise ValueError(f"HYPEROPT_TPU_SHARD={raw!r}: expected a device count "
+                         "or auto|on|off") from None
+    if k < 1:
+        raise ValueError(f"HYPEROPT_TPU_SHARD={raw!r}: expected a positive device count")
+    return k
+
+
+# history capacity at which a sharded program also splits the history's
+# capacity axis over the mesh (below it every entry holds the whole history)
+DEFAULT_HIST_SHARD_MIN = 65536
+
+
+def parse_hist_shard_min():
+    """``HYPEROPT_TPU_HIST_SHARD_MIN``: the capacity threshold at which a
+    sharded program splits the history axis (default 65536)."""
+    return _pos_int("HYPEROPT_TPU_HIST_SHARD_MIN", DEFAULT_HIST_SHARD_MIN)
+
+
+def parse_allgather_timeout():
+    """``HYPEROPT_TPU_ALLGATHER_TIMEOUT``: seconds every collective of
+    ``fmin_multihost`` may take before the run checkpoints and raises
+    ``FleetDegraded``, or None (unset, ``0``/``off``: no deadline)."""
+    raw = os.environ.get("HYPEROPT_TPU_ALLGATHER_TIMEOUT", "").strip().lower()
+    if raw in ("",) + _OFF:
+        return None
+    try:
+        sec = float(raw)
+    except ValueError:
+        raise ValueError(f"HYPEROPT_TPU_ALLGATHER_TIMEOUT={raw!r}: expected a "
+                         "timeout in seconds") from None
+    if not sec > 0:
+        raise ValueError(f"HYPEROPT_TPU_ALLGATHER_TIMEOUT={raw!r}: expected a "
+                         "positive timeout")
+    return sec
+
+
 def not_ported(what, item):
     """The error a not-yet-ported option raises, naming its ROADMAP item."""
     return NotImplementedError(
@@ -171,7 +221,7 @@ class Knob(NamedTuple):
     under: str | None = None
 
 
-_FMIN = ("fmin",)
+_FMIN = ("fmin", "fmin_multihost")
 _SCHED = ("StudyScheduler",)
 
 KNOBS = {
@@ -188,6 +238,13 @@ KNOBS = {
                                        "(the worker CLI's default)"),
     "HYPEROPT_TPU_CHAOS": Knob("honoured", None, "chaos (filestore's io site, the "
                                "worker's trial site)"),
+    "HYPEROPT_TPU_SHARD": Knob("honoured", None, "algos/tpe, device_fmin.DeviceLoopRunner, "
+                               "service/scheduler (parse_shard)"),
+    "HYPEROPT_TPU_HIST_SHARD_MIN": Knob("honoured", None, "parallel/sharding "
+                                        "(parse_hist_shard_min)"),
+    "HYPEROPT_TPU_ALLGATHER_TIMEOUT": Knob("honoured", None, "parallel/driver "
+                                           "(parse_allgather_timeout)"),
+    "HYPEROPT_TPU_PAYLOAD": Knob("honoured", None, "parallel/payload (wire_format)"),
     "HYPEROPT_TPU_WATCHDOG": Knob("honoured", None, "obs/watchdog (the executor and the "
                                   "worker beat it; fmin's own beats come with item 14)"),
     # refused where the port has the entry point that reads them
@@ -204,12 +261,6 @@ KNOBS = {
                                 "0/off, which disables the recorder, is honoured "
                                 "by obs/flight)", _FMIN,
                                 lambda r: r not in ("", "0", "1", "off")),
-    "HYPEROPT_TPU_SHARD": Knob("refused", 12, "algos/tpe, device_fmin.DeviceLoopRunner, "
-                               "service/scheduler (a sharded program)",
-                               ("tpe.suggest", "DeviceLoopRunner", "StudyScheduler"),
-                               _set_not_off),
-    "HYPEROPT_TPU_HIST_SHARD_MIN": Knob("refused", 12, "parallel/sharding",
-                                        under="HYPEROPT_TPU_SHARD"),
     "HYPEROPT_TPU_SERVICE_WAL": Knob("refused", 13, "service/scheduler (a journal path)",
                                      _SCHED, lambda r: r != "" and r.lower() not in (
                                          "1", "on", "true", "yes", "auto") + _OFF),
@@ -233,11 +284,9 @@ KNOBS = {
     "HYPEROPT_TPU_TENANT_TOP_K": Knob("refused", 14, "service/scheduler (the tenant "
                                       "ledger)", _SCHED, _set),
     # refused: the entry point that reads them is not in the port yet
-    "HYPEROPT_TPU_ALLGATHER_TIMEOUT": Knob("refused", 12, "parallel/driver"),
-    "HYPEROPT_TPU_PAYLOAD": Knob("refused", 12, "parallel/payload"),
-    "HYPEROPT_TPU_FLEET_SHARDS": Knob("refused", 12, "service/fleet"),
-    "HYPEROPT_TPU_FLEET_LEASE_TTL": Knob("refused", 12, "service/fleet"),
-    "HYPEROPT_TPU_FLEET_ADDR": Knob("refused", 12, "service/server"),
+    "HYPEROPT_TPU_FLEET_SHARDS": Knob("refused", 13, "service/fleet"),
+    "HYPEROPT_TPU_FLEET_LEASE_TTL": Knob("refused", 13, "service/fleet"),
+    "HYPEROPT_TPU_FLEET_ADDR": Knob("refused", 13, "service/server"),
     "HYPEROPT_TPU_SERVICE": Knob("refused", 13, "service/server"),
     "HYPEROPT_TPU_SERVICE_ACCESS_LOG": Knob("refused", 13, "service/server"),
     "HYPEROPT_TPU_SERVICE_DEADLINE_MS": Knob("refused", 13, "service/server"),
@@ -263,8 +312,8 @@ KNOBS = {
 
 def refuse_armed_knobs(entry):
     """Raise ``not_ported(knob, item)`` for the first refused knob that
-    ``entry`` (``"fmin"``, ``"tpe.suggest"``, ``"DeviceLoopRunner"``,
-    ``"StudyScheduler"``) reads and that is set to a value arming it."""
+    ``entry`` (``"fmin"``, ``"fmin_multihost"``, ``"StudyScheduler"``)
+    reads and that is set to a value arming it."""
     for name, knob in KNOBS.items():
         if entry in knob.refused_at:
             raw = os.environ.get(name, "").strip()

@@ -14,8 +14,8 @@ import torch
 from .. import prng
 
 __all__ = ["suggest", "suggest_batch", "suggest_async", "AskHandle", "flat_to_new_trial_docs",
-           "seed_to_key", "pack_labels", "unpack_flats", "pad_ids_pow2",
-           "pad_ids_sticky"]
+           "seed_to_key", "fold_ids", "pack_labels", "unpack_flats", "pad_ids_pow2",
+           "pad_ids_to_multiple", "pad_ids_sticky"]
 
 
 class AskHandle:
@@ -41,6 +41,13 @@ def seed_to_key(seed, device):
     the high word is folded in (the tick's own derivation)."""
     lo, hi = prng.seed_words(seed)
     return prng.fold_in(prng.PRNGKey(lo, device), hi)
+
+
+def fold_ids(key, new_ids):
+    """One derived key ``fold_in(key, id)`` per new id (full 32-bit id
+    range): ``[len(new_ids), 2]`` on ``key``'s device."""
+    ids = torch.as_tensor([int(i) & 0xFFFFFFFF for i in new_ids], dtype=torch.int64)
+    return prng.fold_in(key, ids.to(key.device))
 
 
 def flat_to_new_trial_docs(domain, trials, new_ids, flats):
@@ -97,6 +104,19 @@ def pad_ids_pow2(new_ids, min_bucket=1):
     while B < max(len(ids), int(min_bucket)):
         B *= 2
     return np.asarray(ids + [ids[-1]] * (B - len(ids)), np.int64)
+
+
+def pad_ids_to_multiple(ids, n):
+    """Pad an already-bucketed id array up to a multiple of ``n`` (a mesh's
+    entry count) by repeating the last id: a sharded program splits the
+    batch axis evenly over the mesh.  Extras are discarded on the host and
+    never change the kept proposals (per-id keys derive from the id
+    value)."""
+    n = int(n)
+    if n <= 1 or len(ids) % n == 0:
+        return ids
+    B = -(-len(ids) // n) * n
+    return np.concatenate([ids, np.full(B - len(ids), ids[-1], ids.dtype)])
 
 
 def pad_ids_sticky(domain, new_ids):

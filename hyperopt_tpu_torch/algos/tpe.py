@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from .. import megakernel, prng, quant
-from .._env import not_ported, refuse_armed_knobs
+from .._env import parse_shard
 from ..spaces import Dist, label_hash
 from ..utils import LRUCache, device_constant
 from . import rand
@@ -61,7 +61,9 @@ __all__ = [
     "ndtri",
     "build_propose",
     "build_propose_with_scores",
+    "build_propose_candidates",
     "build_suggest_batched",
+    "suggest_sharded",
     "widened_profile",
     "cohort_key",
     "cohort_cache_stats",
@@ -1057,6 +1059,32 @@ def build_propose(cs, cfg, group=True, qparams=None, fused=False):
     return propose
 
 
+def build_propose_candidates(cs, cfg, qparams=None):
+    """The raw candidate pool ``propose(history, keys[B, 2]) -> {label:
+    (samples[B, n], ei[B, n])}`` with ``n = n_EI_candidates``: the
+    selection-free step the sharded candidate axis pools across mesh
+    entries before its own top-k select.  Labels run one by one (the
+    per-label pipelines, each key folded with ``label_hash(label)``); an
+    un-quantized numeric label scores through ``megakernel.ei_diff``, one
+    launch per label for all keys."""
+
+    def propose(history, keys):
+        below, above = split_below_above(history["losses"].to(torch.float32),
+                                         history["has_loss"], cfg["gamma"], cfg["LF"])
+        out = {}
+        for label in cs.labels:
+            dist = cs.params[label].dist
+            active = history["active"][label]
+            fn = (_propose_discrete if dist.family in ("categorical", "randint")
+                  else _propose_numeric)
+            out[label] = fn(prng.fold_in(keys, label_hash(label)), dist,
+                            _read_vals(history, label, qparams), below & active,
+                            above & active, cfg, raw=True)
+        return out
+
+    return propose
+
+
 def _apply_rows(labels, history, rows, qparams=None, study=None):
     """Fold packed trial rows (``PaddedHistory._pack_row`` layout) into the
     device history in place, one ``index_put_`` per array; every row
@@ -1125,8 +1153,14 @@ def suggest_async(
     """Queue one tick on the trials' device and return an
     :class:`~hyperopt_tpu_torch.algos.rand.AskHandle` whose ``result()``
     reads the packed proposals back and builds the trial docs.  The first
-    ``n_startup_jobs`` trials are prior draws (``rand.suggest_async``)."""
-    refuse_armed_knobs("tpe.suggest")  # HYPEROPT_TPU_SHARD: a sharded tick
+    ``n_startup_jobs`` trials are prior draws (``rand.suggest_async``).
+
+    ``HYPEROPT_TPU_SHARD`` splits the tick's proposals over
+    ``sharding.suggest_mesh`` of the trials' local devices: the ids pad to
+    a multiple of the mesh, the history is placed by the partition-rule
+    table (split along its capacity axis past
+    ``HYPEROPT_TPU_HIST_SHARD_MIN``), and every entry proposes its slice.
+    Unset, the tick is the one-device tick."""
     if not len(new_ids):
         return rand.AskHandle([], lambda: [])
     if len(trials.trials) < n_startup_jobs:
@@ -1146,11 +1180,16 @@ def suggest_async(
     # arm (or degrade) the int8/fp8 code before the mirror is built; a
     # no-op unless HYPEROPT_TPU_HIST_DTYPE names a code
     ph.ensure_qparams(cs)
-    propose = _get_propose(cs, cfg, ph.qparams, ph.hist_dtype)
-    ids = torch.from_numpy(rand.pad_ids_sticky(domain, new_ids)).to(ph.device)
+    n_shard = parse_shard()
+    ids = rand.pad_ids_sticky(domain, new_ids)
     dev, rows = ph.device_state()
     try:
-        mat = _tick(cs, propose, dev, rows, seed, ids, ph.qparams)
+        if n_shard is None:
+            propose = _get_propose(cs, cfg, ph.qparams, ph.hist_dtype)
+            mat = _tick(cs, propose, dev, rows, seed, torch.from_numpy(ids).to(ph.device),
+                        ph.qparams)
+        else:
+            mat = _sharded_tick(cs, cfg, ph, dev, rows, seed, ids, n_shard)
     except BaseException:
         # a half-applied in-place fold: rebuild the mirror from host next time
         ph.abandon_device()
@@ -1164,11 +1203,113 @@ def suggest_async(
     return rand.AskHandle(new_ids, finish)
 
 
+# (space signature, cfg, mesh geometry, history split, storage) ->
+# sharded proposal step
+_sharded_cache = LRUCache(32)
+
+
+def _sharded_step(kind, cs, cfg, mesh, qparams, hist_dtype, **kw):
+    key = (kind, cs.signature(), tuple(sorted(cfg.items())), mesh.geometry(),
+           tuple(sorted(kw.items())), str(hist_dtype) if qparams is not None else None)
+    fn = _sharded_cache.get(key)
+    if fn is None:
+        from ..parallel import sharding as _sh
+
+        build = (_sh.suggest_batch_sharded if kind == "batch"
+                 else _sh.propose_sharded_candidates)
+        fn = build(cs, cfg, mesh, packed=True, qparams=qparams, **kw)
+        _sharded_cache.put(key, fn)
+    return fn
+
+
+def _sharded_tick(cs, cfg, ph, dev, rows, seed, ids, n_shard):
+    """The tick under ``HYPEROPT_TPU_SHARD``: fold the rows into the
+    mirror, place it on the suggest mesh by the rule table and propose
+    every entry's slice of the ids (padded to a multiple of the mesh)."""
+    from ..parallel import sharding as _sh
+
+    mesh = _sh.suggest_mesh(n_shard, device=ph.device)
+    shard_hist = _sh.should_shard_history(ph.cap, mesh)
+    _apply_rows(cs.labels, dev, rows, ph.qparams)
+    ids = rand.pad_ids_to_multiple(ids, mesh.size)
+    keys = prng.fold_in(rand.seed_to_key(seed, ph.device), torch.from_numpy(ids).to(ph.device))
+    step = _sharded_step("batch", cs, cfg, mesh, ph.qparams, ph.hist_dtype,
+                         shard_history=shard_hist)
+    return step(_sh.place_history(dev, mesh, shard_history=shard_hist), keys)
+
+
 def suggest(new_ids, domain, trials, seed, **kwargs):
     """Propose new trials by TPE (hyperopt/tpe.py sym: suggest):
     ``suggest_async`` plus an immediate ``result()``.  Tune with
     ``functools.partial(tpe.suggest, gamma=..., n_EI_candidates=...)``."""
     return suggest_async(new_ids, domain, trials, seed, **kwargs).result()
+
+
+def suggest_sharded(mesh=None, n_cand_shards=1, n_startup_jobs=_default_n_startup_jobs,
+                    ei_select=None, **tpe_kwargs):
+    """An ``algo=`` callable whose TPE proposals run sharded over a mesh
+    (``parallel/sharding.py``)::
+
+        fmin(obj, space, algo=tpe.suggest_sharded(n_cand_shards=2),
+             max_evals=100, max_queue_len=8)
+
+    A queue batch (``len(new_ids) > 1``) splits its trial axis over the
+    mesh (ids pad to a power of two, then to a multiple of the mesh's
+    entries); with ``n_cand_shards > 1`` every proposal of the batch also
+    scores over the distributed candidate pool
+    (``propose_sharded_candidates(batch=B)``).  A single proposal with
+    ``n_cand_shards > 1`` splits the candidate axis.  ``mesh=None`` builds
+    ``sharding.make_mesh(n_cand_shards=...)`` over the trials' local
+    devices at the first TPE ask.  ``ei_select`` defaults to ``"softmax"``
+    for batches and ``"argmax"`` for single proposals.  The tuning
+    arguments are ``tpe.suggest``'s; an unknown one raises here."""
+    state = {"mesh": mesh}
+    kw_map = {"prior_weight": "prior_weight", "n_EI_candidates": "n_EI_candidates",
+              "gamma": "gamma", "linear_forgetting": "LF", "ei_tau": "ei_tau",
+              "prior_eps": "prior_eps"}
+    unknown = set(tpe_kwargs) - set(kw_map)
+    if unknown:
+        raise TypeError(f"suggest_sharded: unknown kwargs {sorted(unknown)} "
+                        f"(accepts {sorted(kw_map)})")
+    cfg_over = {kw_map[k]: v for k, v in tpe_kwargs.items()}
+
+    def algo(new_ids, domain, trials, seed):
+        from ..parallel import sharding as _sh
+
+        if not len(new_ids):
+            return []
+        if len(trials.trials) < n_startup_jobs:
+            return rand.suggest(new_ids, domain, trials, seed)
+        if state["mesh"] is None:
+            state["mesh"] = _sh.make_mesh(n_cand_shards=n_cand_shards, device=trials.device)
+        m = state["mesh"]
+        batched = len(new_ids) > 1
+        select = ei_select if ei_select is not None else ("softmax" if batched else "argmax")
+        cfg = {"prior_weight": _default_prior_weight, "n_EI_candidates": _default_n_EI_candidates,
+               "gamma": _default_gamma, "LF": _default_linear_forgetting,
+               "ei_select": select, **cfg_over}
+        cs = domain.cs
+        ph = trials.history_object(cs.labels)
+        ph.ensure_qparams(cs)
+        qparams = _quant_qparams(cs, ph.hist_dtype)
+        base = rand.seed_to_key(seed, ph.device)
+        hist = _sh.replicate_history(ph.device_view(), m)
+        if batched:
+            padded = rand.pad_ids_to_multiple(rand.pad_ids_sticky(domain, new_ids), m.size)
+            if int(m.shape[_sh.CAND_AXIS]) > 1:
+                fn = _sharded_step("cand", cs, cfg, m, qparams, ph.hist_dtype,
+                                   batch=len(padded))
+            else:
+                fn = _sharded_step("batch", cs, cfg, m, qparams, ph.hist_dtype)
+            mat = fn(hist, rand.fold_ids(base, padded))
+            flats = rand.unpack_flats(cs, mat, len(new_ids))
+        else:
+            fn = _sharded_step("cand", cs, cfg, m, qparams, ph.hist_dtype)
+            mat = fn(hist, rand.fold_ids(base, new_ids)[0])
+            flats = rand.unpack_flats(cs, mat, 1)
+        return rand.flat_to_new_trial_docs(domain, trials, new_ids, flats)
+
+    return algo
 
 
 # ---------------------------------------------------------------------------
@@ -1200,16 +1341,17 @@ def cohort_cache_contains(key):
 def cohort_key(cs, cfg, n_studies, cap, n_ids, donate=True, mesh=None,
                hist_dtype=None, fused=True):
     """The cohort-LRU key :func:`build_suggest_batched` uses: the space,
-    cfg and slot shape, plus ``("quant", name)`` for a code storage name
-    and ``("megakernel", mode)`` when the fused route is armed."""
-    if mesh is not None:
-        raise not_ported("a sharded cohort (build_suggest_batched(mesh=...))", 12)
+    cfg and slot shape, plus ``("quant", name)`` for a code storage name,
+    ``("megakernel", mode)`` when the fused route is armed and
+    ``("mesh", geometry)`` for a sharded cohort."""
     key = (cs.signature(), tuple(sorted(cfg.items())), "cohort",
            int(n_studies), int(cap), int(n_ids), bool(donate))
     if hist_dtype is not None and quant.is_quant_name(hist_dtype):
         key = key + ("quant", str(hist_dtype))
     if fused and megakernel.armed(cs):
         key = key + ("megakernel", megakernel.mode())
+    if mesh is not None:
+        key = key + ("mesh", mesh.geometry())
     return key
 
 
@@ -1234,13 +1376,26 @@ def build_suggest_batched(cs, cfg, n_studies, cap, n_ids, donate=True,
     name (int8/fp8 decode and encode codes).  With the fused route armed
     (``megakernel.armed(cs)``) the build is ``megakernel.build_cohort``;
     ``fused=False`` keeps the grouped ``ei_diff`` route, as a widened
-    cohort does.  Programs are cached under :func:`cohort_key`."""
+    cohort does.
+
+    ``mesh`` (a ``sharding`` mesh) splits the study axis by the
+    partition-rule table (``suggest_batched_shardings``): each entry owns
+    ``n_studies / n`` whole studies and runs the cohort program above on
+    its slice, on its device, so the fused kernel launches once per shard.
+    ``hist_stack`` is then placed by ``sharding.place_history`` on the
+    study axis (a plain stack is placed on the first call) and the
+    result's history is the placed tree; ``packed`` gathers on the first
+    entry's device.  Per-study math is the same, so the proposals are the
+    unsharded cohort's.  Programs are cached under :func:`cohort_key`."""
     key = cohort_key(cs, cfg, n_studies, cap, n_ids, donate=donate, mesh=mesh,
                      hist_dtype=hist_dtype, fused=fused)
     fn = _cohort_cache.get(key)
     if fn is None:
         qparams = _quant_qparams(cs, hist_dtype)
-        if fused and megakernel.armed(cs):
+        if mesh is not None:
+            fn = _build_sharded_cohort(cs, cfg, n_studies, cap, n_ids, donate, mesh,
+                                       hist_dtype, fused)
+        elif fused and megakernel.armed(cs):
             fn = megakernel.build_cohort(cs, cfg, n_studies, cap, n_ids,
                                          donate=donate, qparams=qparams)
         else:
@@ -1248,6 +1403,57 @@ def build_suggest_batched(cs, cfg, n_studies, cap, n_ids, donate=True,
                                fused=False)
         _cohort_cache.put(key, fn)
     return fn
+
+
+def _build_sharded_cohort(cs, cfg, n_studies, cap, n_ids, donate, mesh, hist_dtype, fused):
+    """The cohort program with the study axis split over ``mesh``: one
+    unsharded cohort program of ``n_studies / n`` studies per entry."""
+    from ..parallel import sharding as _sh
+
+    n = mesh.size
+    S = int(n_studies)
+    if S % n:
+        raise ValueError(f"a cohort of {S} studies does not split over {n} mesh entries")
+    per = S // n
+    # the rule table says every cohort leaf splits its study axis
+    in_sh, _ = _sh.suggest_batched_shardings(mesh, cs.labels)
+    if not all(len(sh.spec) for sh in in_sh[1:]):
+        raise ValueError("the cohort's rows, seed words and ids must split with the studies")
+    local = build_suggest_batched(cs, cfg, per, cap, n_ids, donate=True,
+                                  hist_dtype=hist_dtype, fused=fused)
+
+    def run(hist_stack, rows_stack, seed_words, ids):
+        if not isinstance(hist_stack["losses"], _sh.Placed):
+            if not donate:
+                hist_stack = _clone_tree(hist_stack)
+            hist_stack = _sh.place_history(hist_stack, mesh, study_axis=True)
+        elif not donate:
+            hist_stack = _tree_map(lambda p: _sh.Placed(
+                [None if t is None else t.clone() for t in p.parts], p.split, p.gather),
+                hist_stack)
+        rows, words, idv = (_host(rows_stack, np.float32), _host(seed_words, np.int64),
+                            _host(ids, np.int64))
+        packed = []
+        for i in mesh.local():
+            sl = slice(i * per, (i + 1) * per)
+            part = _tree_map(lambda p: p.parts[i], hist_stack)
+            packed.append(local(part, rows[sl], words[sl], idv[sl])[1])
+        home = mesh.devices.flat[mesh.local()[0]]
+        return hist_stack, torch.cat([m.to(home) for m in packed])
+
+    return run
+
+
+def _tree_map(fn, tree):
+    """``fn`` of every leaf of a history tree (``vals``/``active`` per
+    label, ``losses``, ``has_loss``)."""
+    return {"vals": {l: fn(v) for l, v in tree["vals"].items()},
+            "active": {l: fn(v) for l, v in tree["active"].items()},
+            "losses": fn(tree["losses"]), "has_loss": fn(tree["has_loss"])}
+
+
+def _clone_tree(tree):
+    return _tree_map(lambda t: t.clone(), tree)
 
 
 def _host(a, dtype):
@@ -1272,10 +1478,7 @@ def _build_cohort(cs, cfg, n_studies, cap, n_ids, donate, qparams, fused):
         if ids.shape != (S, B):
             raise ValueError(f"cohort ids must be [S={S}, B={B}], got {ids.shape}")
         if not donate:
-            hist_stack = {"vals": {l: v.clone() for l, v in hist_stack["vals"].items()},
-                          "active": {l: v.clone() for l, v in hist_stack["active"].items()},
-                          "losses": hist_stack["losses"].clone(),
-                          "has_loss": hist_stack["has_loss"].clone()}
+            hist_stack = _clone_tree(hist_stack)
         rows = _host(rows_stack, np.float32)
         study, k = np.nonzero(rows[:, :, -1] < cap)
         if study.size:

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from . import megakernel, prng, quant
-from ._env import parse_hist_dtype, refuse_armed_knobs, resolve_device
+from ._env import not_ported, parse_hist_dtype, parse_shard, resolve_device
 from .algos import tpe
 from .base import trials_from_flat_history
 from .spaces import compile_space, draw_dist, label_hash
@@ -289,17 +289,27 @@ class DeviceLoopRunner:
     early stop, loss threshold and checkpointing work at chunk
     granularity.  The loop state is held in ``HYPEROPT_TPU_HIST_DTYPE``'s
     float type (int8/fp8 degrade to bf16: the state is stored by a plain
-    cast).  ``capture=False`` runs the steps eagerly on the card too."""
+    cast).  ``capture=False`` runs the steps eagerly on the card too.
+
+    Under ``HYPEROPT_TPU_SHARD`` the loop runs unsharded unless the
+    capacity would split over the suggest mesh
+    (``sharding.should_shard_history``: two or more devices and a cap past
+    ``HYPEROPT_TPU_HIST_SHARD_MIN``), which is not ported yet (item 12b)."""
 
     CHUNK = 10
 
     def __init__(self, domain, cfg, n_startup, cap, device=None, capture=True):
-        refuse_armed_knobs("DeviceLoopRunner")  # HYPEROPT_TPU_SHARD: a sharded loop
         cs = domain.cs
         self.cs = cs
         self.cap = int(cap)
         self.labels = cs.labels
         self.device = resolve_device(device)
+        if parse_shard() is not None:
+            from .parallel import sharding
+
+            mesh = sharding.suggest_mesh(parse_shard(), device=self.device)
+            if sharding.should_shard_history(self.cap, mesh):
+                raise not_ported("a capacity-sharded device loop", "12b")
         self.hist_dtype = quant.mirror_float_dtype(parse_hist_dtype())
         self.capture = bool(capture)
         # the loop program is shared by runner instances: a warm rerun of

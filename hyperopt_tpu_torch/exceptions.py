@@ -30,6 +30,15 @@ class InvalidAnnotatedParameter(HyperoptTpuError):
     """Raised when an ``hp.*`` call is malformed (bad label, bad args)."""
 
 
+class FleetDegraded(HyperoptTpuError):
+    """Raised instead of hanging when a multi-controller run cannot make
+    progress: a collective exceeded its timeout (a peer controller is dead
+    or partitioned), or an elastic-fleet generation barrier expired with
+    shards leased but never published.  The raiser checkpoints the last
+    checksum-verified generation first, so the surviving fleet (of any
+    size) restarts from the checkpoint or the store and replays bitwise."""
+
+
 class StaleHistoryError(HyperoptTpuError):
     """Raised when a padded history's device mirror is handed out for a
     tick while an earlier tick's update was never committed

@@ -41,9 +41,10 @@ import numpy as np
 import torch
 
 from .. import quant
-from .._env import (not_ported, parse_compile_widen, parse_hist_dtype, refuse_armed_knobs,
+from .._env import (not_ported, parse_compile_widen, parse_hist_dtype,
                     parse_service_idle_sec, parse_service_max_pending,
-                    parse_service_max_studies, resolve_device)
+                    parse_service_max_studies, parse_shard, refuse_armed_knobs,
+                    resolve_device)
 from ..algos import rand, tpe
 from ..base import (JOB_STATE_DONE, STATUS_FAIL, STATUS_OK, Domain, Trials,
                     coarse_utcnow, spec_from_misc)
@@ -205,6 +206,7 @@ class _Cohort:
         self.slots = [None]  # Study | None; a power-of-two count
         self.slot_of = {}    # study_id -> slot
         self._dev = None     # stacked history, or None (rebuild at next tick)
+        self._mesh = None    # geometry of the mesh the stack is placed on
         self._synced = {}    # slot -> host rows already folded on the device
         self.widen = bool(widen)
 
@@ -284,13 +286,16 @@ class _Cohort:
             "has_loss": torch.tensor(has_loss, device=dev),
         }
 
-    def tick(self, demand):
+    def tick(self, demand, mesh=None):
         """One study-batched tell+ask launch sequence for the whole cohort.
 
         ``demand``: ``{slot: (ids uint32, seed)}``, at most one ask per slot.
         Every occupied slot's pending tell rows fold, asking or not.
         Returns the packed ``[S, B, L]`` device tensor, still in flight: the
-        caller reads it back after every cohort of the wave has launched."""
+        caller reads it back after every cohort of the wave has launched.
+        ``mesh`` splits the slots over its entries
+        (``build_suggest_batched(mesh=...)``); the stack is then placed
+        on it, and re-placed when the mesh changes."""
         L = len(self.cs.labels)
         B = _pow2(max((len(ids) for ids, _ in demand.values()), default=1))
         # a study that outgrew this bucket leaves (its next ask re-admits
@@ -305,10 +310,16 @@ class _Cohort:
                 continue
             phs[slot] = ph
         delta = max([ph.n - self._synced.get(slot, 0) for slot, ph in phs.items()] or [0])
-        if self._dev is not None and delta > self._ROW_BUCKET:
+        geom = None if mesh is None else mesh.geometry()
+        if self._dev is not None and (delta > self._ROW_BUCKET or geom != self._mesh):
             self._dev = None
         if self._dev is None:
             self._upload_stack()
+            if mesh is not None:
+                from ..parallel import sharding
+
+                self._dev = sharding.place_history(self._dev, mesh, study_axis=True)
+            self._mesh = geom
             delta = 0
         K = _pow2(max(delta, 1))
 
@@ -327,7 +338,7 @@ class _Cohort:
             ids[slot, :len(slot_ids)] = slot_ids
             ids[slot, len(slot_ids):] = slot_ids[-1]  # pad by repeating the last id
 
-        run = tpe.build_suggest_batched(self.cs, self.cfg, S, self.cap, B,
+        run = tpe.build_suggest_batched(self.cs, self.cfg, S, self.cap, B, mesh=mesh,
                                         hist_dtype=self.hist_dtype, fused=not self.widen)
         try:
             self._dev, packed = run(self._dev, rows, seed_words, ids)
@@ -507,13 +518,28 @@ class StudyScheduler:
                 a["wave"] = int(wave)
         return out
 
+    def _cohort_mesh(self, cohort):
+        """The mesh ``HYPEROPT_TPU_SHARD`` splits a cohort's slots over, or
+        None: unset, a one-entry mesh, a widened cohort, or a slot count
+        the mesh does not divide (small cohorts stay on one device rather
+        than padding slots)."""
+        n_shard = parse_shard()
+        if n_shard is None or cohort.widen:
+            return None
+        from ..parallel import sharding
+
+        mesh = sharding.suggest_mesh(n_shard, device=self.device)
+        if mesh.size > 1 and cohort.n_slots % mesh.size == 0:
+            return mesh
+        return None
+
     def _dispatch_cohort(self, cohort, cohort_reqs):
         demand = {}
         for r in cohort_reqs:
             slot = cohort.slot_of[r.study.study_id]
             demand[slot] = (np.asarray([int(i) & 0xFFFFFFFF for i in r.new_ids],
                                        np.uint32), r.seed)
-        return cohort.tick(demand)
+        return cohort.tick(demand, mesh=self._cohort_mesh(cohort))
 
     def _readback_cohort(self, cohort, cohort_reqs, packed):
         """Block on one cohort's proposals and land every req's docs

@@ -170,8 +170,13 @@ def test_cohort_programs_are_cached_by_shape(monkeypatch):
     monkeypatch.setenv("HYPEROPT_TPU_MEGAKERNEL", "0")
     assert tpe.cohort_key(cs, CFG, 4, 32, 2) != key
     assert tpe.build_suggest_batched(cs, CFG, 4, 32, 2) is not a
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tpe.build_suggest_batched(cs, CFG, 4, 32, 2, mesh=object())
+    # mesh= works: a sharded cohort is its own cached program
+    from hyperopt_tpu_torch.parallel import sharding
+
+    mesh = sharding.suggest_mesh(devices=["cpu", "cpu"])
+    sharded = tpe.build_suggest_batched(cs, CFG, 4, 32, 2, mesh=mesh)
+    assert sharded is not a and tpe.build_suggest_batched(cs, CFG, 4, 32, 2, mesh=mesh) is sharded
+    assert tpe.cohort_key(cs, CFG, 4, 32, 2, mesh=mesh)[-2:] == ("mesh", mesh.geometry())
 
 
 def _drive(sched, space, seeds, budget, qn=2, n_startup=4):

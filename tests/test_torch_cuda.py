@@ -321,3 +321,92 @@ def test_ml_domain_tpe_asks_launch_ei_diff_once_each(cuda_device, name):
               rstate=0, show_progressbar=False, catch_eval_exceptions=True)
     assert asks[0] >= 3
     assert megakernel.ei_diff.launches - before == asks[0]
+
+
+def _hpob_history(device, n=300, cap=512, seed=3):
+    """A padded ``hpob_surrogate`` history of ``n`` prior draws on ``device``."""
+    from hyperopt_tpu_torch import prng
+
+    cs = Domain(None, zoo.ZOO["hpob_surrogate"].space).cs
+    keys = prng.fold_in(prng.PRNGKey(seed, "cpu"), torch.arange(cap))
+    flats = {l: v.numpy() for l, v in cs.sample_flat(keys).items()}
+    live = np.arange(cap) < n
+    obj = zoo.ZOO["hpob_surrogate"].objective
+    losses = np.full(cap, np.inf, np.float32)
+    for i in range(n):
+        losses[i] = obj(cs.assemble({l: (int(flats[l][i]) if cs.params[l].is_int
+                                         else float(flats[l][i])) for l in cs.labels}))
+    acts = cs.active_flat(flats)
+    hist = {"losses": torch.tensor(losses, device=device),
+            "has_loss": torch.tensor(live, device=device),
+            "vals": {l: torch.tensor(np.where(live, flats[l], 0).astype(np.float32),
+                                     device=device) for l in cs.labels},
+            "active": {l: torch.tensor(np.asarray(acts[l]) * np.ones(cap, bool) & live,
+                                       device=device) for l in cs.labels}}
+    return cs, hist
+
+
+def test_sharded_proposals_on_repeated_card_entries_equal_one_entry(cuda_device):
+    """A mesh that names the card twice: each entry's launches cover half
+    the batch (or half the candidates), planned with the same component
+    splits as the one-entry launch, so the proposals are the same bits."""
+    from hyperopt_tpu_torch import prng
+    from hyperopt_tpu_torch.parallel import sharding
+
+    cs, hist = _hpob_history(cuda_device)
+    cfg = {"prior_weight": 1.0, "n_EI_candidates": 24, "gamma": 1.0, "LF": 100,
+           "ei_select": "softmax", "ei_tau": 0.5, "prior_eps": 0.1}
+    keys = prng.fold_in(prng.PRNGKey(5, cuda_device), torch.arange(64, device=cuda_device))
+    m = hist["losses"].shape[0] + 1
+    assert (megakernel._launch_plan("ei_diff", 3, 64 * 24, m)["splits"]
+            == megakernel._launch_plan("ei_diff", 3, 32 * 24, m)["splits"])
+    two = sharding.make_mesh(devices=[cuda_device, cuda_device])
+    before = megakernel.ei_diff.launches
+    got = sharding.suggest_batch_sharded(cs, cfg, two, packed=True)(hist, keys)
+    # per entry: the numeric group's candidates, then its prior-mix draws
+    assert megakernel.ei_diff.launches == before + 4
+    want = port.rand.pack_labels(cs, tpe.build_propose(cs, cfg)(hist, keys))
+    assert torch.equal(got, want)
+    cand = sharding.make_mesh(n_cand_shards=2, devices=[cuda_device, cuda_device])
+    assert (megakernel._launch_plan("ei_diff", 1, 64 * 12, m)["splits"]
+            == megakernel._launch_plan("ei_diff", 1, 64 * 24, m)["splits"])
+    step = sharding.propose_sharded_candidates(cs, cfg, cand, packed=True, batch=64)
+    fused = sharding._propose_fused_pool(cs, cfg, cand, packed=True, batch=64)
+    assert torch.equal(step(hist, keys), fused(hist, keys))
+    cpu = {k: ({l: t.cpu() for l, t in v.items()} if isinstance(v, dict) else v.cpu())
+           for k, v in hist.items()}
+    on_cpu = sharding.propose_sharded_candidates(
+        cs, cfg, sharding.make_mesh(n_cand_shards=2, devices=["cpu", "cpu"]), packed=True,
+        batch=64)(cpu, keys.cpu())
+    assert torch.allclose(step(hist, keys).cpu(), on_cpu, rtol=1e-4, atol=1e-5)
+
+
+def test_sharded_cohort_on_the_card_equals_the_unsharded_cohort(cuda_device, monkeypatch):
+    from hyperopt_tpu_torch import convert
+    from hyperopt_tpu_torch.parallel import sharding
+
+    monkeypatch.delenv("HYPEROPT_TPU_MEGAKERNEL", raising=False)
+    cs = Domain(None, zoo.ZOO["hartmann6"].space).cs
+    assert megakernel.armed(cs)
+    cfg = {"prior_weight": 1.0, "n_EI_candidates": 24, "gamma": 0.25, "LF": 25,
+           "ei_select": "argmax", "ei_tau": 1.0, "prior_eps": 0.0}
+    S, cap, B = 8, 32, 2
+    rng = np.random.default_rng(0)
+    stack = {"vals": {l: rng.uniform(size=(S, cap)).astype(np.float32) for l in cs.labels},
+             "active": {l: np.arange(cap)[None].repeat(S, 0) < 20 for l in cs.labels},
+             "losses": np.where(np.arange(cap) < 20, rng.uniform(size=(S, cap)),
+                                np.inf).astype(np.float32),
+             "has_loss": np.arange(cap)[None].repeat(S, 0) < 20}
+    rows = np.zeros((S, 1, 2 * len(cs.labels) + 3), np.float32)
+    rows[:, :, -1] = cap
+    seeds = np.stack([tpe._seed_words(3 * s + 1) for s in range(S)])
+    ids = (np.arange(S * B).reshape(S, B) + 7).astype(np.uint32)
+    _, want = tpe.build_suggest_batched(cs, cfg, S, cap, B)(
+        convert.cohort_stack_from_numpy(stack, cuda_device), rows, seeds, ids)
+    mesh = sharding.suggest_mesh(devices=[cuda_device, cuda_device])
+    before = megakernel.fused_sample_ei.launches
+    _, got = tpe.build_suggest_batched(cs, cfg, S, cap, B, mesh=mesh)(
+        convert.cohort_stack_from_numpy(stack, cuda_device), rows, seeds, ids)
+    torch.cuda.synchronize()
+    assert megakernel.fused_sample_ei.launches == before + 2  # one per shard
+    assert torch.equal(got, want)

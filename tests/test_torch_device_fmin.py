@@ -298,10 +298,29 @@ def test_rand_suggest_matches_reference_and_unknown_kwargs_are_refused():
 
 
 def test_shard_knob_raises_not_ported(monkeypatch):
+    """Only a loop whose capacity would split over two or more devices
+    is refused (item 12b); the one-device mesh of the CPU runs it."""
+    from hyperopt_tpu_torch.parallel import sharding
+
     monkeypatch.setenv("HYPEROPT_TPU_SHARD", "auto")
+    monkeypatch.setenv("HYPEROPT_TPU_HIST_SHARD_MIN", "16")
     pdom = Domain(zoo.ZOO["branin"].traceable, zoo.ZOO["branin"].space)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    device_fmin.DeviceLoopRunner(pdom, CFG, 5, 20, device="cpu")
+    two = sharding.suggest_mesh(devices=["cpu", "cpu"])
+    monkeypatch.setattr(sharding, "suggest_mesh", lambda n=None, devices=None, device=None: two)
+    with pytest.raises(NotImplementedError, match="capacity-sharded device loop .*item 12b"):
         device_fmin.DeviceLoopRunner(pdom, CFG, 5, 20, device="cpu")
+    device_fmin.DeviceLoopRunner(pdom, CFG, 5, 15, device="cpu")  # 15 rows do not split
+
+
+def test_shard_knob_on_one_device_runs_the_loop_unchanged(monkeypatch):
+    dom = zoo.ZOO["branin"]
+    want = _fmin(port, zoo, "branin", 24, 0, fn=dom.traceable, device_loop=True)
+    monkeypatch.setenv("HYPEROPT_TPU_SHARD", "auto")
+    monkeypatch.setenv("HYPEROPT_TPU_HIST_SHARD_MIN", "1")
+    got = _fmin(port, zoo, "branin", 24, 0, fn=dom.traceable, device_loop=True)
+    assert [d["misc"]["vals"] for d in got.trials] == [d["misc"]["vals"] for d in want.trials]
+    assert got.losses() == want.losses()
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,9 @@ def test_import_loads_neither_jax_nor_the_jax_package():
             "hyperopt_tpu_torch.obs.trace, hyperopt_tpu_torch.obs.watchdog, "
             "hyperopt_tpu_torch.filestore, hyperopt_tpu_torch.worker, "
             "hyperopt_tpu_torch.parallel, hyperopt_tpu_torch.parallel.executor, "
+            "hyperopt_tpu_torch.parallel.sharding, hyperopt_tpu_torch.parallel.payload, "
+            "hyperopt_tpu_torch.parallel.multihost, hyperopt_tpu_torch.parallel.driver, "
+            "hyperopt_tpu_torch.parallel.membership, hyperopt_tpu_torch.parallel.fleet, "
             "hyperopt_tpu_torch.graphviz, hyperopt_tpu_torch.graphviz_mod; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hyperopt_tpu')]; "
             "assert not bad, bad")
@@ -101,6 +104,25 @@ def test_backend_entry_points_raise_without_cuda(tmp_path):
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+def test_multi_device_entry_points_raise_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device, so the default device is valid")
+    from hyperopt_tpu_torch.parallel import fmin_multihost, sharding
+
+    space = {"x": hp.uniform("x", 0, 1)}
+    calls = [
+        lambda: fmin_multihost(lambda d: d["x"], space, 4, batch=2, _force_single=True),
+        lambda: fmin_multihost(lambda d: d["x"], space, 4, batch=2, fleet_dir=tmp_path / "f"),
+        lambda: sharding.make_mesh(),
+        lambda: sharding.suggest_mesh(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not (tmp_path / "f").exists()  # the fleet raised before touching its store
+    assert sharding.suggest_mesh(device="cpu").devices.flat[0].type == "cpu"
 
 
 def test_rand_and_tpe_run_where_the_trials_live():

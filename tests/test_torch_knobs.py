@@ -27,8 +27,6 @@ ARMING = {
     "HYPEROPT_TPU_OBS_HTTP": "8123",
     "HYPEROPT_TPU_DEVMEM": "5",
     "HYPEROPT_TPU_FLIGHT": "{tmp}/run.flight.jsonl",
-    "HYPEROPT_TPU_SHARD": "auto",
-    "HYPEROPT_TPU_HIST_SHARD_MIN": "1024",
     "HYPEROPT_TPU_SERVICE_WAL": "{tmp}/service.wal.jsonl",
     "HYPEROPT_TPU_COMPILE_PLANE": "1",
     "HYPEROPT_TPU_COMPILE_BANK_TOP_N": "4",
@@ -48,7 +46,6 @@ DISARMING = {
     "HYPEROPT_TPU_OBS_HTTP": ["0", "off"],
     "HYPEROPT_TPU_DEVMEM": ["off"],
     "HYPEROPT_TPU_FLIGHT": ["0", "off", "1"],
-    "HYPEROPT_TPU_SHARD": ["0", "off"],
     "HYPEROPT_TPU_SERVICE_WAL": ["0", "off", "auto", "1"],
     "HYPEROPT_TPU_COMPILE_PLANE": ["0", "off"],
     "HYPEROPT_TPU_SERVICE_DEGRADE": ["0", "off"],
@@ -78,6 +75,13 @@ def _tpe_ask():
     return port.tpe.suggest([0], Domain(_quadratic, _SPACE), t, 0)
 
 
+def _multihost():
+    from hyperopt_tpu_torch.parallel import fmin_multihost
+
+    return fmin_multihost(_quadratic, _SPACE, 4, batch=2, seed=0, _force_single=True,
+                          device="cpu")
+
+
 def _device_loop():
     dom = zoo.ZOO["quadratic1"]
     t = port.Trials(device="cpu")
@@ -88,10 +92,32 @@ def _device_loop():
 
 ENTRY = {
     "fmin": _run_fmin,
+    "fmin_multihost": _multihost,
     "tpe.suggest": _tpe_ask,
     "DeviceLoopRunner": _device_loop,
     "StudyScheduler": lambda: StudyScheduler(device="cpu"),
 }
+
+# the multi-device knobs, each with values the port reads as the reference
+# does, and one it refuses
+MULTI_DEVICE = {
+    "HYPEROPT_TPU_SHARD": (["", "off", "auto", "all", "3"], "-2"),
+    "HYPEROPT_TPU_HIST_SHARD_MIN": (["", "1024", "64"], "0"),
+    "HYPEROPT_TPU_ALLGATHER_TIMEOUT": (["", "0", "2.5"], "soon"),
+    "HYPEROPT_TPU_PAYLOAD": (["", "u8", "f32"], "bits"),
+}
+
+
+@pytest.fixture(autouse=True)
+def _disarmed_port_globals(monkeypatch):
+    """``fmin_multihost`` beats the port's process-global watchdog: a
+    disabled one here, so no thread outlives the test."""
+    from hyperopt_tpu_torch.obs import flight, watchdog
+
+    fr = flight.FlightRecorder()
+    fr.enabled = False
+    monkeypatch.setattr(flight, "_global", fr)
+    monkeypatch.setattr(watchdog, "_global", watchdog._DISABLED)
 
 
 @pytest.fixture
@@ -141,6 +167,30 @@ def test_refused_knob_raises_naming_its_item(name, no_knobs, tmp_path):
     assert not any(tmp_path.iterdir())  # nothing the knob names was written
 
 
+@pytest.mark.parametrize("name", sorted(MULTI_DEVICE))
+def test_multi_device_knobs_are_honoured(name, no_knobs):
+    from hyperopt_tpu import _env as ref_env
+    from hyperopt_tpu_torch.parallel import payload
+
+    assert _env.KNOBS[name].treatment == "honoured"
+    read = {"HYPEROPT_TPU_SHARD": (_env.parse_shard, ref_env.parse_shard),
+            "HYPEROPT_TPU_HIST_SHARD_MIN": (_env.parse_hist_shard_min,
+                                            ref_env.parse_hist_shard_min),
+            "HYPEROPT_TPU_ALLGATHER_TIMEOUT": (_env.parse_allgather_timeout,
+                                               ref_env.parse_allgather_timeout),
+            "HYPEROPT_TPU_PAYLOAD": (payload.wire_format, None)}[name]
+    good, bad = MULTI_DEVICE[name]
+    for raw in good:
+        no_knobs.setenv(name, raw)
+        if read[1] is not None:
+            assert read[0]() == read[1](), raw
+        else:
+            assert read[0]() == (raw or "u8")
+    no_knobs.setenv(name, bad)  # the reference warns and disarms; the port raises
+    with pytest.raises(ValueError, match=name):
+        read[0]()
+
+
 @pytest.mark.parametrize("name", sorted(DISARMING))
 def test_disarming_values_of_refused_knobs_are_accepted(name, no_knobs):
     for raw in DISARMING[name]:
@@ -183,6 +233,9 @@ def test_not_ported_names_the_knob_and_its_value(no_knobs):
                        match=r"HYPEROPT_TPU_COMPILE_PLANE='on' .*item 13"):
         StudyScheduler(device="cpu")
     no_knobs.delenv("HYPEROPT_TPU_COMPILE_PLANE")
-    no_knobs.setenv("HYPEROPT_TPU_SHARD", "2")
-    with pytest.raises(NotImplementedError, match="HYPEROPT_TPU_SHARD='2'"):
-        device_fmin.DeviceLoopRunner(Domain(_quadratic, _SPACE), {}, 1, 4, device="cpu")
+    no_knobs.setenv("HYPEROPT_TPU_DEVMEM", "5")
+    with pytest.raises(NotImplementedError, match="HYPEROPT_TPU_DEVMEM='5' .*item 14"):
+        _multihost()
+    no_knobs.delenv("HYPEROPT_TPU_DEVMEM")
+    no_knobs.setenv("HYPEROPT_TPU_SHARD", "2")  # honoured: one CPU, an unsharded loop
+    device_fmin.DeviceLoopRunner(Domain(_quadratic, _SPACE), {}, 1, 4, device="cpu")
