@@ -127,6 +127,39 @@ Phases, each of which fails the run (non-zero exit) on its own:
     phase 1 did not plan is then held against its plain version on
     every candidate (``plain_cmp``).
 
+14. The service plane: (a) ``ServiceHTTPServer`` in this process on the
+    card over ``StudyScheduler(store_root=<tmp>)`` with its WAL, the mix
+    (``make_study_mix(1024)``) admitted over ``POST /study`` and driven to
+    30 trials a study (5 prior, 25 TPE asks) by 128 ``ServiceClient``
+    threads of 8 studies each: client ask p50/p99, tells/s, waves, asks
+    and kernel launches per wave (each TPE wave launches the kernel of
+    every route it asks), WAL bytes and fsyncs per wave, the device's
+    idle share over a profiled slice; every answer in its space, every
+    study at 30 told, the ladder at level 0, ``drain()`` compacts.  (b)
+    ``python -m hyperopt_tpu_torch.service.server`` as a real process on
+    a store, SIGKILLed at the ``tick`` site by ``HYPEROPT_TPU_CHAOS`` and
+    restarted twice (the first restart armed again) while 64 clients (32
+    branin studies on the fused route, 32 ``hpob_surrogate`` on
+    ``ei_diff``, budget 24) retry through it: every study's (tid, params)
+    stream equals an undisturbed scheduler's in this process, bit for bit
+    on the fused route, and on ``ei_diff`` bit for bit or at rtol 1e-4,
+    atol 1e-5 with at most one flipped proposal (its component split
+    depends on the cohort's slot count); then a fresh root with
+    ``corrupt@wal`` armed: ``python -m hyperopt_tpu_torch.service.scrub``
+    reports every injected corruption and the reboot quarantines the
+    studies it names.  (c) The degrade ladder on 64 mix studies under
+    ``ioerr@tick`` and non-finite readbacks at the ``tick`` site: every
+    ask answers, the levels walked equal a ``DegradeLadder`` fed the same
+    faults, and the ladder climbs back to 0 once disarmed; the shapes the
+    kernels launched at on ``half_candidates`` and ``small_caps`` are
+    held against the plain versions after the phase.  (d) A WAL-only run
+    on the card resumes on the card (every ask regenerated): bit for bit
+    wherever every regenerated launch planned its component split as the
+    live launch did (the plans are printed), else at the card tolerance
+    with at most one flip; and a WAL written on the CPU resumes on the
+    card to the same ids, seeds and counts, its next 5 asks per study
+    agreeing at the card tolerance (flips counted).
+
 It imports neither JAX nor the JAX package.  Before the last line it
 prints one JSON line describing every kernel and the card's name and power
 limit; the last line is ``{"ok": true, "device": {...}}``.  Details go to
@@ -206,8 +239,8 @@ FUSED_SHAPES = [(256 * 6, 24, 65, 0, True), (256 * 6, 4 * 1024, 129, 0, True),
                 (256 * 6, 4 * 24, 129, 0, True), (128 * 6, 4 * 24, 129, 0, True)]
 # what the kernels line keeps of each phase-1 shape
 SHAPE_KEYS = ("shape", "dead", "below_all_dead", "bounded", "max_abs_err", "ms", "device_ms",
-              "plain_ms", "bound_ms", "bound_share", "per_thread", "splits", "cols", "rows",
-              "blocks", "registers", "smem_bytes")
+              "device_ms_by", "plain_ms", "bound_ms", "bound_share", "per_thread", "splits",
+              "cols", "rows", "blocks", "registers", "smem_bytes")
 
 
 def log(*a):
@@ -239,11 +272,34 @@ def cuda_ms(fn, reps=25, warmup=3):
     return statistics.median(times)
 
 
+def graph_ms(fn, reps=10):
+    """Mean device milliseconds per call of ``fn``, by CUDA events around
+    the replay of a CUDA graph that holds ``reps`` calls: the kernels
+    alone, without the host's enqueue time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = cuda_ms(graph.replay, reps=5, warmup=1) / reps
+    del graph
+    return ms
+
+
 def device_ms(fn, fragment, reps=10):
-    """Mean device time per call of the kernel whose name holds
-    ``fragment``, over ``reps`` calls of ``fn`` (torch.profiler, CUPTI):
-    the kernel alone, without the host's enqueue time that ``cuda_ms``
-    includes at launch scale.  Raises if the profiler saw no launch."""
+    """``(ms, by)``: the mean device time per call of the kernel whose
+    name holds ``fragment``, over ``reps`` calls of ``fn``.  ``by`` is
+    ``"profiler"`` (torch.profiler, CUPTI) unless the profiler's
+    ``key_averages()`` hold no launch of ``fragment``, as happened after
+    the sessions phase 14 (a) runs on the server's handler threads: then
+    ``"cuda_graph"`` (:func:`graph_ms`).  That the kernel launched is
+    shown by the wrapper's count and its output, not here."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -253,11 +309,14 @@ def device_ms(fn, fragment, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    hits = [a for a in prof.key_averages()
-            if a.device_type == torch.autograd.DeviceType.CUDA and fragment in a.key]
-    if not hits:
-        raise AssertionError(f"the profiler saw no launch of {fragment}")
-    return sum(a.self_device_time_total for a in hits) / 1e3 / reps
+    seen = [a for a in prof.key_averages()
+            if a.device_type == torch.autograd.DeviceType.CUDA]
+    hits = [a for a in seen if fragment in a.key]
+    if hits:
+        return sum(a.self_device_time_total for a in hits) / 1e3 / reps, "profiler"
+    log(f"device_ms: the profiler saw no launch of {fragment} (device events: "
+        f"{sorted({a.key for a in seen})}); timed from a CUDA graph of {reps} calls")
+    return graph_ms(fn, reps), "cuda_graph"
 
 
 def ei_bound(P, n, m):
@@ -369,14 +428,14 @@ def check_ei(P, n, m, dead, n_cmp, below_dead, usage):
     ok = bool(torch.isfinite(got).all()) and bool(
         (err <= TOL * torch.clamp(want.abs(), min=1.0)).all())
     ms = cuda_ms(lambda: megakernel.ei_diff(x, *tabs))
-    dev_ms = device_ms(lambda: megakernel.ei_diff(x, *tabs), "ei_diff_kernel")
+    dev_ms, dev_by = device_ms(lambda: megakernel.ei_diff(x, *tabs), "ei_diff_kernel")
     plain_ms = cuda_ms(lambda: megakernel.ei_diff_plain(xs, *tabs), reps=5)
     bound_ms, bound_by = ei_bound(P, n, m)
     plan = megakernel._launch_plan("ei_diff", P, n, m)
     row = {"shape": [P, n, m], "dead": dead, "below_all_dead": below_dead,
            "compared_candidates": xs.shape[1],
            "max_abs_err": float(err.max()), "ok": ok, "ms": ms, "device_ms": dev_ms,
-           "plain_ms": plain_ms, "plain_ms_shape": list(xs.shape) + [m],
+           "device_ms_by": dev_by, "plain_ms": plain_ms, "plain_ms_shape": list(xs.shape) + [m],
            "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / dev_ms,
            **plan, **usage_of(usage, f"ei_diff_kernelILi{plan['per_thread']}E")}
     log(f"ei_diff {row}")
@@ -407,13 +466,14 @@ def check_fused(P, N, m, dead, bounded, usage):
     if bounded:
         ok = ok and bool((x >= args[-2][:, None]).all()) and bool((x < args[-1][:, None]).all())
     ms = cuda_ms(lambda: megakernel.fused_sample_ei(*args, bounded))
-    dev_ms = device_ms(lambda: megakernel.fused_sample_ei(*args, bounded), "fused_kernel")
+    dev_ms, dev_by = device_ms(lambda: megakernel.fused_sample_ei(*args, bounded),
+                               "fused_kernel")
     plain_ms = cuda_ms(lambda: megakernel.fused_sample_ei_plain(*args, bounded), reps=5)
     bound_ms, bound_by = fused_bound(P, N, m)
     row = {"shape": [P, N, m], "dead": dead, "bounded": bounded,
            "max_abs_err": float(max(err_x.max(), err_ei.max())),
            "max_abs_err_x": float(err_x.max()), "max_abs_err_ei": float(err_ei.max()),
-           "ok": ok, "ms": ms, "device_ms": dev_ms,
+           "ok": ok, "ms": ms, "device_ms": dev_ms, "device_ms_by": dev_by,
            "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "bound_share": bound_ms / dev_ms,
            **megakernel._launch_plan("fused_sample_ei", P, N, m),
@@ -1804,23 +1864,26 @@ MD_TOL = (1e-4, 1e-5)  # rtol, atol of a comparison held at the card tolerance
 
 
 class LaunchLog:
-    """The shapes ``ei_diff`` and ``fused_sample_ei`` launch at, in order,
-    read from the launch checks every CUDA launch passes; the CPU's plain
-    twins pass none."""
+    """The shapes ``(name, P, n, m)`` ``ei_diff`` and ``fused_sample_ei``
+    launch at, in order, read from the launch checks every CUDA launch
+    passes (from any thread); the CPU's plain twins pass none.  With
+    ``tag``, each entry is ``(tag(), name, P, n, m)``."""
 
-    def __init__(self):
+    def __init__(self, tag=None):
         from hyperopt_tpu_torch import megakernel
 
         self.shapes = []
         self._mk = megakernel
         self._real = megakernel._launchable
+        self._tag = tag
 
     def __enter__(self):
-        real = self._real
+        real, tag = self._real, self._tag
 
         def recording(name, P, tensors):
-            self.shapes.append((name, P, tensors[0].shape[1], tensors[-1 if name == "ei_diff"
-                                                                     else 2].shape[1]))
+            shape = (name, P, tensors[0].shape[1],
+                     tensors[-1 if name == "ei_diff" else 2].shape[1])
+            self.shapes.append(shape if tag is None else (tag(), *shape))
             return real(name, P, tensors)
 
         self._mk._launchable = recording
@@ -2056,9 +2119,9 @@ def _md_shard_knob(out, launches, shapes, fused_shapes):
         old = _md_set_env("HYPEROPT_TPU_SHARD", knob)
         ticks_of[knob, entries] = tick_log = []
 
-        def tick(cohort, demand, mesh=None, tick_log=tick_log):
+        def tick(cohort, demand, mesh=None, tick_log=tick_log, **kw):
             before = megakernel.fused_sample_ei.launches
-            packed = real_tick(cohort, demand, mesh=mesh)
+            packed = real_tick(cohort, demand, mesh=mesh, **kw)
             tick_log.append((mesh.size if mesh is not None else 1,
                              megakernel.fused_sample_ei.launches - before))
             return packed
@@ -2469,9 +2532,753 @@ def phase_multi_device(report):
     return launches, sorted(shapes), sorted(fused_shapes)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the service plane
+# ---------------------------------------------------------------------------
+
+# (a) the standing mix over HTTP: 1024 studies, 128 client threads of 8
+# studies each, every study to 10 trials (5 prior, 5 TPE asks: cut from
+# phase 7's 25, PERF.md §4)
+SVC_STUDIES, SVC_CLIENTS, SVC_TRIALS, SVC_STARTUP = 1024, 128, 10, 5
+SVC_CLIENT_PROCS = 8  # processes the client threads run in, 16 each
+SVC_WINDOW = 0.005  # the server's gather window (seconds)
+# waves profiled from the half-way point, each in a session on the thread
+# that leads it: a session started in another thread records none of the
+# wave's kernels, and one over every thread (profile_all_threads) leaves
+# the process hanging at exit (torch 2.11); a session's start costs
+# seconds, so few
+SVC_PROFILED_WAVES = 2
+# (b) crash and resume: 32 branin (fused) + 32 hpob_surrogate (ei_diff)
+# studies, budget 24, the server killed at these tick hits (the first
+# restart armed again), then a fresh root with corrupted WAL appends
+SVC_CRASH_STUDIES, SVC_CRASH_BUDGET, SVC_CRASH_KILLS = 32, 24, (40, 30)
+SVC_CORRUPT_STUDIES, SVC_CORRUPT_TRIALS, SVC_CORRUPT_P = 16, 10, 0.02
+SVC_CHILD_SEC = 600  # a server process's limit
+# (c) the degrade ladder: the mix's first 64 studies, injected faults for
+# SVC_LADDER_WAVES waves at patience SVC_LADDER_PATIENCE
+SVC_LADDER_STUDIES, SVC_LADDER_WAVES, SVC_LADDER_PATIENCE = 64, 30, 2
+SVC_LADDER_P = 0.05
+# (d) replay: 16 mix studies, WAL only, 4 TPE waves, then 5 more asks each
+SVC_REPLAY_STUDIES, SVC_REPLAY_WAVES, SVC_REPLAY_NEXT = 16, 4, 5
+
+
+def _svc_reset_counts():
+    from hyperopt_tpu_torch import megakernel
+
+    megakernel.ei_diff.launches = megakernel.fused_sample_ei.launches = 0
+
+
+def _svc_counts():
+    from hyperopt_tpu_torch import megakernel
+
+    return {"fused_sample_ei": megakernel.fused_sample_ei.launches,
+            "ei_diff": megakernel.ei_diff.launches}
+
+
+def _svc_route(cs):
+    from hyperopt_tpu_torch import megakernel
+
+    return "fused_sample_ei" if megakernel.armed(cs) else "ei_diff"
+
+
+def svc_client(argv):
+    """A client process of phase 14 (a) (``chip_smoke.py --svc-client URL
+    FIRST LAST THREADS STUDIES TRIALS OUT``): ``THREADS`` ``ServiceClient``
+    threads drive the studies ``FIRST..LAST-1`` of ``make_study_mix(STUDIES)``,
+    an equal share each, to ``TRIALS`` trials each, and write each ask's
+    (start on the wall clock, ms, TPE or not) and the faults to ``OUT``."""
+    import threading
+
+    from hyperopt_tpu_torch import zoo
+    from hyperopt_tpu_torch.base import Domain
+    from hyperopt_tpu_torch.service import ServiceClient
+
+    url, path = argv[0], argv[6]
+    first, last, n_threads, n_studies, n_trials = (int(a) for a in argv[1:6])
+    mix = zoo.make_study_mix(n_studies)[first:last]
+    cs_of = {it.domain.name: Domain(None, it.domain.space).cs for it in mix}
+    per = len(mix) // n_threads
+    res = {"asks": [], "bad": [], "errors": []}
+    lock = threading.Lock()
+
+    def client(k):
+        try:
+            c = ServiceClient(url, key=first + k, timeout=600)
+            mine = []
+            for it in mix[k * per:(k + 1) * per]:
+                sid = c.create_study(zoo=it.domain.name, seed=it.seed,
+                                     n_startup_jobs=SVC_STARTUP)
+                mine.append((sid, it.domain))
+            for t in range(n_trials):
+                for sid, dom in mine:
+                    start, t0 = time.time(), time.perf_counter()
+                    (a,) = c.ask(sid)
+                    ms = 1e3 * (time.perf_counter() - t0)
+                    doc = {"misc": {"vals": {l: [v] for l, v in a["params"].items()}}}
+                    if not in_space(cs_of[dom.name], doc) or a.get("degraded"):
+                        res["bad"].append((sid, a))
+                    c.tell(sid, a["tid"], float(dom.objective(a["params"])))
+                    with lock:
+                        res["asks"].append((start, ms, t >= SVC_STARTUP))
+        except Exception as e:  # noqa: BLE001 - reported to the parent
+            res["errors"].append(f"client {first + k}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(n_threads)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    with open(path, "w") as f:
+        json.dump(res, f, default=str)
+    return 0
+
+
+def _svc_shape_counts(shapes):
+    """``{kernel: {(P, n, m): launches}}`` of a :class:`LaunchLog`'s
+    entries (launches with no work left out)."""
+    out = {"ei_diff": {}, "fused_sample_ei": {}}
+    for name, P, n, m in shapes:
+        if P and n:
+            out[name][(P, n, m)] = out[name].get((P, n, m), 0) + 1
+    return out
+
+
+def _svc_http(out, shapes, fused_shapes):
+    """(a) the mix over HTTP: the server in this process on the card, the
+    client threads in SVC_CLIENT_PROCS processes (in this process they
+    would take the interpreter lock from the wave leader).  Every shape
+    the waves launch the kernels at joins ``shapes``/``fused_shapes``."""
+    import tempfile
+    import urllib.request
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperopt_tpu_torch.service import ServiceClient, StudyScheduler
+    from hyperopt_tpu_torch.service.server import ServiceHTTPServer
+
+    root = tempfile.mkdtemp(prefix="svc_http_")
+    sched = StudyScheduler(device=DEVICE, store_root=root, wave_window=SVC_WINDOW)
+    server = ServiceHTTPServer(0, scheduler=sched)
+    if not server.start():
+        raise AssertionError("the service did not bind")
+    waves = []  # (asks, routes asked, fused launches, ei_diff launches, sec, profiled)
+    inner = sched._run_wave_inner
+    prof_state = {"left": None, "busy_us": 0.0, "windows": []}  # wall-clock spans
+
+    def counted_wave(reqs):
+        before = _svc_counts()
+        routes = {_svc_route(r.study.domain.cs) for r in reqs}
+        profiled = bool(prof_state["left"])
+        t0 = time.perf_counter()
+        if profiled:
+            prof_state["left"] -= 1
+            w0 = time.time()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                inner(reqs)
+                torch.cuda.synchronize()
+            prof_state["windows"].append((w0, time.time()))
+            prof_state["busy_us"] += sum(a.self_device_time_total for a in prof.key_averages()
+                                         if a.device_type == torch.autograd.DeviceType.CUDA)
+        else:
+            inner(reqs)
+        dt = time.perf_counter() - t0
+        after = _svc_counts()
+        waves.append((len(reqs), sorted(routes), after["fused_sample_ei"] - before["fused_sample_ei"],
+                      after["ei_diff"] - before["ei_diff"], dt, profiled))
+
+    sched._run_wave_inner = counted_wave
+    per_proc = SVC_STUDIES // SVC_CLIENT_PROCS
+    threads = SVC_CLIENTS // SVC_CLIENT_PROCS
+    outs = [os.path.join(root, f"client{i}.json") for i in range(SVC_CLIENT_PROCS)]
+    env = {**os.environ, "HYPEROPT_TPU_WATCHDOG": "0"}
+    total = SVC_STUDIES * SVC_TRIALS
+    tells = sched.metrics.counter("service.tells")  # counts every scheduler's tells
+    tells0 = tells.value
+    with LaunchLog() as rec:
+        _svc_reset_counts()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--svc-client",
+                                   server.url, str(i * per_proc), str((i + 1) * per_proc),
+                                   str(threads), str(SVC_STUDIES), str(SVC_TRIALS), outs[i]],
+                                  env=env)
+                 for i in range(SVC_CLIENT_PROCS)]
+        while any(p.poll() is None for p in procs):
+            if prof_state["left"] is None and tells.value - tells0 >= total // 2:
+                prof_state["left"] = SVC_PROFILED_WAVES
+            if time.perf_counter() - t0 > SVC_CHILD_SEC:
+                for p in procs:
+                    p.kill()
+                raise AssertionError(f"the clients did not finish in {SVC_CHILD_SEC} s")
+            time.sleep(0.05)
+        wall = time.perf_counter() - t0
+        n_tells = tells.value - tells0
+        launches = _svc_counts()
+    by_shape = _svc_shape_counts(rec.shapes)
+    shapes.update(by_shape["ei_diff"])
+    fused_shapes.update(by_shape["fused_sample_ei"])
+    res_c = {"asks": [], "bad": [], "errors": []}
+    for i, (p, path) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or not os.path.exists(path):
+            raise AssertionError(f"client process {i} exited {p.returncode}")
+        with open(path) as f:
+            for k, v in json.load(f).items():
+                res_c[k] += v
+    if res_c["errors"]:
+        raise AssertionError(f"{len(res_c['errors'])} clients failed, e.g. {res_c['errors'][0]}")
+    status = ServiceClient(server.url).studies()
+    wrong = [s for s in status["studies"]
+             if s.get("n_pending") != 0 or s.get("n_told") != SVC_TRIALS]
+    metrics = urllib.request.urlopen(server.url + "/metrics", timeout=60).read().decode()
+    degrade = sched.degrade.status()
+    wal = {"bytes": sched.journal.size_bytes(), "appends": sched.journal.appends,
+           "fsyncs": sched.journal.syncs}
+    compactions = sched.journal.compactions
+    quiesced = server.drain()
+    tpe_waves = [w for w in waves if w[0]]
+    missed = [w for w in tpe_waves
+              if ("fused_sample_ei" in w[1] and w[2] < 1) or ("ei_diff" in w[1] and w[3] < 1)]
+    timed = [w[4] for w in tpe_waves if not w[5]]  # the profiled ones pay the profiler
+    n_prof = len(tpe_waves) - len(timed)
+    busy_ms = prof_state["busy_us"] / 1e3 / n_prof if n_prof else None
+    # the latencies leave out the asks that overlapped a profiled wave (its
+    # session's start stalls every queued ask for seconds)
+    kept = [a for a in res_c["asks"]
+            if not any(a[0] < w1 and a[0] + a[1] / 1e3 > w0 for w0, w1 in prof_state["windows"])]
+    ms = sorted(a[1] for a in kept)
+    tms = sorted(a[1] for a in kept if a[2])
+
+    def pct(xs, q):
+        return xs[min(len(xs) - 1, math.ceil(q * len(xs)) - 1)] if xs else None
+
+    n_waves = len(tpe_waves)
+    res = {
+        "studies": SVC_STUDIES, "clients": SVC_CLIENTS, "client_processes": SVC_CLIENT_PROCS,
+        "trials": SVC_TRIALS, "tpe_asks_per_study": SVC_TRIALS - SVC_STARTUP, "wall_sec": wall,
+        "asks": len(res_c["asks"]), "asks_overlapping_profiled_waves": len(res_c["asks"]) - len(kept),
+        "ask_ms_p50": pct(ms, 0.5), "ask_ms_p99": pct(ms, 0.99),
+        "tpe_ask_ms_p50": pct(tms, 0.5), "tpe_ask_ms_p99": pct(tms, 0.99),
+        "ask_ms_p99_all": pct(sorted(a[1] for a in res_c["asks"]), 0.99),
+        "asks_per_sec": len(res_c["asks"]) / wall, "tells_per_sec": n_tells / wall,
+        "tpe_asks_per_sec": sum(1 for a in res_c["asks"] if a[2]) / wall,
+        "waves": n_waves, "unprofiled_wave_sec_total": sum(timed),
+        "wave_ms_p50": 1e3 * statistics.median(timed) if timed else None,
+        "asks_per_wave": statistics.mean(w[0] for w in tpe_waves) if n_waves else 0,
+        "asks_per_wave_max": max((w[0] for w in tpe_waves), default=0),
+        "launches": launches,
+        "fused_launches_per_wave": launches["fused_sample_ei"] / max(n_waves, 1),
+        "ei_diff_launches_per_wave": launches["ei_diff"] / max(n_waves, 1),
+        "launches_by_shape": {k: sorted(v.items()) for k, v in by_shape.items()},
+        "waves_with_both_kernels": sum(1 for w in tpe_waves if w[2] and w[3]),
+        "waves_missing_a_kernel": len(missed),
+        "wal": wal, "wal_bytes_per_wave": wal["bytes"] / max(n_waves, 1),
+        "fsyncs_per_wave": wal["fsyncs"] / max(n_waves, 1),
+        # the device's busy ms per TPE wave, read in the profiled waves, and
+        # the idle share of the drive extrapolated from it (not a reading:
+        # 1 - busy per wave x TPE waves / wall; startup-only waves left out)
+        "profiled_waves": n_prof, "device_busy_ms_per_wave": busy_ms,
+        "device_idle_share_extrapolated": (1.0 - busy_ms * n_waves / (1e3 * wall)
+                                           if busy_ms else None),
+        "degrade": degrade, "drain_quiesced": quiesced,
+        "drain_compactions": sched.journal.compactions - compactions,
+    }
+    out["http"] = res
+    log(f"phase 14 (a): {res}")
+    bad = res_c["bad"]
+    if bad:
+        raise AssertionError(f"{len(bad)} answers out of their space or degraded, e.g. {bad[0]}")
+    if missed:
+        raise AssertionError(f"{len(missed)} TPE waves did not launch the kernel of a route "
+                             f"they asked, e.g. {missed[0]}")
+    if not (launches["fused_sample_ei"] and launches["ei_diff"]):
+        raise AssertionError(f"a kernel never launched: {launches}")
+    if wrong:
+        raise AssertionError(f"{len(wrong)} studies not at {SVC_TRIALS} told, e.g. {wrong[0]}")
+    if "hyperopt_tpu_service_asks_total" not in metrics:
+        raise AssertionError("GET /metrics lacks the service.* family")
+    if degrade["level"] != 0 or degrade["faults"] != 0:
+        raise AssertionError(f"the ladder moved: {degrade}")
+    if not quiesced or res["drain_compactions"] < 1:
+        raise AssertionError(f"drain did not quiesce and compact: {quiesced}, "
+                             f"{res['drain_compactions']}")
+    return launches
+
+
+def _svc_free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _svc_spawn(root, port, chaos=None):
+    """``python -m hyperopt_tpu_torch.service.server`` on ``root``; returns
+    the process once it announced its URL."""
+    env = {**os.environ, "HYPEROPT_TPU_WATCHDOG": "0"}
+    env.pop("HYPEROPT_TPU_CHAOS", None)
+    if chaos:
+        env["HYPEROPT_TPU_CHAOS"] = chaos
+    cmd = [sys.executable, "-m", "hyperopt_tpu_torch.service.server", "--port", str(port),
+           "--announce", "--store", root]
+    if DEVICE == "cpu":
+        cmd += ["--device", "cpu"]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, env=env)
+    line = proc.stdout.readline()
+    if not line.startswith("SERVICE_URL "):
+        proc.kill()
+        raise AssertionError(f"the server did not announce itself: {line!r}")
+    return proc
+
+
+def _svc_stop(proc):
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def _svc_streams_equal(got, want):
+    """Per study: bit for bit, or at the card tolerance with the flipped
+    proposals counted (a proposal whose values leave the tolerance)."""
+    import numpy as np
+
+    rtol, atol = MD_TOL
+    bitwise, flips, worst = 0, [], 0.0
+    for g, w in zip(got, want):
+        if [t for t, _ in g] != [t for t, _ in w]:
+            raise AssertionError(f"tids differ: {[t for t, _ in g]} vs {[t for t, _ in w]}")
+        if g == w:
+            bitwise += 1
+            flips.append(0)
+            continue
+        n = 0
+        for (_, pg), (_, pw) in zip(g, w):
+            for k in pw:
+                a, b = float(pg[k]), float(pw[k])
+                worst = max(worst, abs(a - b))
+                if not np.isclose(a, b, rtol=rtol, atol=atol):
+                    n += 1
+                    break
+        flips.append(n)
+    return bitwise, flips, worst
+
+
+def _svc_crash(out):
+    """(b) SIGKILL and resume of a real server process, then scrub over a
+    corrupted WAL."""
+    import json as _json
+    import tempfile
+    import threading
+    import urllib.request
+
+    from hyperopt_tpu_torch import zoo
+    from hyperopt_tpu_torch.retry import RetryPolicy
+    from hyperopt_tpu_torch.service import ServiceClient, StudyScheduler
+
+    doms = ([zoo.ZOO["branin"]] * SVC_CRASH_STUDIES
+            + [zoo.ZOO["hpob_surrogate"]] * SVC_CRASH_STUDIES)
+    seeds = [300 + i for i in range(len(doms))]
+    # the undisturbed run: the port's scheduler in this process
+    ref = StudyScheduler(device=DEVICE)
+    rsids = [ref.create_study(d.space, seed=s, n_startup_jobs=SVC_STARTUP,
+                              max_trials=SVC_CRASH_BUDGET) for d, s in zip(doms, seeds)]
+    want = {sid: [] for sid in rsids}
+    with LaunchLog() as ref_shapes:
+        for _ in range(SVC_CRASH_BUDGET):
+            for sid, (a,) in ref.ask_many([(sid, 1) for sid in rsids]).items():
+                want[sid].append((a["tid"], a["params"]))
+                ref.tell(sid, a["tid"], doms[rsids.index(sid)].objective(a["params"]))
+    root = tempfile.mkdtemp(prefix="svc_crash_")
+    port = _svc_free_port()
+    url = f"http://127.0.0.1:{port}"
+    procs = [_svc_spawn(root, port, f"7:kill@tick:{SVC_CRASH_KILLS[0]}")]
+    got = [[] for _ in doms]
+    errors = []
+    retry = RetryPolicy(max_retries=400, base_delay=0.05, max_delay=0.5)
+
+    def client(i):
+        try:
+            c = ServiceClient(url, retry=retry, key=i, timeout=120)
+            sid = c.create_study(zoo=doms[i].name, seed=seeds[i], n_startup_jobs=SVC_STARTUP,
+                                 max_trials=SVC_CRASH_BUDGET)
+            for _ in range(SVC_CRASH_BUDGET):
+                (a,) = c.ask(sid)
+                got[i].append((a["tid"], a["params"]))
+                c.tell(sid, a["tid"], float(doms[i].objective(a["params"])))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"client {i}: {type(e).__name__}: {e}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,), daemon=True) for i in range(len(doms))]
+    for th in threads:
+        th.start()
+    restarts, kills = [], 0
+    while any(th.is_alive() for th in threads):
+        if procs[-1].poll() is not None:
+            kills += procs[-1].returncode == -9
+            t1 = time.perf_counter()
+            chaos = (f"8:kill@tick:{SVC_CRASH_KILLS[1]}" if len(procs) == 1 else None)
+            procs.append(_svc_spawn(root, port, chaos))
+            restarts.append(time.perf_counter() - t1)
+        if time.perf_counter() - t0 > SVC_CHILD_SEC:
+            break
+        time.sleep(0.05)
+    for th in threads:
+        th.join(timeout=5)
+    drive_sec = time.perf_counter() - t0
+    status = ServiceClient(url).studies()
+    resumes = [_json.loads(urllib.request.urlopen(url + "/snapshot", timeout=60).read())
+               .get("wal", {}).get("last_resume")]
+    _svc_stop(procs[-1])
+    for p in procs:
+        _svc_stop(p)
+    if errors:
+        raise AssertionError(f"{len(errors)} clients failed, e.g. {errors[0]}")
+    wants = [want[sid] for sid in rsids]
+    n_fused = SVC_CRASH_STUDIES
+    fb, fflips, fworst = _svc_streams_equal(got[:n_fused], wants[:n_fused])
+    eb, eflips, eworst = _svc_streams_equal(got[n_fused:], wants[n_fused:])
+    counts_ok = all(s.get("n_told") == SVC_CRASH_BUDGET and s.get("state") == "done"
+                    for s in status["studies"])
+    from hyperopt_tpu_torch import megakernel
+
+    plans = sorted({(P, n, m, megakernel._launch_plan("ei_diff", P, n, m)["splits"])
+                    for name, P, n, m in ref_shapes.shapes
+                    if name == "ei_diff"}) if DEVICE != "cpu" else []
+    res = {"studies": len(doms), "budget": SVC_CRASH_BUDGET, "kills": kills,
+           "restarts": len(restarts), "restart_sec": restarts, "drive_sec": drive_sec,
+           "fused_bitwise": fb, "fused_flips": fflips, "fused_max_abs_diff": fworst,
+           "ei_diff_bitwise": eb, "ei_diff_flips": eflips, "ei_diff_max_abs_diff": eworst,
+           "undisturbed_ei_diff_plans": plans, "last_resume": resumes[0],
+           "counts_ok": counts_ok}
+    out["crash"] = res
+    log(f"phase 14 (b): {res}")
+    if kills < 2 or len(restarts) < 2:
+        raise AssertionError(f"the server was killed {kills} times, restarted {len(restarts)}")
+    if not counts_ok:
+        raise AssertionError(f"studies not done at {SVC_CRASH_BUDGET} told: {status['studies'][:2]}")
+    if fb != n_fused:
+        raise AssertionError(f"fused-route studies left the undisturbed stream: {fflips}")
+    if max(eflips) > 1:
+        raise AssertionError(f"ei_diff-route studies flipped more than one proposal: {eflips}")
+
+    # a fresh root, its WAL appends corrupted at random; scrub, then reboot
+    root = tempfile.mkdtemp(prefix="svc_corrupt_")
+    proc = _svc_spawn(root, port, f"9:corrupt@wal:{SVC_CORRUPT_P}")
+    c = ServiceClient(url, retry=retry)
+    for i in range(SVC_CORRUPT_STUDIES):
+        dom = doms[i % len(doms)]
+        sid = c.create_study(zoo=dom.name, seed=500 + i, n_startup_jobs=SVC_STARTUP)
+        for _ in range(SVC_CORRUPT_TRIALS):
+            (a,) = c.ask(sid)
+            c.tell(sid, a["tid"], float(dom.objective(a["params"])))
+    metrics = urllib.request.urlopen(url + "/metrics", timeout=60).read().decode()
+    import re
+
+    m = re.search(r'hyperopt_tpu_chaos_corrupt_wal_total\{namespace="service"\} ([0-9.e+]+)',
+                  metrics)
+    injected = int(float(m.group(1))) if m else 0
+    os.kill(proc.pid, 9)  # leave the corrupt chain as it is (a drain would compact)
+    proc.wait()
+    scrub = subprocess.run([sys.executable, "-m", "hyperopt_tpu_torch.service.scrub", root,
+                            "--json"], capture_output=True, text=True, timeout=300)
+    rep = _json.loads(scrub.stdout)
+    corrupt = sum(w["counts"]["corrupt"] for w in rep["wals"])
+    scrub_sids = {s for w in rep["wals"] for s in w["corrupt_sids"]}
+    proc = _svc_spawn(root, port)
+    snap = _json.loads(urllib.request.urlopen(url + "/snapshot", timeout=60).read())
+    quarantined = set(snap.get("quarantined") or {})
+    _svc_stop(proc)
+    res2 = {"injected": injected, "scrub_corrupt_records": corrupt, "scrub_rc": scrub.returncode,
+            "scrub_studies": sorted(scrub_sids), "quarantined": sorted(quarantined)}
+    out["corrupt"] = res2
+    log(f"phase 14 (b) scrub: {res2}")
+    if injected < 1:
+        raise AssertionError("no WAL record was corrupted; raise the probability")
+    if corrupt < injected or scrub.returncode != 2:
+        raise AssertionError(f"scrub found {corrupt} corrupt records of {injected} injected")
+    if quarantined != scrub_sids:
+        raise AssertionError(f"the reboot quarantined {sorted(quarantined)}, scrub reported "
+                             f"{sorted(scrub_sids)}")
+
+
+def _svc_ladder(out, shapes, fused_shapes):
+    """(c) the degrade ladder under injected tick faults and non-finite
+    readbacks, then its climb back."""
+    import random
+
+    import numpy as np
+
+    from hyperopt_tpu_torch import chaos, zoo
+    from hyperopt_tpu_torch.service import DegradeLadder, StudyScheduler
+    from hyperopt_tpu_torch.service.overload import LADDER_LEVELS
+
+    sched = StudyScheduler(device=DEVICE, degrade=SVC_LADDER_PATIENCE)
+    mix = zoo.make_study_mix(SVC_LADDER_STUDIES)
+    sids = {sched.create_study(it.domain.space, seed=it.seed,
+                               n_startup_jobs=it.n_startup_jobs): it for it in mix}
+    events = []  # ("fault" | "clean", level after)
+    ladder = sched.degrade
+    rec_fault, rec_clean = ladder.record_fault, ladder.record_clean_wave
+
+    def fault():
+        events.append(("fault", rec_fault()))
+        return ladder.level()
+
+    def clean():
+        events.append(("clean", rec_clean()))
+        return ladder.level()
+
+    ladder.record_fault, ladder.record_clean_wave = fault, clean
+    rng = random.Random(13)
+    corrupt_floats = chaos.corrupt_floats
+    nonfinite = [0]
+
+    def nan_readback(site, arr, metrics=None):
+        if site == "tick" and rng.random() < SVC_LADDER_P:
+            arr = np.array(arr, copy=True)
+            arr.reshape(arr.shape[0], -1)[:, 0] = np.nan
+            nonfinite[0] += 1
+        return arr
+
+    answers = degraded = 0
+    chaos.configure(f"11:ioerr@tick:{SVC_LADDER_P}")
+    chaos.corrupt_floats = nan_readback
+    _svc_reset_counts()
+    sl = LaunchLog(tag=ladder.level).__enter__()
+    try:
+        for _ in range(SVC_STARTUP + SVC_LADDER_WAVES):
+            got = sched.ask_many([(sid, 1) for sid in sids])
+            if set(got) != set(sids):
+                raise AssertionError(f"{len(sids) - len(got)} asks got no answer")
+            for sid, (a,) in got.items():
+                answers += 1
+                degraded += bool(a.get("degraded"))
+                sched.tell(sid, a["tid"], sids[sid].domain.objective(a["params"]))
+    finally:
+        sl.__exit__()
+        chaos.corrupt_floats = corrupt_floats
+        chaos.configure(None)
+        chaos.reset()
+    launches = _svc_counts()
+    level_shapes = {}
+    for lv, *shape in sl.shapes:
+        level_shapes.setdefault(lv, []).append(tuple(shape))
+    level_shapes = {lv: _svc_shape_counts(s) for lv, s in level_shapes.items()}
+    armed_levels = [lv for _, lv in events]
+    climb = 0
+    while ladder.level() and climb < 4 * SVC_LADDER_PATIENCE * len(LADDER_LEVELS):
+        got = sched.ask_many([(sid, 1) for sid in sids])
+        for sid, (a,) in got.items():
+            sched.tell(sid, a["tid"], sids[sid].domain.objective(a["params"]))
+        climb += 1
+    predicted = DegradeLadder(SVC_LADDER_PATIENCE)
+    want = [predicted.record_fault() if kind == "fault" else predicted.record_clean_wave()
+            for kind, _ in events]
+    got_levels = [lv for _, lv in events]
+    res = {"waves": SVC_STARTUP + SVC_LADDER_WAVES, "answers": answers, "degraded": degraded,
+           "faults": ladder.faults, "nonfinite_injected": nonfinite[0],
+           "levels_walked": sorted(set(armed_levels)), "events": len(events),
+           "climb_waves": climb, "final_level": ladder.level(), "launches": launches,
+           "launches_by_level_and_shape": {
+               LADDER_LEVELS[lv]["name"]: {k: sorted(v.items()) for k, v in s.items()}
+               for lv, s in sorted(level_shapes.items())}}
+    out["ladder"] = res
+    log(f"phase 14 (c): {res}")
+    for s in level_shapes.values():
+        shapes.update(s["ei_diff"])
+        fused_shapes.update(s["fused_sample_ei"])
+    if got_levels != want:
+        raise AssertionError(f"the ladder walked {got_levels}, a DegradeLadder predicts {want}")
+    if not degraded or ladder.faults < 1:
+        raise AssertionError(f"no fault was absorbed: {res}")
+    if ladder.level() != 0:
+        raise AssertionError(f"the ladder did not climb back: level {ladder.level()}")
+    return launches
+
+
+def _svc_replay(out, shapes):
+    """(d) a WAL written on the CPU resumes on the card; a WAL written on
+    the card resumes on the card (every ask regenerated), with each
+    regenerated launch's plan beside the live one's.  Returns the
+    launches of the card's live run, of the two resumes and of the asks
+    after the resume, each counted on its own."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from hyperopt_tpu_torch import zoo
+    from hyperopt_tpu_torch.service import StudyScheduler
+    from hyperopt_tpu_torch.service import scheduler as sched_mod
+
+    mix = zoo.make_study_mix(SVC_REPLAY_STUDIES)
+    root = tempfile.mkdtemp(prefix="svc_replay_")
+    ticks = []  # (phase, sids in the tick, ei_diff plans of the tick)
+    tick = sched_mod._Cohort.tick
+    phase = ["live"]
+
+    def logged_tick(self, demand, mesh=None, cand_scale=1.0):
+        with LaunchLog() as sl:
+            packed = tick(self, demand, mesh=mesh, cand_scale=cand_scale)
+        ticks.append((phase[0], {self.slots[s].study_id for s in demand},
+                      tuple((P, n, m) for name, P, n, m in sl.shapes if name == "ei_diff")))
+        return packed
+
+    def drive(sched, waves, record):
+        sids = [sched.create_study(it.domain.space, seed=it.seed, study_id=f"r{i}",
+                                   space_spec={"zoo": it.domain.name},
+                                   n_startup_jobs=it.n_startup_jobs)
+                for i, it in enumerate(mix)]
+        for _ in range(waves):
+            for sid, (a,) in sched.ask_many([(sid, 1) for sid in sids]).items():
+                record.setdefault(sid, []).append((a["tid"], a["params"]))
+                sched.tell(sid, a["tid"], mix[int(sid[1:])].domain.objective(a["params"]))
+        return sids
+
+    def stream(sched, sid):
+        return [(d["tid"], {k: v[0] for k, v in d["misc"]["vals"].items() if v})
+                for d in sched._studies[sid].trials.trials]
+
+    sched_mod._Cohort.tick = logged_tick
+    try:
+        # the card's live run and its WAL-only resume on the card
+        live = {}
+        _svc_reset_counts()
+        card = StudyScheduler(device=DEVICE, wal=os.path.join(root, "card.wal"))
+        sids = drive(card, SVC_STARTUP + SVC_REPLAY_WAVES, live)
+        card.drain()
+        launches = {"service_replay_live": _svc_counts()}
+        phase[0] = "replay"
+        _svc_reset_counts()
+        back = StudyScheduler(device=DEVICE, wal=os.path.join(root, "card.wal"))
+        resumed = _svc_counts()
+    finally:
+        sched_mod._Cohort.tick = tick
+    plans = {}
+    from hyperopt_tpu_torch import megakernel
+
+    for ph, ids, ei in ticks:
+        splits = tuple(megakernel._launch_plan("ei_diff", *s)["splits"] if DEVICE != "cpu"
+                       else 1 for s in ei)
+        for sid in ids:
+            plans.setdefault((ph, sid), []).append((tuple(ei), splits))
+    same_plan = bitwise = tol = flips = 0
+    worst = 0.0
+    for sid in sids:
+        a, b = stream(card, sid), stream(back, sid)
+        lp = [p for p in plans.get(("live", sid), []) if p[0]]
+        rp = [p for p in plans.get(("replay", sid), []) if p[0]]
+        match = [x[1] for x in lp] == [x[1] for x in rp]
+        same_plan += match
+        if a == b:
+            bitwise += 1
+            continue
+        if match:
+            raise AssertionError(f"{sid}: the replay planned every launch as the live run "
+                                 "and still left its bits")
+        tol += 1
+        for (ta, pa), (tb, pb) in zip(a, b):
+            assert ta == tb
+            d = max(abs(float(pa[k]) - float(pb[k])) for k in pa)
+            worst = max(worst, d)
+            flips += not all(np.isclose(float(pa[k]), float(pb[k]), rtol=MD_TOL[0],
+                                        atol=MD_TOL[1]) for k in pa)
+    for ph, _, ei in ticks:
+        shapes.update(ei)
+    card_res = {"studies": len(sids), "bitwise": bitwise, "same_plans": same_plan,
+                "at_tolerance": tol, "flipped_proposals": flips, "max_abs_diff": worst,
+                "regenerated": back.last_resume["regenerated"],
+                "plans": {ph: sorted({p for (ph2, _), ps in plans.items() if ph2 == ph
+                                      for p in ps})
+                          for ph in ("live", "replay")}}
+    # a WAL written on the CPU, resumed on the card
+    cpu_rec = {}
+    cpu = StudyScheduler(device="cpu", wal=os.path.join(root, "cpu.wal"))
+    sids = drive(cpu, SVC_STARTUP + SVC_REPLAY_WAVES, cpu_rec)
+    cpu.journal.sync()
+    shutil.copy(os.path.join(root, "cpu.wal"), os.path.join(root, "cpu_copy.wal"))
+    _svc_reset_counts()
+    t0 = time.perf_counter()
+    on_card = StudyScheduler(device=DEVICE, wal=os.path.join(root, "cpu_copy.wal"))
+    resume_sec = time.perf_counter() - t0
+    launches["service_resume"] = {k: v + resumed[k] for k, v in _svc_counts().items()}
+    _svc_reset_counts()
+    same_state = all(
+        (cpu._studies[s].seed, cpu._studies[s].n_asked, cpu._studies[s].n_told,
+         cpu._studies[s].state, cpu._studies[s].rstate.bit_generator.state)
+        == (on_card._studies[s].seed, on_card._studies[s].n_asked, on_card._studies[s].n_told,
+            on_card._studies[s].state, on_card._studies[s].rstate.bit_generator.state)
+        for s in sids)
+    flips_next = 0
+    worst_next = 0.0
+    for _ in range(SVC_REPLAY_NEXT):
+        a_cpu = cpu.ask_many([(sid, 1) for sid in sids])
+        a_card = on_card.ask_many([(sid, 1) for sid in sids])
+        for sid in sids:
+            (x,), (y,) = a_cpu[sid], a_card[sid]
+            if x["tid"] != y["tid"]:
+                raise AssertionError(f"{sid}: tid {x['tid']} on the CPU, {y['tid']} on the card")
+            for k in x["params"]:
+                worst_next = max(worst_next, abs(float(x["params"][k]) - float(y["params"][k])))
+            flips_next += not all(np.isclose(float(x["params"][k]), float(y["params"][k]),
+                                             rtol=MD_TOL[0], atol=MD_TOL[1]) for k in x["params"])
+            loss = mix[int(sid[1:])].domain.objective(x["params"])
+            cpu.tell(sid, x["tid"], loss)
+            on_card.tell(sid, y["tid"], loss)
+    launches["service_replay_next"] = _svc_counts()
+    res = {"card_resume": card_res, "cpu_to_card": {
+        "studies": len(sids), "same_ids_seeds_counts": same_state, "resume_sec": resume_sec,
+        "regenerated": on_card.last_resume["regenerated"], "next_asks": SVC_REPLAY_NEXT,
+        "flipped_proposals": flips_next, "max_abs_diff": worst_next}}
+    out["replay"] = res
+    log(f"phase 14 (d): {res}")
+    if card_res["flipped_proposals"] > 1:
+        raise AssertionError(f"the card's resume flipped {flips} proposals")
+    if not same_state:
+        raise AssertionError("the card's resume of the CPU's WAL left its ids, seeds or counts")
+    if flips_next > 1:
+        raise AssertionError(f"card against CPU: {flips_next} proposals flipped")
+    if not all(all(c.values()) for c in launches.values()):
+        raise AssertionError(f"a kernel did not launch on a path of (d): {launches}")
+    return launches
+
+
+def phase_service_plane(report):
+    """Phase 14: the service plane on the card, paths (a)-(d)."""
+    out = report["service_plane"] = {}
+    shapes, fused_shapes = set(), set()
+    launches = {}
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    launches["service_http"] = _svc_http(out, shapes, fused_shapes)
+    out["a_sec"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _svc_crash(out)
+    out["b_sec"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches["service_ladder"] = _svc_ladder(out, shapes, fused_shapes)
+    out["c_sec"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches.update(_svc_replay(out, shapes))
+    out["d_sec"] = time.perf_counter() - t0
+    out["phase_sec"] = time.perf_counter() - t_phase
+    out["launches"] = launches
+    log(f"phase 14: {out['phase_sec']:.1f} s, launches {launches}")
+    return launches, sorted(shapes), sorted(fused_shapes)
+
+
 def main():
     if sys.argv[1:2] == ["--md-controller"]:
         return md_controller(sys.argv[2:])
+    if sys.argv[1:2] == ["--svc-client"]:
+        return svc_client(sys.argv[2:])
     # torch.profiler leaves CUPTI attached after a session unless told to
     # tear it down, and every later launch pays for it (a branin ask ~30%
     # slower after one session); phase 1 profiles before the timed phases
@@ -2509,20 +3316,23 @@ def main():
     widened_launches, widened_shapes = phase_widened_service(report)
     ml_launches, ml_shapes = phase_ml_backends(report)
     md_launches, md_shapes, md_fused_shapes = phase_multi_device(report)
-    # every shape the widened wave and phases 12-13 gave ei_diff is held
+    svc_launches, svc_shapes, svc_fused_shapes = phase_service_plane(report)
+    # every shape the widened wave and phases 12-14 gave ei_diff is held
     # against the plain version on every candidate: phase 1 planned them,
     # and any it missed is checked here
     planned = {tuple(r["shape"]) for r in rows}
     extra = [check_ei(P, n, m, 0, plain_cmp(P, n, m), False, report["ptxas"])
-             for P, n, m in sorted(set(widened_shapes) | set(ml_shapes) | set(md_shapes))
+             for P, n, m in sorted(set(widened_shapes) | set(ml_shapes) | set(md_shapes)
+                                   | set(svc_shapes))
              if (P, n, m) not in planned]
     report["ei_diff_shapes_unplanned"] = [r["shape"] for r in extra]
     rows += extra
-    # and every shape phase 13 gave fused_sample_ei (its spaces are uniform:
-    # bounded)
+    # and every shape phases 13-14 gave fused_sample_ei (the fused route's
+    # spaces are uniform: bounded)
     fplanned = {tuple(r["shape"]) for r in frows}
     fextra = [check_fused(P, N, m, 0, True, report["ptxas"])
-              for P, N, m in md_fused_shapes if (P, N, m) not in fplanned]
+              for P, N, m in sorted(set(md_fused_shapes) | set(svc_fused_shapes))
+              if (P, N, m) not in fplanned]
     report["fused_sample_ei_shapes_unplanned"] = [r["shape"] for r in fextra]
     frows += fextra
     report["total_sec"] = time.perf_counter() - t_start
@@ -2542,7 +3352,8 @@ def main():
                              "widened_service_wave": widened_launches, **ml_launches,
                              **{k: v for k, v in md_launches.items()
                                 if k not in ("sharded_cohort_fused",
-                                             "sharded_scheduler_fused")}},
+                                             "sharded_scheduler_fused")},
+                             **{k: v["ei_diff"] for k, v in svc_launches.items()}},
         "shape": tick["shape"], "max_abs_err": tick["max_abs_err"],
         "max_err": max(r["max_abs_err"] for r in rows),
         "ms": tick["ms"], "device_ms": tick["device_ms"], "plain_ms": tick["plain_ms"],
@@ -2557,7 +3368,8 @@ def main():
         "launches_by_path": {"fmin": report["fmin_path_launches"]["fused_sample_ei"],
                              "service_wave": service_launches["fused_sample_ei"],
                              "sharded_cohort": md_launches["sharded_cohort_fused"],
-                             "sharded_scheduler": md_launches["sharded_scheduler_fused"]},
+                             "sharded_scheduler": md_launches["sharded_scheduler_fused"],
+                             **{k: v["fused_sample_ei"] for k, v in svc_launches.items()}},
         "shape": ftick["shape"], "max_abs_err": ftick["max_abs_err"],
         "max_err": max(r["max_abs_err"] for r in frows),
         "ms": ftick["ms"], "device_ms": ftick["device_ms"], "plain_ms": ftick["plain_ms"],

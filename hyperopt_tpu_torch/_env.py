@@ -15,9 +15,11 @@ one of three treatments:
   deprecated Pallas alias) and changes no result and no file: it is
   accepted and has no effect.
 
-A knob the JAX package reads only on its default-on planes (the degrade
-ladder; quality, load and tenant telemetry) raises nothing while unset,
-so those planes' absence is a documented gap until they are ported.
+A knob the JAX package reads only on its default-on planes (quality,
+load and tenant telemetry) raises nothing while unset, so those planes'
+absence is a documented gap until they are ported.  Where the JAX package
+warns about a malformed service value and falls back, the port raises
+``ValueError`` naming the knob, as for its other knobs.
 """
 
 from __future__ import annotations
@@ -30,7 +32,11 @@ import torch
 __all__ = ["resolve_device", "parse_hist_dtype", "parse_megakernel", "parse_compile_widen",
            "parse_service_max_studies", "parse_service_max_pending",
            "parse_service_idle_sec", "parse_shard", "parse_hist_shard_min",
-           "parse_allgather_timeout", "DEFAULT_HIST_SHARD_MIN", "not_ported", "Knob", "KNOBS",
+           "parse_allgather_timeout", "DEFAULT_HIST_SHARD_MIN", "parse_service",
+           "parse_service_wal", "parse_service_deadline_ms", "parse_service_queue",
+           "parse_service_degrade", "parse_reqtrace", "parse_service_access_log",
+           "parse_service_slo", "parse_compile_plane", "parse_compile_bank_top_n",
+           "parse_store_watermark", "parse_store_gc", "not_ported", "Knob", "KNOBS",
            "refuse_armed_knobs"]
 
 
@@ -186,6 +192,196 @@ def parse_allgather_timeout():
     return sec
 
 
+# -- the service plane's knobs (the JAX package's readers, value for value)
+
+
+def parse_service():
+    """``HYPEROPT_TPU_SERVICE=<port>`` (or ``<host>:<port>``): the bind
+    value ``python -m hyperopt_tpu_torch.service.server`` takes when
+    ``--port`` is absent, or None (unset, ``0``/``off``)."""
+    raw = os.environ.get("HYPEROPT_TPU_SERVICE", "").strip()
+    if raw.lower() in ("",) + _OFF:
+        return None
+    host, _, port_s = raw.rpartition(":")
+    try:
+        port = int(port_s)
+    except ValueError:
+        raise ValueError(f"HYPEROPT_TPU_SERVICE={raw!r}: expected a port or "
+                         "host:port") from None
+    if not 1 <= port <= 65535:
+        raise ValueError(f"HYPEROPT_TPU_SERVICE={raw!r}: expected a port in [1, 65535]")
+    return raw if host else port
+
+
+def parse_service_wal():
+    """``HYPEROPT_TPU_SERVICE_WAL``: ``"auto"`` (unset, ``1``/``on``/``auto``:
+    journal under the store root when the scheduler has one), None
+    (``0``/``off``: never) or an explicit journal path."""
+    raw = os.environ.get("HYPEROPT_TPU_SERVICE_WAL", "").strip()
+    if raw.lower() in ("", "1", "on", "true", "yes", "auto"):
+        return "auto"
+    if raw.lower() in _OFF:
+        return None
+    return raw
+
+
+DEFAULT_SERVICE_DEADLINE_MS = 30000.0
+
+
+def parse_service_deadline_ms():
+    """``HYPEROPT_TPU_SERVICE_DEADLINE_MS``: the server's default request
+    deadline in milliseconds (default 30000; ``0``/``off``: none)."""
+    raw = os.environ.get("HYPEROPT_TPU_SERVICE_DEADLINE_MS", "").strip()
+    if not raw:
+        return DEFAULT_SERVICE_DEADLINE_MS
+    if raw.lower() in _OFF:
+        return None
+    try:
+        ms = float(raw)
+    except ValueError:
+        raise ValueError(f"HYPEROPT_TPU_SERVICE_DEADLINE_MS={raw!r}: expected "
+                         "milliseconds or 0/off") from None
+    if not ms > 0:
+        raise ValueError(f"HYPEROPT_TPU_SERVICE_DEADLINE_MS={raw!r}: expected a "
+                         "positive deadline")
+    return ms
+
+
+def parse_service_queue():
+    """``HYPEROPT_TPU_SERVICE_QUEUE``: asks admitted (queued or in a wave)
+    before new asks shed with 429 (default 256; tells at 4x)."""
+    return _pos_int("HYPEROPT_TPU_SERVICE_QUEUE", 256)
+
+
+DEFAULT_DEGRADE_RECOVER_WAVES = 8
+
+
+def parse_service_degrade():
+    """``HYPEROPT_TPU_SERVICE_DEGRADE``: the degrade ladder's patience,
+    clean waves before it climbs a level (unset/``on``: 8, a positive
+    integer), or None (``0``/``off``: a tick fault fails its asks)."""
+    raw = os.environ.get("HYPEROPT_TPU_SERVICE_DEGRADE", "").strip().lower()
+    if raw in ("", "on", "true", "yes", "auto"):
+        return DEFAULT_DEGRADE_RECOVER_WAVES
+    if raw in _OFF:
+        return None
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(f"HYPEROPT_TPU_SERVICE_DEGRADE={raw!r}: expected a clean-wave "
+                         "count or 0/off") from None
+    if n < 1:
+        raise ValueError(f"HYPEROPT_TPU_SERVICE_DEGRADE={raw!r}: expected a positive "
+                         "clean-wave count")
+    return n
+
+
+def parse_reqtrace():
+    """``HYPEROPT_TPU_REQTRACE``: request-trace ids on (default) or off
+    (``0``/``off``)."""
+    return os.environ.get("HYPEROPT_TPU_REQTRACE", "").strip().lower() not in _OFF
+
+
+def parse_service_access_log():
+    """``HYPEROPT_TPU_SERVICE_ACCESS_LOG=<path>``: the server's JSONL
+    access log, or None (unset, ``0``/``off``)."""
+    raw = os.environ.get("HYPEROPT_TPU_SERVICE_ACCESS_LOG", "").strip()
+    if raw.lower() in ("",) + _OFF:
+        return None
+    return raw
+
+
+def parse_service_slo():
+    """``HYPEROPT_TPU_SERVICE_SLO``: the SLO plane's targets (unset/``on``:
+    the defaults of ``obs/slo.py``; ``avail=99.9,ask_p99_ms=250,ask_pct=99,
+    shed=2`` tunes them), or None (``0``/``off``).  An unknown token
+    raises."""
+    from .obs.slo import DEFAULT_TARGETS
+
+    raw = os.environ.get("HYPEROPT_TPU_SERVICE_SLO", "").strip()
+    if raw.lower() in _OFF:
+        return None
+    targets = {k: dict(v) for k, v in DEFAULT_TARGETS.items()}
+    if raw.lower() in ("", "1", "on", "true", "yes", "auto"):
+        return targets
+    for token in raw.split(","):
+        token = token.strip()
+        if not token:
+            continue
+        key, _, val = token.partition("=")
+        key = key.strip().lower()
+        try:
+            v = float(val)
+        except ValueError:
+            v = None
+        if v is not None and key in ("avail", "availability") and 0 < v < 100:
+            targets["availability"]["target"] = v / 100.0
+        elif v is not None and key in ("ask_p99_ms", "ask_ms") and v > 0:
+            targets["ask_latency"]["threshold_ms"] = v
+        elif v is not None and key == "ask_pct" and 0 < v < 100:
+            targets["ask_latency"]["target"] = v / 100.0
+        elif v is not None and key == "shed" and 0 <= v < 100:
+            targets["shed_rate"]["target"] = min(0.9999, 1.0 - v / 100.0)
+        else:
+            raise ValueError(f"HYPEROPT_TPU_SERVICE_SLO: bad token {token!r} (expected "
+                             "avail=, ask_p99_ms=, ask_pct= or shed= with a sane value)")
+    return targets
+
+
+def parse_compile_plane():
+    """``HYPEROPT_TPU_COMPILE_PLANE``: arm the compile plane (``1``/``on``;
+    off by default).  In the port it keeps the signature census and
+    builds the kernel libraries before a server listens."""
+    raw = os.environ.get("HYPEROPT_TPU_COMPILE_PLANE", "").strip().lower()
+    return raw in ("1", "on", "true", "yes", "auto")
+
+
+DEFAULT_COMPILE_BANK_TOP_N = 8
+
+
+def parse_compile_bank_top_n():
+    """``HYPEROPT_TPU_COMPILE_BANK_TOP_N``: census keys whose cohort stacks
+    the compile plane allocates before the listener opens (default 8)."""
+    raw = os.environ.get("HYPEROPT_TPU_COMPILE_BANK_TOP_N", "").strip()
+    if not raw:
+        return DEFAULT_COMPILE_BANK_TOP_N
+    try:
+        v = int(raw)
+    except ValueError:
+        raise ValueError(f"HYPEROPT_TPU_COMPILE_BANK_TOP_N={raw!r}: expected an "
+                         "integer") from None
+    if v < 0:
+        raise ValueError(f"HYPEROPT_TPU_COMPILE_BANK_TOP_N={raw!r}: expected a "
+                         "non-negative integer")
+    return v
+
+
+DEFAULT_STORE_WATERMARK = 0.02
+
+
+def parse_store_watermark():
+    """``HYPEROPT_TPU_STORE_WATERMARK``: the low-disk threshold, a free
+    fraction below 1 or a free byte count from 1 (default 0.02), or None
+    (``0``/``off``)."""
+    raw = os.environ.get("HYPEROPT_TPU_STORE_WATERMARK", "").strip()
+    if not raw:
+        return DEFAULT_STORE_WATERMARK
+    if raw.lower() in _OFF:
+        return None
+    try:
+        v = float(raw)
+    except ValueError:
+        raise ValueError(f"HYPEROPT_TPU_STORE_WATERMARK={raw!r}: expected a free "
+                         "fraction, a byte count or 0/off") from None
+    return v if v > 0 else None
+
+
+def parse_store_gc():
+    """``HYPEROPT_TPU_STORE_GC``: whether the disk-watermark rung may run
+    the bounded store GC (default on; ``0``/``off``)."""
+    return os.environ.get("HYPEROPT_TPU_STORE_GC", "").strip().lower() not in _OFF
+
+
 def not_ported(what, item):
     """The error a not-yet-ported option raises, naming its ROADMAP item."""
     return NotImplementedError(
@@ -214,7 +410,7 @@ class Knob(NamedTuple):
     raises first)."""
 
     treatment: str
-    item: int | None
+    item: int | str | None
     read_in: str
     refused_at: tuple = ()
     arms: Callable[[str], bool] | None = None
@@ -223,6 +419,7 @@ class Knob(NamedTuple):
 
 _FMIN = ("fmin", "fmin_multihost")
 _SCHED = ("StudyScheduler",)
+_SERVER = ("ServiceHTTPServer",)
 
 KNOBS = {
     # honoured: the port reads them as the JAX package does
@@ -261,20 +458,23 @@ KNOBS = {
                                 "0/off, which disables the recorder, is honoured "
                                 "by obs/flight)", _FMIN,
                                 lambda r: r not in ("", "0", "1", "off")),
-    "HYPEROPT_TPU_SERVICE_WAL": Knob("refused", 13, "service/scheduler (a journal path)",
-                                     _SCHED, lambda r: r != "" and r.lower() not in (
-                                         "1", "on", "true", "yes", "auto") + _OFF),
-    "HYPEROPT_TPU_COMPILE_PLANE": Knob("refused", 13, "service/scheduler",
-                                       _SCHED, lambda r: r.lower() in (
-                                           "1", "on", "true", "yes", "auto")),
-    "HYPEROPT_TPU_COMPILE_BANK_TOP_N": Knob("refused", 13, "service/compile_plane",
-                                            under="HYPEROPT_TPU_COMPILE_PLANE"),
-    "HYPEROPT_TPU_SERVICE_DEGRADE": Knob("refused", 13, "service/scheduler (the degrade "
-                                         "ladder; on by default there)", _SCHED,
-                                         _set_not_off),
-    "HYPEROPT_TPU_STORE_GC": Knob("refused", 13, "service/scheduler", _SCHED, _set_not_off),
-    "HYPEROPT_TPU_STORE_WATERMARK": Knob("refused", 13, "service/scheduler", _SCHED,
-                                         _set_not_off),
+    "HYPEROPT_TPU_SERVICE": Knob("honoured", None, "service/server (parse_service)"),
+    "HYPEROPT_TPU_SERVICE_WAL": Knob("honoured", None, "service/scheduler (parse_service_wal)"),
+    "HYPEROPT_TPU_SERVICE_DEGRADE": Knob("honoured", None, "service/scheduler (the degrade "
+                                         "ladder, on by default)"),
+    "HYPEROPT_TPU_SERVICE_QUEUE": Knob("honoured", None, "service/overload (AdmissionGuard)"),
+    "HYPEROPT_TPU_SERVICE_DEADLINE_MS": Knob("honoured", None, "service/server"),
+    "HYPEROPT_TPU_SERVICE_ACCESS_LOG": Knob("honoured", None, "service/server"),
+    "HYPEROPT_TPU_COMPILE_PLANE": Knob("honoured", None, "service/scheduler, "
+                                       "service/server (the census and the kernel "
+                                       "build before the listener)"),
+    "HYPEROPT_TPU_COMPILE_BANK_TOP_N": Knob("honoured", None, "service/compile_plane"),
+    "HYPEROPT_TPU_STORE_GC": Knob("honoured", None, "service/scheduler"),
+    "HYPEROPT_TPU_STORE_WATERMARK": Knob("honoured", None, "service/scheduler"),
+    "HYPEROPT_TPU_REQTRACE": Knob("honoured", None, "service/server, service/client"),
+    "HYPEROPT_TPU_SERVICE_SLO": Knob("honoured", None, "service/server (obs/slo)"),
+    # refused at the scheduler: the planes are on by default in the JAX
+    # package, so leaving them unset here is a documented gap
     "HYPEROPT_TPU_QUALITY": Knob("refused", 14, "service/scheduler (on by default "
                                  "there)", _SCHED, _set_not_off),
     "HYPEROPT_TPU_LOAD": Knob("refused", 14, "service/scheduler (on by default there)",
@@ -283,23 +483,26 @@ KNOBS = {
                                 _SCHED, _set_not_off),
     "HYPEROPT_TPU_TENANT_TOP_K": Knob("refused", 14, "service/scheduler (the tenant "
                                       "ledger)", _SCHED, _set),
-    # refused: the entry point that reads them is not in the port yet
-    "HYPEROPT_TPU_FLEET_SHARDS": Knob("refused", 13, "service/fleet"),
-    "HYPEROPT_TPU_FLEET_LEASE_TTL": Knob("refused", 13, "service/fleet"),
-    "HYPEROPT_TPU_FLEET_ADDR": Knob("refused", 13, "service/server"),
-    "HYPEROPT_TPU_SERVICE": Knob("refused", 13, "service/server"),
-    "HYPEROPT_TPU_SERVICE_ACCESS_LOG": Knob("refused", 13, "service/server"),
-    "HYPEROPT_TPU_SERVICE_DEADLINE_MS": Knob("refused", 13, "service/server"),
-    "HYPEROPT_TPU_SERVICE_QUEUE": Knob("refused", 13, "service/overload"),
-    "HYPEROPT_TPU_REQTRACE": Knob("refused", 14, "service/server"),
-    "HYPEROPT_TPU_SERVICE_SLO": Knob("refused", 14, "service/server"),
-    "HYPEROPT_TPU_QUALITY_SLO": Knob("refused", 14, "service/server"),
-    "HYPEROPT_TPU_LOAD_SLO": Knob("refused", 14, "service/server"),
-    "HYPEROPT_TPU_TENANT_SLO": Knob("refused", 14, "service/server"),
-    "HYPEROPT_TPU_TENANT_QUOTA": Knob("refused", 14, "service/overload"),
-    "HYPEROPT_TPU_PROBE": Knob("refused", 14, "service/server"),
-    "HYPEROPT_TPU_PROBE_PERIOD": Knob("refused", 14, "obs/prober"),
-    "HYPEROPT_TPU_PROBE_SLO": Knob("refused", 14, "service/server"),
+    # refused at the server
+    "HYPEROPT_TPU_QUALITY_SLO": Knob("refused", 14, "service/server (with the quality "
+                                     "plane)", _SERVER, _set_not_off),
+    "HYPEROPT_TPU_LOAD_SLO": Knob("refused", 14, "service/server (with the cost ledger)",
+                                  _SERVER, _set_not_off),
+    "HYPEROPT_TPU_TENANT_SLO": Knob("refused", 14, "service/server (with the tenant "
+                                    "ledger)", _SERVER, _set_not_off),
+    "HYPEROPT_TPU_TENANT_QUOTA": Knob("refused", 14, "service/overload (the per-tenant "
+                                      "budget)", _SERVER, _set_not_off),
+    "HYPEROPT_TPU_PROBE": Knob("refused", 14, "service/server (the blackbox prober)",
+                               _SERVER, lambda r: r.lower() in ("1", "on", "true", "yes")),
+    "HYPEROPT_TPU_PROBE_PERIOD": Knob("refused", 14, "obs/prober",
+                                      under="HYPEROPT_TPU_PROBE"),
+    "HYPEROPT_TPU_PROBE_SLO": Knob("refused", 14, "service/server (with the prober)",
+                                   under="HYPEROPT_TPU_PROBE"),
+    # the replicated fleet: refused at the server whenever set
+    "HYPEROPT_TPU_FLEET_SHARDS": Knob("refused", "13b", "service/fleet", _SERVER, _set),
+    "HYPEROPT_TPU_FLEET_LEASE_TTL": Knob("refused", "13b", "service/fleet", _SERVER, _set),
+    "HYPEROPT_TPU_FLEET_ADDR": Knob("refused", "13b", "service/fleet (the server reads it "
+                                    "for --fleet only)", _SERVER, _set),
     # no counterpart: they tune XLA only
     "HYPEROPT_TPU_NO_CACHE": Knob("none", None, "fmin (the XLA compilation cache)"),
     "HYPEROPT_TPU_COMPILE_CACHE": Knob("none", None, "fmin (the XLA compilation cache)"),
@@ -312,8 +515,8 @@ KNOBS = {
 
 def refuse_armed_knobs(entry):
     """Raise ``not_ported(knob, item)`` for the first refused knob that
-    ``entry`` (``"fmin"``, ``"fmin_multihost"``, ``"StudyScheduler"``)
-    reads and that is set to a value arming it."""
+    ``entry`` (``"fmin"``, ``"fmin_multihost"``, ``"StudyScheduler"``,
+    ``"ServiceHTTPServer"``) reads and that is set to a value arming it."""
     for name, knob in KNOBS.items():
         if entry in knob.refused_at:
             raw = os.environ.get(name, "").strip()

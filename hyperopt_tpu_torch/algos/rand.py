@@ -13,7 +13,8 @@ import torch
 
 from .. import prng
 
-__all__ = ["suggest", "suggest_batch", "suggest_async", "AskHandle", "flat_to_new_trial_docs",
+__all__ = ["suggest", "suggest_batch", "suggest_async", "suggest_many", "AskHandle",
+           "flat_to_new_trial_docs",
            "seed_to_key", "fold_ids", "pack_labels", "unpack_flats", "pad_ids_pow2",
            "pad_ids_to_multiple", "pad_ids_sticky"]
 
@@ -127,15 +128,26 @@ def pad_ids_sticky(domain, new_ids):
     return padded
 
 
+def _draw(cs, asks, device):
+    """The packed ``[rows, L]`` prior draw of ``asks`` (``[(ids, seed),
+    ...]``) on ``device``, in one batch.  Row ``r``'s key is
+    ``fold_in(seed_to_key(seed), id)`` whatever the batch (the seed's key
+    is derived on every row), and the draw is per row."""
+    words = [(prng.seed_words(seed), len(ids)) for ids, seed in asks]
+    lo = np.concatenate([np.full(n, w[0], np.int64) for w, n in words])
+    hi = np.concatenate([np.full(n, w[1], np.int64) for w, n in words])
+    ids = np.concatenate([np.asarray(ids, np.int64) & 0xFFFFFFFF for ids, _ in asks])
+    seed_keys = prng.fold_in(prng.PRNGKey(torch.from_numpy(lo), device), torch.from_numpy(hi))
+    keys = prng.fold_in(seed_keys, torch.from_numpy(ids).to(device))
+    return pack_labels(cs, cs.sample_flat(keys))
+
+
 def suggest_async(new_ids, domain, trials, seed):
     """Queue the batched prior draw on the trials' device and return an
     :class:`AskHandle`; its ``result()`` reads back and builds the docs."""
     if not len(new_ids):
         return AskHandle([], lambda: [])
-    dev = trials.device
-    ids = torch.from_numpy(pad_ids_sticky(domain, new_ids)).to(dev)
-    keys = prng.fold_in(seed_to_key(seed, dev), ids)  # one key per id
-    mat = pack_labels(domain.cs, domain.cs.sample_flat(keys))
+    mat = _draw(domain.cs, [(pad_ids_sticky(domain, new_ids), seed)], trials.device)
 
     def finish():
         flats = unpack_flats(domain.cs, mat, len(new_ids))
@@ -147,6 +159,25 @@ def suggest_async(new_ids, domain, trials, seed):
 def suggest(new_ids, domain, trials, seed):
     """Draw one prior sample per new id (hyperopt/rand.py sym: suggest)."""
     return suggest_async(new_ids, domain, trials, seed).result()
+
+
+def suggest_many(asks):
+    """The docs of many asks over one search space, from one batched draw:
+    ``asks`` is ``[(new_ids, domain, trials, seed), ...]`` with every
+    domain over the same space (one signature) and every trials on one
+    device.  Each ask's docs equal :func:`suggest`'s (:func:`_draw` keys
+    a row by its seed and id alone).  The study scheduler serves a wave's
+    startup asks this way."""
+    if not asks:
+        return []
+    cs = asks[0][1].cs
+    mat = _draw(cs, [(ids, seed) for ids, _, _, seed in asks], asks[0][2].device).cpu().numpy()
+    out, row = [], 0
+    for new_ids, domain, trials, _ in asks:
+        flats = unpack_flats(cs, mat[row:row + len(new_ids)], len(new_ids))
+        out.append(flat_to_new_trial_docs(domain, trials, new_ids, flats))
+        row += len(new_ids)
+    return out
 
 
 def suggest_batch(new_ids, domain, trials, seed):

@@ -1,7 +1,9 @@
 """Deterministic fault-injection plane (counterpart of
 ``hyperopt_tpu/chaos.py``, copied: host-only).  The port has the sites
-of the trial backends (``trial``, ``io``); the service and multi-device
-sites come with those planes.
+of the trial backends (``trial``, ``io``) and of the service plane
+(``admit``, ``ask``, ``tell``, ``tick``, ``wal``).  An injected I/O
+error is an :class:`InjectedFault`, an ``OSError`` the degrade ladder
+can tell from a real one.
 
 The repo's reliability story — leased work shards (``parallel/membership``),
 retry/backoff (``retry.py``), stale reclaim (``filestore.py``) — is only
@@ -21,10 +23,13 @@ the same fail-open convention as every observability env var)::
     enospc@<site>:<p>       raise OSError(ENOSPC) with probability p per
                             hit (io sites only — the disk-full analog of
                             ioerr)
-    corrupt@<site>:<p>      flip ONE seeded bit in a written record with
-                            probability p: parsed here as in the JAX
-                            package, fired only by the payload sites of
-                            the service and prober planes, not ported yet
+    corrupt@<site>:<p>      flip ONE seeded bit in the just-written record
+                            with probability p (``corrupt_bytes`` sites —
+                            the WAL append; the write SUCCEEDS, the medium
+                            lies: what the checksum/quarantine plane must
+                            catch at the next replay or scrub), or perturb
+                            read-back proposals (``corrupt_floats``, the
+                            ``tick`` site)
 
 Sites are plain strings named by the instrumented call sites:
 
@@ -72,7 +77,7 @@ import signal
 import time
 
 __all__ = ["ChaosPlan", "parse_spec", "get_plan", "configure", "armed",
-           "point", "io_point"]
+           "point", "io_point", "corrupt_bytes", "corrupt_floats", "InjectedFault"]
 
 logger = logging.getLogger(__name__)
 
@@ -90,6 +95,13 @@ def _warn_once(raw, why):
         _warned = True
         logger.warning("HYPEROPT_TPU_CHAOS=%r is not %s; disarming (chaos "
                        "spec errors warn-and-disable, never raise)", raw, why)
+
+
+class InjectedFault(OSError):
+    """An I/O error the plan injected (``ioerr``/``enospc`` rules at an
+    :func:`io_point`).  An ``OSError`` like the JAX package's, so every
+    store handler treats it as one; typed so the service's degrade
+    ladder absorbs an injected ``tick`` fault and nothing else."""
 
 
 class _Rule:
@@ -131,8 +143,8 @@ class ChaosPlan:
         expects filesystem failure)."""
         due = []
         # corrupt rules never fire at point()/io_point(): they mutate a
-        # payload, not control flow (the payload sites keep their own hit
-        # counter, so mixed rules at one site stay deterministic)
+        # payload, not control flow — corrupt_bytes() owns them (its own
+        # hit counter, so mixed rules at one site stay deterministic)
         matched = [r for r in self.rules
                    if r.site == site and r.action != "corrupt"]
         if not matched:
@@ -145,6 +157,24 @@ class ChaosPlan:
             if r.fires(n):
                 due.append((r.action,) if r.sec is None else (r.action, r.sec))
         return due
+
+
+    def mutate_rule(self, site):
+        """The corrupt rule due at this ``corrupt_bytes`` hit, or None.
+        Separate hit counter (``<site>!corrupt``): the mutate probe runs
+        on a different cadence than point()/io_point() at the same
+        site, and sharing one counter would skew both schedules."""
+        matched = [r for r in self.rules
+                   if r.site == site and r.action == "corrupt"]
+        if not matched:
+            return None
+        key = f"{site}!corrupt"
+        n = self.hits.get(key, 0) + 1
+        self.hits[key] = n
+        for r in matched:
+            if r.fires(n):
+                return r
+        return None
 
 
 def parse_spec(raw):
@@ -223,6 +253,13 @@ def configure(spec=None):
     return _plan
 
 
+def reset():
+    """Forget any explicit configuration; the next use re-reads the env."""
+    global _plan, _warned
+    _plan = _UNSET
+    _warned = False
+
+
 def armed():
     return get_plan() is not None
 
@@ -253,13 +290,13 @@ def _execute(site, actions, metrics):
             time.sleep(act[1])
         elif name == "ioerr":
             logger.warning("chaos: injected I/O error at %s", site)
-            raise OSError(f"chaos: injected I/O error at {site}")
+            raise InjectedFault(f"chaos: injected I/O error at {site}")
         elif name == "enospc":
             import errno
 
             logger.warning("chaos: injected ENOSPC at %s", site)
-            raise OSError(errno.ENOSPC,
-                          f"chaos: injected ENOSPC at {site}")
+            raise InjectedFault(errno.ENOSPC,
+                                f"chaos: injected ENOSPC at {site}")
 
 
 def point(site, metrics=None):
@@ -280,3 +317,83 @@ def io_point(site="io", metrics=None):
     if plan is None:
         return
     _execute(site, plan.check(site, io=True), metrics)
+
+
+def corrupt_bytes(site, data, metrics=None):
+    """A payload-mutation chaos site: when a ``corrupt`` rule
+    is due, flip ONE seeded bit in ``data`` (never the trailing
+    newline — the line framing must survive so the corruption lands
+    MID-file, the case the torn-tail reader cannot excuse) and return
+    the mutated copy; otherwise ``data`` unchanged.  Disarmed cost: one
+    attribute check.  Deterministic: the flip position draws from the
+    rule's own seeded stream, one draw per fired hit."""
+    plan = _plan if _plan is not _UNSET else get_plan()
+    if plan is None:
+        return data
+    rule = plan.mutate_rule(site)
+    if rule is None:
+        return data
+    n = len(data) - (1 if data.endswith(b"\n") else 0)
+    if n <= 0:
+        return data
+    pos = rule.rng.randrange(n * 8)
+    out = bytearray(data)
+    out[pos // 8] ^= 1 << (pos % 8)
+    if metrics is not None:
+        metrics.counter(f"chaos.corrupt.{site}").inc()
+    try:
+        from .obs.flight import get_flight
+
+        get_flight().record({"kind": "chaos", "ts": time.time(),
+                             "action": "corrupt", "site": site,
+                             "bit": pos, "pid": os.getpid()})
+    except Exception:
+        pass
+    logger.warning("chaos: flipped bit %d in a %s record", pos, site)
+    return bytes(out)
+
+
+def corrupt_floats(site, arr, metrics=None):
+    """A proposal-mutation chaos site: when a ``corrupt``
+    rule is due, perturb ONE seeded element per row of the float array
+    ``arr`` (a copy — device buffers are never mutated) and return it;
+    otherwise ``arr`` unchanged.  The perturbation is finite, small and
+    SILENT — no flag, no exception, values still in-range-ish — i.e.
+    exactly the wrong-answer class that slips past the non-finite guard
+    and every checksum, and that only the blackbox prober's golden
+    stream digest can catch.  Per-ROW so every study slot served by a
+    corrupted tick is affected (a single global flip could land in
+    masked padding and detect as nothing).  Disarmed cost: one
+    attribute check.  Deterministic: positions draw from the rule's own
+    seeded stream, one draw per row per fired hit."""
+    plan = _plan if _plan is not _UNSET else get_plan()
+    if plan is None:
+        return arr
+    rule = plan.mutate_rule(site)
+    if rule is None:
+        return arr
+    import numpy as _np
+
+    out = _np.array(arr, copy=True)
+    flat = out.reshape(-1) if out.ndim <= 1 \
+        else out.reshape(out.shape[0], -1)
+    rows = flat.reshape(1, -1) if flat.ndim == 1 else flat
+    if rows.shape[-1] == 0:
+        return arr
+    for i in range(rows.shape[0]):
+        j = rule.rng.randrange(rows.shape[-1])
+        rows[i, j] = rows[i, j] * 1.03125 + 0.03125
+    if metrics is not None:
+        metrics.counter(f"chaos.corrupt.{site}").inc()
+    try:
+        from .obs.flight import get_flight
+
+        get_flight().record({"kind": "chaos", "ts": time.time(),
+                             "action": "corrupt", "site": site,
+                             "rows": int(rows.shape[0]),
+                             "pid": os.getpid()})
+    except Exception:
+        pass
+    logger.warning("chaos: silently perturbed %d proposal row(s) at %s",
+                   int(rows.shape[0]), site)
+    return out

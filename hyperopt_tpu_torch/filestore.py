@@ -286,6 +286,30 @@ class FileStore:
                 fcntl.flock(f, fcntl.LOCK_UN)
         return list(range(start, start + n))
 
+    def reset_counter(self, value):
+        """Clamp the tid allocator DOWN to ``value`` (no-op if it is
+        already at or below).  WAL resume uses this to reclaim ids an
+        ask consumed before dying un-journaled mid-wave: the TPE kernel
+        keys per-trial PRNG streams off the id VALUE, so a counter gap
+        would make every post-restart proposal diverge from the
+        uninterrupted run the crash-resume pin compares against.  Only
+        safe when the caller owns the store exclusively (the service
+        scheduler does; worker fleets never call this)."""
+        path = os.path.join(self.root, "counter")
+        value = int(value)
+        with open(path, "r+") as f:
+            fcntl.flock(f, fcntl.LOCK_EX)
+            try:
+                cur = int(f.read().strip() or "0")
+                if value < cur:
+                    f.seek(0)
+                    f.truncate()
+                    f.write(str(value))
+                    f.flush()
+                    os.fsync(f.fileno())
+            finally:
+                fcntl.flock(f, fcntl.LOCK_UN)
+
     # -- attachments ------------------------------------------------------
 
     def set_attachment(self, name, blob: bytes):
@@ -313,6 +337,18 @@ class FileStore:
         _atomic_write(self._path(doc["state"], doc["tid"]), pickle.dumps(doc))
         if fresh:
             self.events.emit(TRIAL_NEW, doc["tid"])
+
+    def settle(self, doc):
+        """Write a TERMINAL doc and drop its superseded ``new``/``running``
+        copies.  The ask/tell service's tell path: a served trial goes
+        NEW → DONE without ever being worker-claimed, so the
+        reserve/finish lifecycle (and its claim files) never applies —
+        but leaving the stale ``new/`` copy behind would make every
+        ``load_all`` lean on state precedence forever."""
+        self.write_doc(doc)
+        for state in (JOB_STATE_NEW, JOB_STATE_RUNNING):
+            if state != doc["state"]:
+                _remove_quiet(self._path(state, doc["tid"]))
 
     def _read(self, path):
         try:
@@ -707,6 +743,72 @@ class FileStore:
                              from_state=_STATE_DIRS[state])
             return True
         return False
+
+    # -- store hygiene (the space-pressure degrade rung) -------------------
+
+    def gc(self, tmp_max_age=300.0, flight_max_age=7 * 86400.0):
+        """Bounded garbage collection: reclaim bytes that are provably
+        redundant without touching any live trial state.
+
+        * ``new``/``running`` copies SUPERSEDED by a terminal doc (the
+          tell path settles NEW→DONE and drops them eagerly, but a
+          crash between the write and the drop leaves them for state
+          precedence to hide forever);
+        * precedence-loser terminal duplicates
+          (:meth:`_prune_terminal_duplicates`);
+        * ``*.tmp.*`` atomic-write leftovers of dead writers, once
+          older than ``tmp_max_age`` (a LIVE write's tmp file exists
+          for milliseconds);
+        * flight-recorder crash dumps older than ``flight_max_age``
+          (forensics age out; ``*.quarantined`` evidence never does).
+
+        Returns ``{reclaimed_bytes, removed}``.  Every removal is
+        tolerant of concurrent writers — losing a race to a path that
+        vanished is a no-op, exactly like the claim machinery."""
+        stats = {"reclaimed_bytes": 0, "removed": 0}
+
+        def rm(path):
+            try:
+                size = os.path.getsize(path)
+                os.remove(path)
+            except OSError:
+                return
+            stats["removed"] += 1
+            stats["reclaimed_bytes"] += size
+
+        now = time.time()
+        self._prune_terminal_duplicates()
+        for state in (JOB_STATE_NEW, JOB_STATE_RUNNING):
+            d = os.path.join(self.root, _STATE_DIRS[state])
+            for fname in os.listdir(d):
+                if fname.endswith(".pkl") and self._settled(fname[:-4]):
+                    rm(os.path.join(d, fname))
+        for d in ("attachments", *_STATE_DIRS.values()):
+            dirpath = os.path.join(self.root, d)
+            for fname in os.listdir(dirpath):
+                if ".tmp." not in fname:
+                    continue
+                path = os.path.join(dirpath, fname)
+                try:
+                    if now - os.path.getmtime(path) > tmp_max_age:
+                        rm(path)
+                except OSError:
+                    continue
+        att = os.path.join(self.root, "attachments")
+        for fname in os.listdir(att):
+            if (fname.startswith(_FLIGHT_PREFIX)
+                    and fname.endswith(".jsonl")):
+                path = os.path.join(att, fname)
+                try:
+                    if now - os.path.getmtime(path) > flight_max_age:
+                        rm(path)
+                except OSError:
+                    continue
+        if stats["removed"]:
+            self.metrics.counter("gc.removed").inc(stats["removed"])
+            self.metrics.counter("gc.reclaimed_bytes").inc(
+                stats["reclaimed_bytes"])
+        return stats
 
 
 class FileTrials(Trials):

@@ -13,13 +13,18 @@ backends import).
   a dump target is armed (``FileStore.arm_flight``).
 * :mod:`~hyperopt_tpu_torch.obs.watchdog` — stall detector over the
   heartbeats of the executor and the file-store worker.
+* the service's planes: :mod:`~hyperopt_tpu_torch.obs.reqtrace`
+  (request trace ids), :mod:`~hyperopt_tpu_torch.obs.slo` (error-budget
+  burn rates), :mod:`~hyperopt_tpu_torch.obs.serve` (Prometheus text)
+  and :mod:`~hyperopt_tpu_torch.obs.tenant` (tenant ids).
 
 The records are the JAX package's, line for line, so its report tools
 read what the port writes.  The port keeps its own module-global
 singletons.  The run-level planes (``ObsConfig``, ``RunObs``, device
-profiling, the scrape server and the serving planes) are not ported yet:
-``fmin``'s ``obs``/``obs_http``/``profile`` options and the environment
-knobs that arm them raise ``not_ported(..., 14)``.
+profiling, the scrape server) and the quality, load, tenant and prober
+planes are not ported yet: ``fmin``'s ``obs``/``obs_http``/``profile``
+options and the environment knobs that arm them raise
+``not_ported(..., 14)``.
 """
 
 from __future__ import annotations

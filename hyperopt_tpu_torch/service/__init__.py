@@ -1,12 +1,36 @@
-"""Ask/tell optimizer service (counterpart of ``hyperopt_tpu/service``):
-the :class:`~hyperopt_tpu_torch.service.scheduler.StudyScheduler` packs
-live studies into fixed-shape cohort slots and runs one study-batched
-tell+ask program per cohort and ask wave.  The journal, store, compile
-plane, overload planes and HTTP front end are not ported yet (ROADMAP.md,
-queue 1, item 13)."""
+"""Ask/tell optimizer service (counterpart of ``hyperopt_tpu/service``).
 
-from .scheduler import (DuplicateTellError, Study, StudyQuotaError, StudyScheduler,
-                        UnknownStudyError)
+:class:`~hyperopt_tpu_torch.service.scheduler.StudyScheduler` packs live
+studies into fixed-shape cohort slots and runs one study-batched tell+ask
+program per cohort and ask wave, on the CUDA card unless
+``device="cpu"``; ``python -m hyperopt_tpu_torch.service.server`` puts
+the JAX package's HTTP front end on top.  Ported with it: the
+write-ahead journal and its resume (``journal.py``; records and stores
+resume across the two packages), the checksummed records, quarantine,
+disk watermark and store GC (``integrity.py``, ``scrub.py``), deadlines,
+admission control and the device-fault degrade ladder (``overload.py``),
+the wire space schema (``spacespec.py``), the retrying client
+(``client.py``) and the compile plane's census (``compile_plane.py``;
+nothing compiles per cohort here, so no ask is ever served warming).
+
+Not ported yet (ROADMAP.md, queue 1): the replicated serving fleet
+(``fleet.py``, ``FleetReplica``, ``ShardNotOwned``, ``ShardUnavailable``,
+``shard_of``; item 13b), and the prober's canary studies and the
+quality, cost and tenant planes (item 14).  Their options raise
+``not_ported``.
+"""
+
+from ..exceptions import StoreFullError
+from .client import ServiceClient
+from .compile_plane import CompilePlane, SignatureCensus
+from .journal import StudyJournal
+from .overload import AdmissionGuard, Deadline, DegradeLadder, OverloadError, StoreFullShed
+from .scheduler import (DrainingError, DuplicateTellError, QuarantinedStudyError, Study,
+                        StudyQuotaError, StudyScheduler, UnknownStudyError)
+from .spacespec import space_from_spec
 
 __all__ = ["StudyScheduler", "Study", "StudyQuotaError", "UnknownStudyError",
-           "DuplicateTellError"]
+           "DuplicateTellError", "DrainingError", "QuarantinedStudyError", "StudyJournal",
+           "AdmissionGuard", "Deadline", "DegradeLadder", "OverloadError", "StoreFullError",
+           "StoreFullShed", "ServiceClient", "CompilePlane", "SignatureCensus",
+           "space_from_spec"]

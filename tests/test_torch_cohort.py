@@ -233,7 +233,7 @@ def test_scheduler_migrates_across_capacity_buckets():
     assert got == [_fmin(_space(hp, "numeric"), s, 20) for s in seeds]
 
 
-def test_scheduler_quotas_errors_and_unported_options():
+def test_scheduler_quotas_errors_and_unported_options(tmp_path):
     sched = StudyScheduler(device="cpu", max_studies=2, max_pending=3)
     a = sched.create_study(_space(hp, "mixed"), seed=1, n_startup_jobs=2, max_trials=4)
     sched.create_study(_space(hp, "mixed"), seed=2)
@@ -261,8 +261,13 @@ def test_scheduler_quotas_errors_and_unported_options():
     sched.close_study(a)
     with pytest.raises(UnknownStudyError):
         sched.ask("nope")
-    for kw, item in (({"store_root": "/x"}, 13), ({"wal": "w"}, 13), ({"degrade": 8}, 13),
-                     ({"quality": True}, 14), ({"tenants": True}, 14)):
+    # the store, the journal and the ladder are ported; the quality and
+    # tenant planes are not
+    accepted = StudyScheduler(device="cpu", store_root=str(tmp_path),
+                              wal=str(tmp_path / "w.jsonl"), degrade=8)
+    assert accepted.journal.path == str(tmp_path / "w.jsonl")
+    assert accepted.degrade.recover_after == 8 and accepted.store_root == str(tmp_path)
+    for kw, item in (({"quality": True}, 14), ({"tenants": True}, 14)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             StudyScheduler(device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="item 14"):

@@ -410,3 +410,77 @@ def test_sharded_cohort_on_the_card_equals_the_unsharded_cohort(cuda_device, mon
     torch.cuda.synchronize()
     assert megakernel.fused_sample_ei.launches == before + 2  # one per shard
     assert torch.equal(got, want)
+
+
+def _service_stream(sched, sids, objective_of, rounds):
+    out = {sid: [] for sid in sids}
+    for _ in range(rounds):
+        for sid, (a,) in sched.ask_many([(sid, 1) for sid in sids]).items():
+            out[sid].append((a["tid"], a["params"]))
+            sched.tell(sid, a["tid"], float(objective_of[sid](a["params"])))
+    return out
+
+
+@pytest.mark.parametrize("store", [True, False], ids=["store", "wal_only"])
+def test_service_resume_on_the_card_is_bit_for_bit(cuda_device, tmp_path, store):
+    """A scheduler on the card stops mid-run (no drain: a crash) and a new
+    one resumes its root; each study's stream equals an undisturbed run on
+    the card bit for bit.  With the WAL alone every ask regenerates, one
+    request a wave: each study sits alone in its cohort here, so every
+    regenerated launch plans as the live one did."""
+    doms = [zoo.ZOO["branin"], zoo.ZOO["hpob_surrogate"]]
+    kw = ({"store_root": str(tmp_path)} if store
+          else {"wal": str(tmp_path / "service.wal.jsonl")})
+
+    def admit(sched):
+        return [sched.create_study(d.space, seed=70 + i, study_id=f"s{i}",
+                                   space_spec={"zoo": d.name}, n_startup_jobs=4)
+                for i, d in enumerate(doms)]
+
+    objective_of = {f"s{i}": d.objective for i, d in enumerate(doms)}
+    first = StudyScheduler(device=cuda_device, **kw)
+    sids = admit(first)
+    got = _service_stream(first, sids, objective_of, 9)
+    first.journal.sync()
+    resumed = StudyScheduler(device=cuda_device, **kw)
+    assert resumed.last_resume["errors"] == 0
+    assert resumed.last_resume["regenerated"] == (0 if store else 2 * 9)
+    more = _service_stream(resumed, sids, objective_of, 6)
+    ref = StudyScheduler(device=cuda_device)
+    want = _service_stream(ref, admit(ref), objective_of, 15)
+    for sid in sids:
+        assert got[sid] + more[sid] == want[sid]
+        if not store:  # the regenerated docs are the live run's, bit for bit
+            live = [(d["tid"], d["misc"]["vals"]) for d in first._studies[sid].trials.trials]
+            back = [(d["tid"], d["misc"]["vals"]) for d in resumed._studies[sid].trials.trials]
+            assert back[:len(live)] == live
+
+
+def test_ladder_rungs_launch_the_kernels_at_scaled_candidates(cuda_device, monkeypatch):
+    """``half_candidates`` and ``small_caps`` scale ``n_EI_candidates`` by
+    0.5 and 0.25 for the tick: both kernels launch at those widths."""
+    sched = StudyScheduler(device=cuda_device, degrade=100)
+    doms = [zoo.ZOO["branin"], zoo.ZOO["hpob_surrogate"]]
+    sids = [sched.create_study(d.space, seed=90 + i, n_startup_jobs=2)
+            for i, d in enumerate(doms)]
+    objective_of = dict(zip(sids, (d.objective for d in doms)))
+    _service_stream(sched, sids, objective_of, 2)
+    shapes = []
+    ei, fused = megakernel.ei_diff, megakernel.fused_sample_ei
+    real = megakernel._launchable
+
+    def recording(name, P, tensors):  # every CUDA launch passes this check
+        shapes.append((name, tensors[0].shape[1]))
+        return real(name, P, tensors)
+
+    monkeypatch.setattr(megakernel, "_launchable", recording)
+    for level, n in ((0, 24), (1, 12), (2, 6)):
+        sched.degrade._level = level
+        shapes.clear()
+        before = (ei.launches, fused.launches)
+        answers = sched.ask_many([(sid, 1) for sid in sids])
+        assert all(not a[0].get("degraded") for a in answers.values()) == (level == 0)
+        assert sorted(set(shapes)) == [("ei_diff", n), ("fused_sample_ei", n)]
+        assert (ei.launches - before[0], fused.launches - before[1]) == (1, 1)
+        for sid, (a,) in answers.items():
+            sched.tell(sid, a["tid"], float(objective_of[sid](a["params"])))

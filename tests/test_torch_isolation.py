@@ -16,7 +16,8 @@ import torch
 import hyperopt_tpu_torch as port
 from hyperopt_tpu_torch import convert, hp, spaces
 from hyperopt_tpu_torch.base import PaddedHistory
-from hyperopt_tpu_torch.service import StudyScheduler
+from hyperopt_tpu_torch.service import StudyScheduler, server
+from hyperopt_tpu_torch.service.server import ServiceHTTPServer
 
 PKG = pathlib.Path(port.__file__).resolve().parent
 REPO = PKG.parent
@@ -38,7 +39,14 @@ def test_import_loads_neither_jax_nor_the_jax_package():
             "hyperopt_tpu_torch.parallel.sharding, hyperopt_tpu_torch.parallel.payload, "
             "hyperopt_tpu_torch.parallel.multihost, hyperopt_tpu_torch.parallel.driver, "
             "hyperopt_tpu_torch.parallel.membership, hyperopt_tpu_torch.parallel.fleet, "
-            "hyperopt_tpu_torch.graphviz, hyperopt_tpu_torch.graphviz_mod; "
+            "hyperopt_tpu_torch.graphviz, hyperopt_tpu_torch.graphviz_mod, "
+            "hyperopt_tpu_torch.service, hyperopt_tpu_torch.service.server, "
+            "hyperopt_tpu_torch.service.client, hyperopt_tpu_torch.service.journal, "
+            "hyperopt_tpu_torch.service.integrity, hyperopt_tpu_torch.service.scrub, "
+            "hyperopt_tpu_torch.service.overload, hyperopt_tpu_torch.service.spacespec, "
+            "hyperopt_tpu_torch.service.compile_plane, hyperopt_tpu_torch.obs.reqtrace, "
+            "hyperopt_tpu_torch.obs.slo, hyperopt_tpu_torch.obs.serve, "
+            "hyperopt_tpu_torch.obs.tenant; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hyperopt_tpu')]; "
             "assert not bad, bad")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
@@ -61,7 +69,7 @@ def test_no_source_file_imports_jax_or_the_jax_package():
                 assert name.split(".")[0] not in ("jax", "jaxlib", "hyperopt_tpu"), (path, name)
 
 
-def test_default_device_entry_points_raise_without_cuda():
+def test_default_device_entry_points_raise_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device, so the default device is valid")
     space = {"x": hp.uniform("x", 0, 1)}
@@ -78,6 +86,9 @@ def test_default_device_entry_points_raise_without_cuda():
         lambda: port.fmin_device(lambda d: d["x"], space, 2),
         lambda: port.fmin(lambda d: d["x"], space, max_evals=2, show_progressbar=False,
                           device_loop=True),
+        lambda: ServiceHTTPServer(0),
+        lambda: server.main(["--port", "0"]),
+        lambda: StudyScheduler(store_root=str(tmp_path)),
         lambda: convert.cohort_stack_from_numpy(
             {"vals": {}, "active": {}, "losses": np.zeros((1, 16), np.float32),
              "has_loss": np.zeros((1, 16), bool)}),

@@ -16,6 +16,7 @@ import hyperopt_tpu_torch as port
 from hyperopt_tpu_torch import _env, device_fmin, hp, zoo
 from hyperopt_tpu_torch.base import Domain
 from hyperopt_tpu_torch.service import StudyScheduler
+from hyperopt_tpu_torch.service.server import ServiceHTTPServer
 
 PKG = pathlib.Path(port.__file__).resolve().parent
 REF = pathlib.Path(hyperopt_tpu.__file__).resolve().parent
@@ -27,20 +28,24 @@ ARMING = {
     "HYPEROPT_TPU_OBS_HTTP": "8123",
     "HYPEROPT_TPU_DEVMEM": "5",
     "HYPEROPT_TPU_FLIGHT": "{tmp}/run.flight.jsonl",
-    "HYPEROPT_TPU_SERVICE_WAL": "{tmp}/service.wal.jsonl",
-    "HYPEROPT_TPU_COMPILE_PLANE": "1",
-    "HYPEROPT_TPU_COMPILE_BANK_TOP_N": "4",
-    "HYPEROPT_TPU_SERVICE_DEGRADE": "on",
-    "HYPEROPT_TPU_STORE_GC": "1",
-    "HYPEROPT_TPU_STORE_WATERMARK": "0.05",
     "HYPEROPT_TPU_QUALITY": "on",
     "HYPEROPT_TPU_LOAD": "1",
     "HYPEROPT_TPU_TENANT": "yes",
     "HYPEROPT_TPU_TENANT_TOP_K": "8",
+    "HYPEROPT_TPU_QUALITY_SLO": "stagnant=5",
+    "HYPEROPT_TPU_LOAD_SLO": "skew=2",
+    "HYPEROPT_TPU_TENANT_SLO": "ask_p99_ms=250",
+    "HYPEROPT_TPU_TENANT_QUOTA": "2",
+    "HYPEROPT_TPU_PROBE": "on",
+    "HYPEROPT_TPU_PROBE_PERIOD": "5",
+    "HYPEROPT_TPU_PROBE_SLO": "match=99",
+    "HYPEROPT_TPU_FLEET_SHARDS": "4",
+    "HYPEROPT_TPU_FLEET_LEASE_TTL": "3",
+    "HYPEROPT_TPU_FLEET_ADDR": "http://127.0.0.1:1",
 }
 
-# values that disarm a refused knob: the port then behaves as the disarmed
-# reference does
+# values that disarm a refused knob (or that a service knob, now honoured,
+# reads as off): the port then behaves as the disarmed reference does
 DISARMING = {
     "HYPEROPT_TPU_OBS": ["0", "off", "1", "basic"],
     "HYPEROPT_TPU_OBS_HTTP": ["0", "off"],
@@ -96,6 +101,29 @@ ENTRY = {
     "tpe.suggest": _tpe_ask,
     "DeviceLoopRunner": _device_loop,
     "StudyScheduler": lambda: StudyScheduler(device="cpu"),
+    "ServiceHTTPServer": lambda: ServiceHTTPServer(0, scheduler=StudyScheduler(device="cpu")),
+}
+
+# the service plane's knobs, honoured since the plane was ported: values
+# the port reads as the reference does, and one it refuses (the reference
+# warns and falls back)
+SERVICE = {
+    "HYPEROPT_TPU_SERVICE": ("parse_service", ["", "off", "8080", "0.0.0.0:9"], "http"),
+    "HYPEROPT_TPU_SERVICE_WAL": ("parse_service_wal", ["", "on", "off", "{tmp}/w.jsonl"], None),
+    "HYPEROPT_TPU_SERVICE_DEGRADE": ("parse_service_degrade", ["", "on", "off", "3"], "-1"),
+    "HYPEROPT_TPU_SERVICE_QUEUE": ("parse_service_queue", ["", "16"], "0"),
+    "HYPEROPT_TPU_SERVICE_DEADLINE_MS": ("parse_service_deadline_ms", ["", "off", "250"],
+                                         "soon"),
+    "HYPEROPT_TPU_SERVICE_ACCESS_LOG": ("parse_service_access_log",
+                                        ["", "off", "{tmp}/access.jsonl"], None),
+    "HYPEROPT_TPU_COMPILE_PLANE": ("parse_compile_plane", ["", "on", "0", "auto"], None),
+    "HYPEROPT_TPU_COMPILE_BANK_TOP_N": ("parse_compile_bank_top_n", ["", "0", "4"], "-2"),
+    "HYPEROPT_TPU_STORE_GC": ("parse_store_gc", ["", "off", "1"], None),
+    "HYPEROPT_TPU_STORE_WATERMARK": ("parse_store_watermark", ["", "0", "0.05", "1e9"],
+                                     "full"),
+    "HYPEROPT_TPU_REQTRACE": ("parse_reqtrace", ["", "off", "1"], None),
+    "HYPEROPT_TPU_SERVICE_SLO": ("parse_service_slo",
+                                 ["", "off", "avail=99.5,ask_p99_ms=250,shed=2"], "speed=9"),
 }
 
 # the multi-device knobs, each with values the port reads as the reference
@@ -132,6 +160,7 @@ def test_table_covers_every_knob_of_the_reference():
     for path in REF.rglob("*.py"):
         names.update(re.findall(r"HYPEROPT_TPU_[A-Z0-9_]+", path.read_text()))
     assert set(_env.KNOBS) == names and len(names) == 48
+    assert {n for n, k in _env.KNOBS.items() if k.treatment == "honoured"} >= set(SERVICE)
     for name, knob in _env.KNOBS.items():
         assert knob.treatment in ("honoured", "refused", "none"), name
         assert (knob.item is not None) == (knob.treatment == "refused"), name
@@ -191,11 +220,26 @@ def test_multi_device_knobs_are_honoured(name, no_knobs):
         read[0]()
 
 
+@pytest.mark.parametrize("name", sorted(SERVICE))
+def test_service_knobs_are_honoured(name, no_knobs, tmp_path):
+    from hyperopt_tpu import _env as ref_env
+
+    reader, good, bad = SERVICE[name]
+    assert _env.KNOBS[name].treatment == "honoured"
+    for raw in good:
+        no_knobs.setenv(name, raw.format(tmp=tmp_path))
+        assert getattr(_env, reader)() == getattr(ref_env, reader)(), raw
+    if bad is not None:
+        no_knobs.setenv(name, bad)  # the reference warns and falls back; the port raises
+        with pytest.raises(ValueError, match=name):
+            getattr(_env, reader)()
+
+
 @pytest.mark.parametrize("name", sorted(DISARMING))
 def test_disarming_values_of_refused_knobs_are_accepted(name, no_knobs):
     for raw in DISARMING[name]:
         no_knobs.setenv(name, raw)
-        for entry in _env.KNOBS[name].refused_at:
+        for entry in _env.KNOBS[name].refused_at or ("StudyScheduler", "ServiceHTTPServer"):
             ENTRY[entry]()
 
 
@@ -228,11 +272,12 @@ def test_unset_knobs_change_nothing(no_knobs):
 
 
 def test_not_ported_names_the_knob_and_its_value(no_knobs):
-    no_knobs.setenv("HYPEROPT_TPU_COMPILE_PLANE", "on")
+    no_knobs.setenv("HYPEROPT_TPU_FLEET_SHARDS", "4")
     with pytest.raises(NotImplementedError,
-                       match=r"HYPEROPT_TPU_COMPILE_PLANE='on' .*item 13"):
-        StudyScheduler(device="cpu")
-    no_knobs.delenv("HYPEROPT_TPU_COMPILE_PLANE")
+                       match=r"HYPEROPT_TPU_FLEET_SHARDS='4' .*item 13b"):
+        ENTRY["ServiceHTTPServer"]()
+    StudyScheduler(device="cpu")  # read by the fleet only: the scheduler is unaffected
+    no_knobs.delenv("HYPEROPT_TPU_FLEET_SHARDS")
     no_knobs.setenv("HYPEROPT_TPU_DEVMEM", "5")
     with pytest.raises(NotImplementedError, match="HYPEROPT_TPU_DEVMEM='5' .*item 14"):
         _multihost()

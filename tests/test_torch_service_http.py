@@ -1,0 +1,264 @@
+"""The port's HTTP front end against the JAX package's: the port's server
+(on the CPU) with the port's client, both cross-wirings, the same status
+and JSON keys on every error path, a real SIGKILLed server process
+resumed bit for bit, and the planes that are not ported refusing with
+their ROADMAP item."""
+
+import os
+import signal
+import socket
+import subprocess
+import sys
+import time
+
+import numpy as np
+import pytest
+
+from hyperopt_tpu.service import ServiceClient as RefClient
+from hyperopt_tpu.service import StudyScheduler as RefScheduler
+from hyperopt_tpu.service.overload import AdmissionGuard as RefGuard
+from hyperopt_tpu.service.server import ServiceHTTPServer as RefServer
+from hyperopt_tpu_torch import zoo
+from hyperopt_tpu_torch.retry import RetryPolicy
+from hyperopt_tpu_torch.service import AdmissionGuard, ServiceClient, StudyScheduler
+from hyperopt_tpu_torch.service import server as port_server
+from hyperopt_tpu_torch.service.server import ServiceHTTPServer
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SPACE = {"x": {"dist": "uniform", "args": [-5, 5]}, "c": {"dist": "choice", "options": [0, 1]}}
+
+
+def _loss(params):
+    return float((float(params["x"]) - 1.0) ** 2 + float(params.get("c", 0)))
+
+
+def _port_server(**kw):
+    sched = StudyScheduler(device="cpu", wave_window=0.005, **kw)
+    return ServiceHTTPServer(0, scheduler=sched)
+
+
+def _ref_server(**kw):
+    return RefServer(0, scheduler=RefScheduler(wave_window=0.005, **kw))
+
+
+def _drive(client, n=6):
+    """One zoo study and one space study, ``n`` ask/tell rounds each."""
+    out = []
+    for body in ({"zoo": "quadratic1", "seed": 5}, {"space": SPACE, "seed": 6}):
+        sid = client.create_study(n_startup_jobs=2, **body)
+        for _ in range(n):
+            (a,) = client.ask(sid)
+            out.append((a["tid"], a["params"]))
+            assert client.tell(sid, a["tid"], _loss(a["params"])) == {"duplicate": False}
+        assert client.tell(sid, a["tid"], 1.0) == {"duplicate": True}
+    return out
+
+
+@pytest.fixture
+def port_srv():
+    srv = _port_server()
+    assert srv.start()
+    yield srv
+    srv.stop()
+
+
+def test_port_server_serves_the_port_client(port_srv):
+    c = ServiceClient(port_srv.url)
+    stream = _drive(c)
+    status = c.studies()
+    assert [s["n_told"] for s in status["studies"]] == [6, 6]
+    assert status["degrade"]["level"] == 0 and status["cohort_cache"]["misses"] >= 1
+    sid = status["studies"][0]["study_id"]
+    code, tl = c.request("GET", f"/study/{sid}/timeline")
+    assert code == 200 and [e["event"] for e in tl["events"]][:2] == ["admit", "ask"]
+    code, health = c.request("GET", "/healthz")
+    assert code == 200 and health["ok"] and not health["draining"]
+    import urllib.request
+
+    metrics = urllib.request.urlopen(port_srv.url + "/metrics").read().decode()
+    assert "hyperopt_tpu_service_asks_total" in metrics
+    assert "hyperopt_tpu_slo_" in metrics
+    assert len(stream) == 12 and all(-5 <= p["x"] <= 5 for _, p in stream)
+
+
+@pytest.mark.parametrize("wiring", ["port client, JAX server", "JAX client, port server"])
+def test_cross_wired_clients_and_servers(wiring):
+    """Either package's client drives the other's server; both serve the
+    same streams (ids bit for bit, params by the parity standard)."""
+    streams = {}
+    for side, (make_srv, make_client) in {
+            "port": (_port_server, ServiceClient), "ref": (_ref_server, RefClient)}.items():
+        if wiring.startswith("port client"):
+            make_client = ServiceClient if side == "ref" else make_client
+        else:
+            make_client = RefClient if side == "port" else make_client
+        srv = make_srv()
+        assert srv.start()
+        try:
+            streams[side] = _drive(make_client(srv.url))
+        finally:
+            srv.stop()
+    assert [t for t, _ in streams["port"]] == [t for t, _ in streams["ref"]]
+    for (_, a), (_, b) in zip(streams["port"], streams["ref"]):
+        for k in b:
+            np.testing.assert_allclose(float(a[k]), float(b[k]), rtol=1e-5, atol=1e-6)
+
+
+def _scenario(name, make):
+    """Run one error path on a server built by ``make``; returns (status,
+    payload keys, has a Retry-After hint)."""
+    kw = {"max_pending": 1} if name == "429 quota" else {}
+    srv = make(**kw)
+    h = srv.handle
+    sid = h("POST", "/study", {"space": SPACE, "seed": 1, "n_startup_jobs": 10})[1]["study_id"]
+    if name == "400 schema":
+        res = h("POST", "/study", {"space": {"x": {"dist": "bogus"}}})
+    elif name == "400 missing":
+        res = h("POST", "/ask", {})
+    elif name == "404 study":
+        res = h("POST", "/ask", {"study_id": "study-nope"})
+    elif name == "404 route":
+        res = h("GET", "/nope", {})
+    elif name == "409 tell":
+        tid = h("POST", "/ask", {"study_id": sid})[1]["trials"][0]["tid"]
+        h("POST", "/tell", {"study_id": sid, "tid": tid, "loss": 1.0})
+        res = h("POST", "/tell", {"study_id": sid, "tid": tid, "loss": 1.0})
+    elif name == "410 quarantined":
+        srv.scheduler._quarantine_study(sid, "a corrupt record")
+        res = h("POST", "/ask", {"study_id": sid})
+    elif name == "429 shed":
+        srv.guard = (AdmissionGuard if make is _port_server else RefGuard)(max_queue=1)
+        srv.guard.admit_ask()
+        res = h("POST", "/ask", {"study_id": sid})
+    elif name == "429 quota":
+        h("POST", "/ask", {"study_id": sid})
+        res = h("POST", "/ask", {"study_id": sid})
+    elif name == "503 draining":
+        srv.scheduler.drain()
+        res = h("POST", "/ask", {"study_id": sid})
+    elif name == "507 store full":
+        srv.guard.set_store_full(True, reason="disk", retry_after=0.5)
+        res = h("POST", "/ask", {"study_id": sid})
+    else:  # "200 tell batch"
+        tids = [t["tid"] for t in h("POST", "/ask", {"study_id": sid, "n": 1})[1]["trials"]]
+        res = h("POST", "/tell", {"study_id": sid,
+                                  "results": [{"tid": t, "loss": 0.5} for t in tids]})
+    status, payload = res
+    return status, sorted(payload), payload.get("retry_after") is not None
+
+
+SCENARIOS = ["400 schema", "400 missing", "404 study", "404 route", "409 tell",
+             "410 quarantined", "429 shed", "429 quota", "503 draining", "507 store full",
+             "200 tell batch"]
+
+
+@pytest.mark.parametrize("name", SCENARIOS)
+def test_statuses_and_keys_match_the_reference(name):
+    got = _scenario(name, _port_server)
+    want = _scenario(name, _ref_server)
+    assert got == want
+    assert got[0] == int(name.split()[0])
+    if got[0] in (503, 507) or name == "429 shed":
+        assert got[2]
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn(root, port, chaos=None):
+    env = {**os.environ, "PYTHONPATH": REPO, "HYPEROPT_TPU_WATCHDOG": "0"}
+    env.pop("HYPEROPT_TPU_CHAOS", None)
+    if chaos:
+        env["HYPEROPT_TPU_CHAOS"] = chaos
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "hyperopt_tpu_torch.service.server", "--device", "cpu",
+         "--port", str(port), "--announce", "--store", root],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True, env=env, cwd=REPO)
+    assert proc.stdout.readline().startswith("SERVICE_URL ")
+    return proc
+
+
+def test_sigkilled_server_process_resumes_bit_for_bit(tmp_path):
+    """A real server process is SIGKILLed inside a cohort tick; the
+    client retries through the restart, and every study's (tid, params)
+    stream equals the port's undisturbed scheduler bit for bit."""
+    n_studies, budget = 2, 8
+    root, port = str(tmp_path / "store"), _free_port()
+    proc = _spawn(root, port, "13:kill@tick:3")
+    c = ServiceClient(f"http://127.0.0.1:{port}",
+                      retry=RetryPolicy(max_retries=200, base_delay=0.05, max_delay=0.25))
+    got, restarted = [], []
+    sids = [c.create_study(zoo="quadratic1", seed=500 + i, n_startup_jobs=3)
+            for i in range(n_studies)]
+    import threading
+
+    def watch():
+        while proc.poll() is None:
+            time.sleep(0.02)
+        restarted.append(proc.returncode)
+        restarted.append(_spawn(root, port))
+
+    th = threading.Thread(target=watch, daemon=True)
+    th.start()
+    try:
+        for _ in range(budget):
+            for i, sid in enumerate(sids):
+                (a,) = c.ask(sid)
+                got.append((i, a["tid"], repr(a["params"]["x"])))
+                c.tell(sid, a["tid"], float((a["params"]["x"] - (i - 1.0)) ** 2))
+    finally:
+        th.join(timeout=60)
+        for p in [proc] + restarted[1:]:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+                assert p.wait(timeout=60) == 0
+    assert restarted and restarted[0] == -signal.SIGKILL
+    ref = StudyScheduler(device="cpu", wal=False)
+    rsids = [ref.create_study(zoo.ZOO["quadratic1"].space, seed=500 + i, n_startup_jobs=3)
+             for i in range(n_studies)]
+    want = []
+    for _ in range(budget):
+        for i, sid in enumerate(rsids):
+            (a,) = ref.ask(sid)
+            want.append((i, a["tid"], repr(a["params"]["x"])))
+            ref.tell(sid, a["tid"], float((a["params"]["x"] - (i - 1.0)) ** 2))
+    assert got == want
+
+
+UNPORTED = [
+    ("ServiceHTTPServer(fleet=...)", "13b",
+     lambda d: ServiceHTTPServer(0, scheduler=StudyScheduler(device="cpu"), fleet=object())),
+    ("--fleet", "13b", lambda d: port_server.main(["--port", "0", "--fleet", "--store", d])),
+    ("--fleet-shards", "13b", lambda d: port_server.main(["--port", "0", "--fleet-shards", "4"])),
+    ("--replica-id", "13b", lambda d: port_server.main(["--port", "0", "--replica-id", "r1"])),
+    ("--addr", "13b", lambda d: port_server.main(["--port", "0", "--addr", "http://x:1"])),
+    ("--lease-ttl", "13b", lambda d: port_server.main(["--port", "0", "--lease-ttl", "3"])),
+    ("--probe", "14", lambda d: port_server.main(["--port", "0", "--probe", "on"])),
+    ("canary", "14", lambda d: StudyScheduler(device="cpu").create_study(
+        zoo.ZOO["quadratic1"].space, canary=True)),
+    ("tenant", "14", lambda d: StudyScheduler(device="cpu").create_study(
+        zoo.ZOO["quadratic1"].space, tenant="t1")),
+]
+
+
+@pytest.mark.parametrize("i", range(len(UNPORTED)))
+def test_unported_options_name_their_item(i, tmp_path):
+    what, item, call = UNPORTED[i]
+    with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
+        call(str(tmp_path))
+    assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("request_", [("GET", "/tenants", {}, {}), ("GET", "/probes", {}, {}),
+                                      ("GET", "/fleet/load", {}, {}),
+                                      ("POST", "/study", {"zoo": "branin", "canary": True}, {}),
+                                      ("GET", "/studies", {}, {"x-tenant": "team-a"})])
+def test_unported_planes_answer_501_over_http(request_):
+    method, path, body, headers = request_
+    srv = _port_server()
+    status, payload = srv.handle(method, path, body, headers=headers)
+    assert status == 501 and "item 14" in payload["error"]
+    assert srv.handle("GET", "/studies", {}, headers={"x-tenant": "\n"})[0] == 400
