@@ -159,6 +159,33 @@ Phases, each of which fails the run (non-zero exit) on its own:
     with at most one flip; and a WAL written on the CPU resumes on the
     card to the same ids, seeds and counts, its next 5 asks per study
     agreeing at the card tolerance (flips counted).
+15. The replicated serving fleet: ``make_study_mix(256)`` (cut from the
+    mix's 1024, ``FLEET_STUDIES``) on 8 shards, each study to 10 trials
+    (5 prior, 5 TPE asks) under one of 4 tenants, by 128
+    ``ServiceClient`` threads in 8 processes whose seeds
+    are every replica's URL.  The replicas are ``chip_smoke.py
+    --fleet-replica`` processes on the one card, each ticking both
+    kernels before it joins and then running the port server's own
+    ``main([... "--fleet" ...])``: r0 and r1 from the start (balanced 4
+    and 4 before the drive), r1 SIGKILLed at its ``tell`` site
+    (``HYPEROPT_TPU_CHAOS``) near a third of the acknowledged tells, r2
+    started at two thirds, every replica SIGTERMed (drained) at the end.
+    It fails unless every acknowledged tell is DONE with its loss when a
+    fresh card scheduler resumes every shard's WAL chain, and those docs
+    are the answers the clients got; every stream equals an undisturbed
+    scheduler's in this process (bit for bit on the fused route, on
+    ``ei_diff`` bit for bit or at rtol 1e-4, atol 1e-5 with at most one
+    flip); r0 adopted r1's shards after the kill, a shard was handed to
+    r2, and the clients followed 307s; ``/fleet/load`` shows the heat of
+    every shard that held a study and ``read_heat`` over the root agrees;
+    ``/tenants`` shows the 4 tenants; every surviving replica that served
+    TPE waves launched both kernels.  Every shape the replicas launched
+    at is held against the plain versions after the phase.  It reports
+    the wall, client ask p50/p99, tells/s, the time from the kill to the
+    adopter's first answer, adoption seconds, launches per wave per
+    replica and the card's idle share over the drive (NVML's
+    ``utilization.gpu`` from ``nvidia-smi`` every 0.5 s, every process's
+    kernels counted).
 
 It imports neither JAX nor the JAX package.  Before the last line it
 prints one JSON line describing every kernel and the card's name and power
@@ -3274,11 +3301,618 @@ def phase_service_plane(report):
     return launches, sorted(shapes), sorted(fused_shapes)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the replicated serving fleet
+# ---------------------------------------------------------------------------
+
+# the mix on 8 shards, 3 replica processes (r0 and r1 from the start, r1
+# SIGKILLed at its tell site near a third of the acknowledged tells, r2
+# started at two thirds), each study to 10 trials (5 prior, 5 TPE asks:
+# phase 14 (a)'s cut) by 128 client threads in 8 processes, each study's
+# asks under one of 4 tenants.  Cut from the mix's 1024 studies to 256
+# (PERF.md §4): a replica serves each shard through its own scheduler,
+# so its waves hold ~4 asks where phase 14 (a)'s hold ~41, and the
+# fleet acknowledged ~15 tells/s on the card; 1024 studies would take
+# ~700 s
+FLEET_STUDIES, FLEET_TRIALS, FLEET_SHARDS, FLEET_TENANTS = 256, 10, 8, 4
+FLEET_CLIENTS, FLEET_CLIENT_PROCS = 128, 8
+# the shard-lease TTL: each replica ticks both kernels before it joins,
+# so the TTL covers no cold start; the steward and the heartbeat beat
+# every TTL/4
+FLEET_LEASE_TTL = 5.0
+FLEET_SEC = 600  # the drive's limit
+
+
+def _fleet_loss(idx, tid):
+    """The loss told for trial ``tid`` of mix study ``idx``: a function of
+    the ids only, so the undisturbed run folds the same history."""
+    return float(((tid * 7919 + idx * 104729) % 1009) / 1009.0)
+
+
+def _fleet_tenant(idx):
+    return f"team-{idx % FLEET_TENANTS}"
+
+
+def fleet_replica(argv):
+    """A replica process of phase 15 (``chip_smoke.py --fleet-replica ROOT
+    PORT ID OUT DEVICE``): it ticks both kernels on the card before it
+    joins, then runs the port server's real ``main([... "--fleet" ...])``.
+    It records its kernels' launches and shapes (``LaunchLog``), TPE
+    waves, adoptions and first answers per adopted scheduler, writes them
+    to ``OUT.partial`` every second (a SIGKILLed replica leaves its last
+    one) and, after the SIGTERM drain, prints them as one
+    ``FLEET_REPLICA {json}`` line."""
+    import faulthandler
+    import signal
+    import threading
+
+    from hyperopt_tpu_torch import zoo
+    from hyperopt_tpu_torch.service import fleet, server
+
+    # SIGUSR1 writes every thread's stack to the replica's log (the
+    # parent sends it to a replica that overruns the drive)
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
+    from hyperopt_tpu_torch.service.scheduler import StudyScheduler
+
+    global DEVICE
+    root, port, rid, out, DEVICE = argv[:5]
+    warm = StudyScheduler(device=DEVICE, wal=False)
+    sids = [warm.create_study(zoo.ZOO[n].space, seed=1, n_startup_jobs=1)
+            for n in ("quadratic1", "hpob_surrogate")]
+    for _ in range(2):
+        for sid, (a,) in warm.ask_many([(s, 1) for s in sids]).items():
+            warm.tell(sid, a["tid"], 0.5)
+    warmed = _svc_counts()
+    _svc_reset_counts()
+    stats = {"replica": rid, "warm_launches": warmed, "tpe_waves": 0, "adoptions": [],
+             "first_answer": {}}
+    lock = threading.Lock()
+    rec = LaunchLog()
+    rec.__enter__()
+
+    real_adopt = fleet.FleetReplica.adopt
+
+    def adopt(self, shard):
+        t0 = time.time()
+        ok = real_adopt(self, shard)
+        if ok:
+            with lock:
+                stats["adoptions"].append({"shard": int(shard), "t0": t0, "t1": time.time(),
+                                           "sched": id(self.schedulers.get(shard)),
+                                           "epoch": self.epochs.get(shard)})
+        return ok
+
+    fleet.FleetReplica.adopt = adopt
+    replicas = []
+    real_start = fleet.FleetReplica.start
+
+    def start(self):
+        replicas.append(self)
+        return real_start(self)
+
+    fleet.FleetReplica.start = start
+    real_ask = StudyScheduler.ask
+
+    def ask(self, *a, **kw):
+        res = real_ask(self, *a, **kw)
+        key = str(id(self))
+        if key not in stats["first_answer"]:
+            stats["first_answer"][key] = time.time()
+        return res
+
+    StudyScheduler.ask = ask
+    real_inner = StudyScheduler._run_wave_inner
+
+    def inner(self, reqs):
+        with lock:
+            stats["tpe_waves"] += 1
+        return real_inner(self, reqs)
+
+    StudyScheduler._run_wave_inner = inner
+    done = threading.Event()
+
+    def snapshot():
+        with lock:
+            by_shape = _svc_shape_counts(list(rec.shapes))
+            snap = {**stats, "launches": _svc_counts(),
+                    "shapes": sorted(by_shape["ei_diff"].items()),
+                    "fused_shapes": sorted(by_shape["fused_sample_ei"].items())}
+        if replicas:
+            r = replicas[0]
+            snap.update(handoffs=r.handoffs, leases_lost=r.leases_lost,
+                        n_adoptions=r.adoptions, held=sorted(r.schedulers))
+        return snap
+
+    def report():
+        while not done.wait(1.0):
+            tmp = out + ".partial.tmp"
+            with open(tmp, "w") as f:
+                json.dump(snapshot(), f, default=str)
+            os.replace(tmp, out + ".partial")
+
+    threading.Thread(target=report, daemon=True).start()
+    rc = server.main(["--port", port, "--announce", "--store", root, "--fleet",
+                      "--fleet-shards", str(FLEET_SHARDS), "--replica-id", rid,
+                      "--lease-ttl", str(FLEET_LEASE_TTL), "--device", DEVICE])
+    done.set()
+    rec.__exit__()
+    print("FLEET_REPLICA " + json.dumps({**snapshot(), "rc": rc}, default=str), flush=True)
+    return rc
+
+
+def fleet_client(argv):
+    """A client process of phase 15 (``chip_smoke.py --fleet-client URLS
+    FIRST LAST THREADS STUDIES TRIALS OUT PROGRESS``): ``THREADS`` threads
+    drive the mix studies ``FIRST..LAST-1``, each study under its tenant's
+    ``ServiceClient`` (every replica's URL a seed), and write each ask
+    (start, ms, TPE or not), each answer (study, tid, params), each
+    acknowledged tell and the 307s followed to ``OUT``; the count of
+    acknowledged tells goes to ``PROGRESS`` as it grows."""
+    import threading
+
+    from hyperopt_tpu_torch import zoo
+    from hyperopt_tpu_torch.base import Domain
+    from hyperopt_tpu_torch.retry import RetryPolicy
+    from hyperopt_tpu_torch.service import ServiceClient
+
+    urls, path, progress = argv[0].split(","), argv[6], argv[7]
+    first, last, n_threads, n_studies, n_trials = (int(a) for a in argv[1:6])
+    mix = zoo.make_study_mix(n_studies)
+    cs_of = {it.domain.name: Domain(None, it.domain.space).cs for it in mix[first:last]}
+    per = (last - first) // n_threads
+    res = {"asks": [], "answers": [], "told": [], "sids": {}, "bad": [], "errors": [],
+           "redirects": 0}
+    lock = threading.Lock()
+    retry = RetryPolicy(max_retries=2000, base_delay=0.05, max_delay=0.5)
+    finished = threading.Event()
+
+    def client(k):
+        idxs = list(range(first + k * per, first + (k + 1) * per))
+        # every other thread seeds with the second replica first, so the
+        # studies are created (and placed) on both
+        seeds = (urls[:2] if k % 2 == 0 else urls[1::-1]) + urls[2:]
+        clients = {t: ServiceClient(seeds, retry=retry, key=first + k, timeout=600, tenant=t)
+                   for t in {_fleet_tenant(i) for i in idxs}}
+        try:
+            mine = []
+            for i in idxs:
+                it = mix[i]
+                c = clients[_fleet_tenant(i)]
+                sid = c.create_study(zoo=it.domain.name, seed=it.seed,
+                                     n_startup_jobs=SVC_STARTUP)
+                mine.append((i, sid, c))
+                with lock:
+                    res["sids"][i] = sid
+            for t in range(n_trials):
+                for i, sid, c in mine:
+                    start, t0 = time.time(), time.perf_counter()
+                    (a,) = c.ask(sid)
+                    ms = 1e3 * (time.perf_counter() - t0)
+                    doc = {"misc": {"vals": {l: [v] for l, v in a["params"].items()}}}
+                    if not in_space(cs_of[mix[i].domain.name], doc) or a.get("degraded"):
+                        res["bad"].append((sid, a))
+                    loss = _fleet_loss(i, a["tid"])
+                    c.tell(sid, a["tid"], loss)
+                    with lock:
+                        res["asks"].append((start, ms, t >= SVC_STARTUP))
+                        res["answers"].append((i, a["tid"], a["params"]))
+                        res["told"].append((i, a["tid"], loss))
+        except Exception as e:  # noqa: BLE001 - reported to the parent
+            res["errors"].append(f"client {first + k}: {type(e).__name__}: {e}")
+        finally:
+            with lock:
+                res["redirects"] += sum(c.redirects for c in clients.values())
+
+    def report():
+        while not finished.wait(0.25):
+            with open(progress + ".tmp", "w") as f:
+                f.write(str(len(res["told"])))
+            os.replace(progress + ".tmp", progress)
+
+    threading.Thread(target=report, daemon=True).start()
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(n_threads)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    finished.set()
+    with open(path, "w") as f:
+        json.dump(res, f, default=str)
+    return 0
+
+
+def _fleet_spawn(root, port, rid, outdir, chaos=None):
+    """A replica process; returns it once it announced its URL (joined and
+    holding its first shards).  It serves without a request deadline: an
+    ask shed at its deadline voids its draw, which moves its study's
+    stream off the undisturbed run's (a shed, not a lost ask), and the
+    drive's outages queue asks past the default 30 s."""
+    env = {**os.environ, "HYPEROPT_TPU_WATCHDOG": "0", "HYPEROPT_TPU_SERVICE_DEADLINE_MS": "off"}
+    env.pop("HYPEROPT_TPU_CHAOS", None)
+    if chaos:
+        env["HYPEROPT_TPU_CHAOS"] = chaos
+    err = open(os.path.join(outdir, f"{rid}.err"), "w")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--fleet-replica", root,
+                             str(port), rid, os.path.join(outdir, f"{rid}.json"), DEVICE],
+                            stdout=subprocess.PIPE, stderr=err, text=True, env=env)
+    line = proc.stdout.readline()
+    if not line.startswith("SERVICE_URL "):
+        proc.kill()
+        raise AssertionError(f"replica {rid} did not announce itself: {line!r}")
+    return proc
+
+
+def _fleet_get(url, path, timeout=60):
+    import urllib.request
+
+    return json.loads(urllib.request.urlopen(url + path, timeout=timeout).read())
+
+
+def _fleet_report(proc, rid, outdir):
+    """The replica's FLEET_REPLICA record after it exited (its last partial
+    one when it was killed)."""
+    if proc.returncode == 0:
+        for line in proc.stdout.read().splitlines():
+            if line.startswith("FLEET_REPLICA "):
+                return json.loads(line[len("FLEET_REPLICA "):])
+    path = os.path.join(outdir, f"{rid}.json.partial")
+    with open(path) as f:
+        return json.load(f)
+
+
+def phase_fleet(report):
+    """Phase 15: the replicated serving fleet on the card."""
+    import tempfile
+    import threading
+
+    import torch
+
+    from hyperopt_tpu_torch import megakernel, zoo
+    from hyperopt_tpu_torch.base import JOB_STATE_DONE
+    from hyperopt_tpu_torch.obs.load import read_heat
+    from hyperopt_tpu_torch.service import StudyScheduler
+    from hyperopt_tpu_torch.service.journal import StudyJournal
+
+    out = report["fleet"] = {}
+    t_phase = time.perf_counter()
+    mix = zoo.make_study_mix(FLEET_STUDIES)
+    # the undisturbed run: one scheduler in this process on the card
+    ref = StudyScheduler(device=DEVICE, wal=False)
+    rsids = [ref.create_study(it.domain.space, seed=it.seed, n_startup_jobs=SVC_STARTUP,
+                              tenant=_fleet_tenant(i)) for i, it in enumerate(mix)]
+    want = [[] for _ in mix]
+    with LaunchLog() as ref_shapes:
+        for _ in range(FLEET_TRIALS):
+            answers = ref.ask_many([(sid, 1) for sid in rsids])
+            for i, sid in enumerate(rsids):
+                (a,) = answers[sid]
+                want[i].append((a["tid"], a["params"]))
+                ref.tell(sid, a["tid"], _fleet_loss(i, a["tid"]))
+    del ref
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()  # the replicas need the card's memory
+    root = tempfile.mkdtemp(prefix="fleet_")
+    # the replicas' logs and reports come back with the run
+    outdir = os.path.abspath(os.path.join("chiprun_out", "fleet"))
+    os.makedirs(outdir, exist_ok=True)
+    ports = [_svc_free_port() for _ in range(3)]
+    urls = [f"http://127.0.0.1:{p}" for p in ports]
+    total = FLEET_STUDIES * FLEET_TRIALS
+    # r1 holds about half the shards, so about half the tells reach it
+    kill_at = total // 6
+    t0 = time.perf_counter()
+    procs = {"r0": _fleet_spawn(root, ports[0], "r0", outdir)}
+    procs["r1"] = _fleet_spawn(root, ports[1], "r1", outdir, f"11:kill@tell:{kill_at}")
+    t_spawned = time.perf_counter() - t0
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:  # the steward balances 4 + 4 before the drive
+        held = [len(_fleet_get(u, "/healthz")["shards_held"]) for u in urls[:2]]
+        if held == [FLEET_SHARDS // 2] * 2:
+            break
+        time.sleep(0.25)
+    else:
+        raise AssertionError(f"the two replicas did not balance: {held}")
+    t_balanced = time.perf_counter() - t0
+    per_proc = FLEET_STUDIES // FLEET_CLIENT_PROCS
+    threads = FLEET_CLIENTS // FLEET_CLIENT_PROCS
+    couts = [os.path.join(outdir, f"client{i}.json") for i in range(FLEET_CLIENT_PROCS)]
+    progs = [os.path.join(outdir, f"client{i}.progress") for i in range(FLEET_CLIENT_PROCS)]
+    env = {**os.environ, "HYPEROPT_TPU_WATCHDOG": "0"}
+    env.pop("HYPEROPT_TPU_CHAOS", None)
+
+    def acked():
+        n = 0
+        for p in progs:
+            try:
+                with open(p) as f:
+                    n += int(f.read() or 0)
+            except (OSError, ValueError):
+                pass
+        return n
+
+    killed = []  # (wall time, acknowledged tells) when r1 died
+
+    def watch_r1():
+        procs["r1"].wait()
+        killed.append((time.time(), acked()))
+
+    threading.Thread(target=watch_r1, daemon=True).start()
+    # the card's busy share over the drive: NVML's utilization.gpu (the
+    # share of each sample period in which a kernel ran, from any process)
+    # every 0.5 s.  A torch.profiler session started under traffic
+    # stalled a replica ~25 s, and sees one process only
+    util_samples, sampling = [], threading.Event()
+
+    def sample_util():
+        while not sampling.wait(0.5):
+            try:
+                q = subprocess.run(["nvidia-smi", "--query-gpu=utilization.gpu",
+                                    "--format=csv,noheader,nounits", "-i", "0"],
+                                   capture_output=True, text=True, timeout=10)
+                util_samples.append(float(q.stdout.strip().splitlines()[0]))
+            except (OSError, ValueError, IndexError, subprocess.TimeoutExpired):
+                util_samples.append(None)
+
+    if DEVICE != "cpu":
+        threading.Thread(target=sample_util, daemon=True).start()
+    t_drive = time.perf_counter()
+    clients = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--fleet-client",
+                                 ",".join(urls), str(i * per_proc), str((i + 1) * per_proc),
+                                 str(threads), str(FLEET_STUDIES), str(FLEET_TRIALS), couts[i],
+                                 progs[i]], env=env)
+               for i in range(FLEET_CLIENT_PROCS)]
+    marks = {}
+    trace = out["progress"] = []  # (s, acknowledged tells, each live replica's shards)
+
+    def note_progress():
+        row = [round(time.perf_counter() - t_drive, 1), acked()]
+        for k, rid in enumerate(("r0", "r1", "r2")):
+            p = procs.get(rid)
+            if p is None or p.poll() is not None:
+                row.append(None)
+                continue
+            try:
+                h = _fleet_get(urls[k], "/healthz", timeout=5)
+                row.append([h["shards_held"], h["adoptions"], h["handoffs"], h["leases_lost"]])
+            except Exception as e:  # noqa: BLE001 - a progress probe only
+                row.append(type(e).__name__)
+        trace.append(row)
+        log(f"phase 15 progress: {row}")
+
+    last_note = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in clients):
+            if time.perf_counter() - last_note > 10:
+                note_progress()
+                last_note = time.perf_counter()
+            n = acked()
+            if "r2" not in procs and n >= 2 * total // 3:
+                marks["r2_start"] = n
+                t2 = time.perf_counter()
+                procs["r2"] = _fleet_spawn(root, ports[2], "r2", outdir)
+                out["r2_spawn_sec"] = time.perf_counter() - t2
+            if time.perf_counter() - t_drive > FLEET_SEC:
+                import signal
+
+                for p in procs.values():
+                    if p.poll() is None:
+                        p.send_signal(signal.SIGUSR1)  # stacks to chiprun_out/fleet/*.err
+                time.sleep(2)
+                raise AssertionError(f"the clients did not finish in {FLEET_SEC} s")
+            time.sleep(0.05)
+        wall = time.perf_counter() - t_drive
+        sampling.set()
+        if "r2" not in procs:
+            procs["r2"] = _fleet_spawn(root, ports[2], "r2", outdir)
+        # the steward hands r2 its shards (within a few sweeps)
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            if _fleet_get(urls[2], "/healthz")["shards_held"]:
+                break
+            time.sleep(0.25)
+        health = {r: _fleet_get(urls[k], "/healthz") for k, r in ((0, "r0"), (2, "r2"))}
+        loads = {r: _fleet_get(urls[k], "/fleet/load") for k, r in ((0, "r0"), (2, "r2"))}
+        heat = read_heat(root)
+        tenants = _fleet_get(urls[0], "/tenants")
+    finally:
+        sampling.set()
+        for p in clients:
+            if p.poll() is None:
+                p.kill()
+        for rid, p in procs.items():
+            if rid != "r1":
+                _svc_stop(p)
+        if procs["r1"].poll() is None:
+            procs["r1"].kill()
+            procs["r1"].wait()
+    reps = {rid: _fleet_report(p, rid, outdir) for rid, p in procs.items()}
+    res_c = {"asks": [], "answers": [], "told": [], "sids": {}, "bad": [], "errors": [],
+             "redirects": 0}
+    for i, (p, path) in enumerate(zip(clients, couts)):
+        if p.returncode != 0 or not os.path.exists(path):
+            raise AssertionError(f"client process {i} exited {p.returncode}")
+        with open(path) as f:
+            for k, v in json.load(f).items():
+                res_c[k] = {**res_c[k], **v} if isinstance(v, dict) else res_c[k] + v
+    if res_c["errors"]:
+        raise AssertionError(f"{len(res_c['errors'])} clients failed, e.g. {res_c['errors'][0]}")
+
+    # a fresh card scheduler resumes every shard's WAL chain: every
+    # acknowledged tell is there, DONE with its loss, and the docs are the
+    # answers the clients got
+    t_verify = time.perf_counter()
+    fresh = StudyScheduler(device=DEVICE, store_root=root, wal=False, quality=False,
+                           load=False, tenants=False)
+    wal_dir = os.path.join(root, "fleet", "wal")
+    chains = {}
+    for shard in sorted(os.listdir(wal_dir)):
+        chain = sorted(os.listdir(os.path.join(wal_dir, shard)))
+        chains[shard] = chain
+        for fname in chain:
+            fresh.resume(StudyJournal(os.path.join(wal_dir, shard, fname)))
+    sids = {int(i): sid for i, sid in res_c["sids"].items()}
+    lost, wrong_doc = [], []
+    for i, tid, loss in res_c["told"]:
+        st = fresh._studies.get(sids[i])
+        doc = None if st is None else next(
+            (d for d in st.trials._dynamic_trials if d["tid"] == tid), None)
+        if doc is None or doc["state"] != JOB_STATE_DONE or doc["result"].get("loss") != loss:
+            lost.append((i, tid))
+    got = [[] for _ in mix]
+    for i, tid, params in sorted(res_c["answers"], key=lambda a: (a[0], a[1])):
+        got[i].append((tid, params))
+    for i, sid in sids.items():
+        st = fresh._studies.get(sid)
+        docs = {d["tid"]: d for d in st.trials._dynamic_trials} if st else {}
+        for tid, params in got[i]:
+            d = docs.get(tid)
+            vals = None if d is None else {l: v[0] for l, v in d["misc"]["vals"].items() if v}
+            if vals is None or any(float(vals[k]) != float(v) for k, v in params.items()):
+                wrong_doc.append((i, tid))
+    verify_sec = time.perf_counter() - t_verify
+
+    routes = [_svc_route(fresh._studies[sids[i]].domain.cs) for i in range(len(mix))]
+    fused = [i for i, r in enumerate(routes) if r == "fused_sample_ei"]
+    eid = [i for i, r in enumerate(routes) if r == "ei_diff"]
+    fb, fflips, fworst = _svc_streams_equal([got[i] for i in fused], [want[i] for i in fused])
+    eb, eflips, eworst = _svc_streams_equal([got[i] for i in eid], [want[i] for i in eid])
+    plans = sorted({(P, n, m, megakernel._launch_plan("ei_diff", P, n, m)["splits"])
+                    for name, P, n, m in ref_shapes.shapes
+                    if name == "ei_diff"}) if DEVICE != "cpu" else []
+    replica_plans = sorted({(P, n, m, megakernel._launch_plan("ei_diff", P, n, m)["splits"])
+                            for r in reps.values() for (P, n, m), _ in r["shapes"]}) \
+        if DEVICE != "cpu" else []
+
+    # the reclaims of r1's shards (the first adoption of each after the
+    # SIGKILL: r0's, or r2's when it joined first) and the adopter's first
+    # answer
+    t_kill = killed[0][0] if killed else None
+    reclaims, firsts = [], []
+    for shard in reps["r1"].get("held") or []:
+        after = sorted((a["t0"], rid, a) for rid in ("r0", "r2") if rid in reps
+                       for a in reps[rid]["adoptions"]
+                       if t_kill and a["t0"] >= t_kill and a["shard"] == shard)
+        if after:
+            _, rid, a = after[0]
+            reclaims.append({**a, "replica": rid})
+            first = reps[rid]["first_answer"].get(str(a["sched"]))
+            if first is not None:
+                firsts.append(first)
+    ms = sorted(a[1] for a in res_c["asks"])
+    tms = sorted(a[1] for a in res_c["asks"] if a[2])
+
+    def pct(xs, q):
+        return xs[min(len(xs) - 1, math.ceil(q * len(xs)) - 1)] if xs else None
+
+    per_replica = {}
+    for rid, r in reps.items():
+        waves = r["tpe_waves"]
+        per_replica[rid] = {
+            "launches": r["launches"], "tpe_waves": waves,
+            "launches_per_wave": {k: v / max(waves, 1) for k, v in r["launches"].items()},
+            "adoptions": [(a["shard"], a["epoch"], round(a["t1"] - a["t0"], 4))
+                          for a in r["adoptions"]],
+            "handoffs": r.get("handoffs"), "leases_lost": r.get("leases_lost"),
+            "held_at_end": r.get("held"), "warm_launches": r["warm_launches"]}
+    util = [u for u in util_samples if u is not None]
+    heat_shards = {k: v["heat_ms"] for k, v in heat["shards"].items()}
+    res = {
+        "studies": FLEET_STUDIES, "trials": FLEET_TRIALS, "shards": FLEET_SHARDS,
+        "tenants": FLEET_TENANTS, "clients": FLEET_CLIENTS, "lease_ttl": FLEET_LEASE_TTL,
+        "spawn_two_sec": t_spawned, "balanced_sec": t_balanced, "wall_sec": wall,
+        "asks": len(res_c["asks"]), "tells": len(res_c["told"]),
+        "ask_ms_p50": pct(ms, 0.5), "ask_ms_p99": pct(ms, 0.99),
+        "tpe_ask_ms_p50": pct(tms, 0.5), "tpe_ask_ms_p99": pct(tms, 0.99),
+        "tells_per_sec": len(res_c["told"]) / wall,
+        "acked_at_kill": killed[0][1] if killed else None,
+        "acked_at_r2_start": marks.get("r2_start"),
+        "kill_site": f"tell hit {kill_at}", "r1_returncode": procs["r1"].returncode,
+        "kill_to_first_adopter_answer_sec": (min(firsts) - t_kill) if firsts else None,
+        "reclaim_adoptions": [(a["replica"], a["shard"], a["epoch"]) for a in reclaims],
+        "reclaim_adopt_sec": [round(a["t1"] - a["t0"], 4) for a in reclaims],
+        "redirects_followed": res_c["redirects"],
+        "handoffs": {r: h["handoffs"] for r, h in health.items()},
+        "adoptions": {r: h["adoptions"] for r, h in health.items()},
+        "replicas": per_replica,
+        "utilization_samples": len(util),
+        "device_idle_share": (1.0 - statistics.mean(util) / 100.0) if util else None,
+        "lost_tells": len(lost), "wrong_docs": len(wrong_doc), "verify_sec": verify_sec,
+        "wal_chains": {k: len(v) for k, v in chains.items()},
+        "fused_studies": len(fused), "fused_bitwise": fb, "fused_max_abs_diff": fworst,
+        "ei_diff_studies": len(eid), "ei_diff_bitwise": eb,
+        "ei_diff_flips": {n: eflips.count(n) for n in sorted(set(eflips))},
+        "ei_diff_max_abs_diff": eworst, "undisturbed_ei_diff_plans": plans,
+        "replica_ei_diff_plans": replica_plans,
+        "heat_ms_by_shard": heat_shards,
+        "fleet_load_local_shards": {r: sorted((l.get("local") or {}).get("shards", {}))
+                                    for r, l in loads.items()},
+        "tenants_seen": sorted(tenants.get("table", {})),
+    }
+    out.update(res)
+    out["phase_sec"] = time.perf_counter() - t_phase
+    log(f"phase 15: {res}")
+    if res_c["bad"]:
+        raise AssertionError(f"{len(res_c['bad'])} answers out of their space or degraded, "
+                             f"e.g. {res_c['bad'][0]}")
+    if procs["r1"].returncode != -9 or not killed:
+        raise AssertionError(f"r1 was not SIGKILLed at its tell site: {procs['r1'].returncode}")
+    if lost or wrong_doc:
+        raise AssertionError(f"{len(lost)} acknowledged tells lost (e.g. {lost[:3]}), "
+                             f"{len(wrong_doc)} docs differ from the answers")
+    if len(res_c["told"]) != total:
+        raise AssertionError(f"{len(res_c['told'])} of {total} tells acknowledged")
+    if fb != len(fused):
+        raise AssertionError(f"fused-route studies left the undisturbed stream: "
+                             f"{len(fused) - fb} of {len(fused)}")
+    if max(eflips) > 1:
+        raise AssertionError(f"ei_diff-route studies flipped more than one proposal: "
+                             f"{res['ei_diff_flips']}")
+    if len(reclaims) != len(reps["r1"].get("held") or [None]) or not firsts:
+        raise AssertionError(f"r1's shards {reps['r1'].get('held')} were not all reclaimed "
+                             f"after the kill: {res['reclaim_adoptions']}")
+    if not sum(h["handoffs"] for h in health.values()) or not health["r2"]["adoptions"]:
+        raise AssertionError(f"no handoff to r2: {res['handoffs']}, {res['adoptions']}")
+    if res_c["redirects"] < 1:
+        raise AssertionError("the clients followed no 307")
+    from hyperopt_tpu_torch.service import shard_of
+
+    # every shard holding a study served its TPE waves
+    served = {str(shard_of(sid, FLEET_SHARDS)) for sid in sids.values()}
+    cold = [k for k in sorted(served) if not heat_shards.get(k)]
+    for r, l in loads.items():
+        view = (l.get("fleet") or {}).get("shards", {})
+        for k, v in view.items():
+            if v["heat_ms"] > heat_shards.get(k, 0.0) + 1e-6:
+                raise AssertionError(f"{r}'s /fleet/load heat for shard {k} exceeds the "
+                                     f"ledger's: {v} vs {heat_shards.get(k)}")
+        if set(view) != set(heat_shards):
+            raise AssertionError(f"{r}'s /fleet/load shows heat for shards {sorted(view)}, "
+                                 f"the ledger for {sorted(heat_shards)}")
+    if cold or len(heat_shards) != FLEET_SHARDS:
+        raise AssertionError(f"shards without heat: {cold}, ledger {heat_shards}")
+    if res["tenants_seen"] != sorted(_fleet_tenant(i) for i in range(FLEET_TENANTS)):
+        raise AssertionError(f"/tenants shows {res['tenants_seen']}")
+    for rid in ("r0", "r2"):
+        r = reps[rid]
+        if r["tpe_waves"] and not (r["launches"]["fused_sample_ei"] and r["launches"]["ei_diff"]):
+            raise AssertionError(f"{rid} served TPE waves but did not launch both kernels: "
+                                 f"{r['launches']}")
+    shapes = {tuple(s) for r in reps.values() for s, _ in r["shapes"]}
+    fused_shapes = {tuple(s) for r in reps.values() for s, _ in r["fused_shapes"]}
+    launches = {f"fleet_{rid}": r["launches"] for rid, r in reps.items()}
+    return launches, sorted(shapes), sorted(fused_shapes)
+
+
 def main():
     if sys.argv[1:2] == ["--md-controller"]:
         return md_controller(sys.argv[2:])
     if sys.argv[1:2] == ["--svc-client"]:
         return svc_client(sys.argv[2:])
+    if sys.argv[1:2] == ["--fleet-replica"]:
+        os.environ.setdefault("TEARDOWN_CUPTI", "1")
+        return fleet_replica(sys.argv[2:])
+    if sys.argv[1:2] == ["--fleet-client"]:
+        return fleet_client(sys.argv[2:])
     # torch.profiler leaves CUPTI attached after a session unless told to
     # tear it down, and every later launch pays for it (a branin ask ~30%
     # slower after one session); phase 1 profiles before the timed phases
@@ -3317,21 +3951,23 @@ def main():
     ml_launches, ml_shapes = phase_ml_backends(report)
     md_launches, md_shapes, md_fused_shapes = phase_multi_device(report)
     svc_launches, svc_shapes, svc_fused_shapes = phase_service_plane(report)
-    # every shape the widened wave and phases 12-14 gave ei_diff is held
+    fleet_launches, fleet_shapes, fleet_fused_shapes = phase_fleet(report)
+    # every shape the widened wave and phases 12-15 gave ei_diff is held
     # against the plain version on every candidate: phase 1 planned them,
     # and any it missed is checked here
     planned = {tuple(r["shape"]) for r in rows}
     extra = [check_ei(P, n, m, 0, plain_cmp(P, n, m), False, report["ptxas"])
              for P, n, m in sorted(set(widened_shapes) | set(ml_shapes) | set(md_shapes)
-                                   | set(svc_shapes))
+                                   | set(svc_shapes) | set(fleet_shapes))
              if (P, n, m) not in planned]
     report["ei_diff_shapes_unplanned"] = [r["shape"] for r in extra]
     rows += extra
-    # and every shape phases 13-14 gave fused_sample_ei (the fused route's
+    # and every shape phases 13-15 gave fused_sample_ei (the fused route's
     # spaces are uniform: bounded)
     fplanned = {tuple(r["shape"]) for r in frows}
     fextra = [check_fused(P, N, m, 0, True, report["ptxas"])
-              for P, N, m in sorted(set(md_fused_shapes) | set(svc_fused_shapes))
+              for P, N, m in sorted(set(md_fused_shapes) | set(svc_fused_shapes)
+                                    | set(fleet_fused_shapes))
               if (P, N, m) not in fplanned]
     report["fused_sample_ei_shapes_unplanned"] = [r["shape"] for r in fextra]
     frows += fextra
@@ -3353,7 +3989,8 @@ def main():
                              **{k: v for k, v in md_launches.items()
                                 if k not in ("sharded_cohort_fused",
                                              "sharded_scheduler_fused")},
-                             **{k: v["ei_diff"] for k, v in svc_launches.items()}},
+                             **{k: v["ei_diff"] for k, v in svc_launches.items()},
+                             **{k: v["ei_diff"] for k, v in fleet_launches.items()}},
         "shape": tick["shape"], "max_abs_err": tick["max_abs_err"],
         "max_err": max(r["max_abs_err"] for r in rows),
         "ms": tick["ms"], "device_ms": tick["device_ms"], "plain_ms": tick["plain_ms"],
@@ -3369,7 +4006,8 @@ def main():
                              "service_wave": service_launches["fused_sample_ei"],
                              "sharded_cohort": md_launches["sharded_cohort_fused"],
                              "sharded_scheduler": md_launches["sharded_scheduler_fused"],
-                             **{k: v["fused_sample_ei"] for k, v in svc_launches.items()}},
+                             **{k: v["fused_sample_ei"] for k, v in svc_launches.items()},
+                             **{k: v["fused_sample_ei"] for k, v in fleet_launches.items()}},
         "shape": ftick["shape"], "max_abs_err": ftick["max_abs_err"],
         "max_err": max(r["max_abs_err"] for r in frows),
         "ms": ftick["ms"], "device_ms": ftick["device_ms"], "plain_ms": ftick["plain_ms"],

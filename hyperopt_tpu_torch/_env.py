@@ -15,11 +15,9 @@ one of three treatments:
   deprecated Pallas alias) and changes no result and no file: it is
   accepted and has no effect.
 
-A knob the JAX package reads only on its default-on planes (quality,
-load and tenant telemetry) raises nothing while unset, so those planes'
-absence is a documented gap until they are ported.  Where the JAX package
-warns about a malformed service value and falls back, the port raises
-``ValueError`` naming the knob, as for its other knobs.
+Where the JAX package warns about a malformed service, plane or fleet
+value and falls back, the port raises ``ValueError`` naming the knob, as
+for its other knobs.
 """
 
 from __future__ import annotations
@@ -36,8 +34,10 @@ __all__ = ["resolve_device", "parse_hist_dtype", "parse_megakernel", "parse_comp
            "parse_service_wal", "parse_service_deadline_ms", "parse_service_queue",
            "parse_service_degrade", "parse_reqtrace", "parse_service_access_log",
            "parse_service_slo", "parse_compile_plane", "parse_compile_bank_top_n",
-           "parse_store_watermark", "parse_store_gc", "not_ported", "Knob", "KNOBS",
-           "refuse_armed_knobs"]
+           "parse_store_watermark", "parse_store_gc", "parse_quality", "parse_quality_slo",
+           "parse_load", "parse_load_slo", "parse_fleet_shards", "parse_fleet_lease_ttl",
+           "parse_fleet_addr", "parse_tenant", "parse_tenant_top_k", "parse_tenant_quota",
+           "parse_tenant_slo", "not_ported", "Knob", "KNOBS", "refuse_armed_knobs"]
 
 
 def resolve_device(device=None):
@@ -382,6 +382,187 @@ def parse_store_gc():
     return os.environ.get("HYPEROPT_TPU_STORE_GC", "").strip().lower() not in _OFF
 
 
+# -- the serving planes' and the fleet's knobs (the JAX package's readers,
+# value for value; a malformed value raises)
+
+
+def parse_quality():
+    """``HYPEROPT_TPU_QUALITY``: the scheduler's search-quality plane is
+    armed (default on; ``0``/``off`` disarms it)."""
+    return os.environ.get("HYPEROPT_TPU_QUALITY", "").strip().lower() not in _OFF
+
+
+def _slo_tokens(var, targets, apply):
+    """Fold ``key=number`` tokens of ``var`` into ``targets`` with
+    ``apply(targets, key, value)``, which returns False for a token it
+    does not take; a bad token raises."""
+    raw = os.environ.get(var, "").strip()
+    for token in raw.split(","):
+        token = token.strip()
+        if not token:
+            continue
+        key, _, val = token.partition("=")
+        try:
+            v = float(val)
+        except ValueError:
+            v = None
+        if v is None or not apply(targets, key.strip().lower(), v):
+            raise ValueError(f"{var}: bad token {token!r}")
+    return targets
+
+
+def _slo_targets(var, table):
+    """The targets of an SLO knob: None for ``0``/``off``, a copy of
+    ``table`` for unset/``on``, else None (tokens to fold)."""
+    raw = os.environ.get(var, "").strip().lower()
+    if raw in _OFF:
+        return None, False
+    targets = {k: dict(v) for k, v in table.items()}
+    return targets, raw in ("", "1", "on", "true", "yes", "auto")
+
+
+def parse_quality_slo():
+    """``HYPEROPT_TPU_QUALITY_SLO``: the stagnant-fraction objective the
+    server installs beside an armed quality plane (unset/``on``: the
+    default; ``stagnant=N`` allows N percent of live tells on stagnant
+    studies), or None (``0``/``off``)."""
+    from .obs.slo import QUALITY_TARGETS
+
+    targets, default = _slo_targets("HYPEROPT_TPU_QUALITY_SLO", QUALITY_TARGETS)
+    if targets is None or default:
+        return targets
+
+    def apply(t, key, v):
+        if key in ("stagnant", "stagnation") and 0 <= v < 100:
+            t["stagnation"]["target"] = min(0.9999, 1.0 - v / 100.0)
+            return True
+        return False
+
+    return _slo_tokens("HYPEROPT_TPU_QUALITY_SLO", targets, apply)
+
+
+def parse_load():
+    """``HYPEROPT_TPU_LOAD``: the scheduler's cost ledger is armed (default
+    on; ``0``/``off`` disarms it)."""
+    return os.environ.get("HYPEROPT_TPU_LOAD", "").strip().lower() not in _OFF
+
+
+def parse_load_slo():
+    """``HYPEROPT_TPU_LOAD_SLO``: the fleet-imbalance objective (unset/
+    ``on``: the default; ``skew=N`` the heat-skew bound, above 1;
+    ``balanced=N`` the percent of observations allowed over it), or None
+    (``0``/``off``)."""
+    from .obs.slo import LOAD_TARGETS
+
+    targets, default = _slo_targets("HYPEROPT_TPU_LOAD_SLO", LOAD_TARGETS)
+    if targets is None or default:
+        return targets
+
+    def apply(t, key, v):
+        if key == "skew" and v > 1.0:
+            t["imbalance"]["skew_max"] = v
+        elif key == "balanced" and 0 <= v < 100:
+            t["imbalance"]["target"] = min(0.9999, 1.0 - v / 100.0)
+        else:
+            return False
+        return True
+
+    return _slo_tokens("HYPEROPT_TPU_LOAD_SLO", targets, apply)
+
+
+DEFAULT_FLEET_SHARDS = 8
+DEFAULT_FLEET_LEASE_TTL = 15.0
+
+
+def parse_fleet_shards():
+    """``HYPEROPT_TPU_FLEET_SHARDS``: the study-shard count of a fleet
+    store root (default 8; write-once per root)."""
+    return _pos_int("HYPEROPT_TPU_FLEET_SHARDS", DEFAULT_FLEET_SHARDS)
+
+
+def parse_fleet_lease_ttl():
+    """``HYPEROPT_TPU_FLEET_LEASE_TTL``: seconds without a heartbeat after
+    which a shard lease is reclaimable (default 15)."""
+    raw = os.environ.get("HYPEROPT_TPU_FLEET_LEASE_TTL", "").strip()
+    if not raw:
+        return DEFAULT_FLEET_LEASE_TTL
+    try:
+        sec = float(raw)
+    except ValueError:
+        raise ValueError(f"HYPEROPT_TPU_FLEET_LEASE_TTL={raw!r}: expected a duration "
+                         "in seconds") from None
+    if not sec > 0:
+        raise ValueError(f"HYPEROPT_TPU_FLEET_LEASE_TTL={raw!r}: expected a positive "
+                         "duration")
+    return sec
+
+
+def parse_fleet_addr():
+    """``HYPEROPT_TPU_FLEET_ADDR``: the URL a replica advertises in the
+    ownership table, or None (unset, ``0``/``off``: the bound URL)."""
+    raw = os.environ.get("HYPEROPT_TPU_FLEET_ADDR", "").strip()
+    if raw.lower() in ("",) + _OFF:
+        return None
+    return raw.rstrip("/")
+
+
+def parse_tenant():
+    """``HYPEROPT_TPU_TENANT``: the scheduler's tenant ledger and its
+    weighted-fair wave packer are armed (default on; ``0``/``off``)."""
+    return os.environ.get("HYPEROPT_TPU_TENANT", "").strip().lower() not in _OFF
+
+
+def parse_tenant_top_k():
+    """``HYPEROPT_TPU_TENANT_TOP_K``: the tenant ledger's named-row bound
+    (default 64)."""
+    from .obs.tenant import DEFAULT_TOP_K
+
+    return _pos_int("HYPEROPT_TPU_TENANT_TOP_K", DEFAULT_TOP_K)
+
+
+def parse_tenant_quota():
+    """``HYPEROPT_TPU_TENANT_QUOTA``: asks one tenant may hold admitted at
+    once before it sheds, or None (unset, ``0``/``off``: no budget)."""
+    raw = os.environ.get("HYPEROPT_TPU_TENANT_QUOTA", "").strip()
+    if raw.lower() in ("",) + _OFF:
+        return None
+    try:
+        q = int(raw)
+    except ValueError:
+        raise ValueError(f"HYPEROPT_TPU_TENANT_QUOTA={raw!r}: expected a positive "
+                         "integer or 0/off") from None
+    if q < 1:
+        raise ValueError(f"HYPEROPT_TPU_TENANT_QUOTA={raw!r}: expected a positive "
+                         "integer or 0/off")
+    return q
+
+
+def parse_tenant_slo():
+    """``HYPEROPT_TPU_TENANT_SLO``: the per-tenant objectives (unset/``on``:
+    the defaults; ``avail=``, ``ask_p=``, ``shed=`` a good fraction in
+    (0, 1), ``ask_ms=`` the latency threshold), or None (``0``/``off``)."""
+    from .obs.slo import TENANT_TARGETS
+
+    targets, default = _slo_targets("HYPEROPT_TPU_TENANT_SLO", TENANT_TARGETS)
+    if targets is None or default:
+        return targets
+
+    def apply(t, key, v):
+        if key == "avail" and 0.0 < v < 1.0:
+            t["availability"]["target"] = v
+        elif key == "ask_p" and 0.0 < v < 1.0:
+            t["ask_p99"]["target"] = v
+        elif key == "ask_ms" and v > 0:
+            t["ask_p99"]["threshold_ms"] = v
+        elif key == "shed" and 0.0 < v < 1.0:
+            t["shed_rate"]["target"] = v
+        else:
+            return False
+        return True
+
+    return _slo_tokens("HYPEROPT_TPU_TENANT_SLO", targets, apply)
+
+
 def not_ported(what, item):
     """The error a not-yet-ported option raises, naming its ROADMAP item."""
     return NotImplementedError(
@@ -473,36 +654,33 @@ KNOBS = {
     "HYPEROPT_TPU_STORE_WATERMARK": Knob("honoured", None, "service/scheduler"),
     "HYPEROPT_TPU_REQTRACE": Knob("honoured", None, "service/server, service/client"),
     "HYPEROPT_TPU_SERVICE_SLO": Knob("honoured", None, "service/server (obs/slo)"),
-    # refused at the scheduler: the planes are on by default in the JAX
-    # package, so leaving them unset here is a documented gap
-    "HYPEROPT_TPU_QUALITY": Knob("refused", 14, "service/scheduler (on by default "
-                                 "there)", _SCHED, _set_not_off),
-    "HYPEROPT_TPU_LOAD": Knob("refused", 14, "service/scheduler (on by default there)",
-                              _SCHED, _set_not_off),
-    "HYPEROPT_TPU_TENANT": Knob("refused", 14, "service/scheduler (on by default there)",
-                                _SCHED, _set_not_off),
-    "HYPEROPT_TPU_TENANT_TOP_K": Knob("refused", 14, "service/scheduler (the tenant "
-                                      "ledger)", _SCHED, _set),
-    # refused at the server
-    "HYPEROPT_TPU_QUALITY_SLO": Knob("refused", 14, "service/server (with the quality "
-                                     "plane)", _SERVER, _set_not_off),
-    "HYPEROPT_TPU_LOAD_SLO": Knob("refused", 14, "service/server (with the cost ledger)",
-                                  _SERVER, _set_not_off),
-    "HYPEROPT_TPU_TENANT_SLO": Knob("refused", 14, "service/server (with the tenant "
-                                    "ledger)", _SERVER, _set_not_off),
-    "HYPEROPT_TPU_TENANT_QUOTA": Knob("refused", 14, "service/overload (the per-tenant "
-                                      "budget)", _SERVER, _set_not_off),
+    "HYPEROPT_TPU_QUALITY": Knob("honoured", None, "service/scheduler (parse_quality; on "
+                                 "by default)"),
+    "HYPEROPT_TPU_LOAD": Knob("honoured", None, "service/scheduler (parse_load; on by "
+                              "default)"),
+    "HYPEROPT_TPU_TENANT": Knob("honoured", None, "service/scheduler (parse_tenant; on by "
+                                "default)"),
+    "HYPEROPT_TPU_TENANT_TOP_K": Knob("honoured", None, "service/scheduler "
+                                      "(parse_tenant_top_k)"),
+    "HYPEROPT_TPU_QUALITY_SLO": Knob("honoured", None, "service/server "
+                                     "(parse_quality_slo)"),
+    "HYPEROPT_TPU_LOAD_SLO": Knob("honoured", None, "service/server (parse_load_slo)"),
+    "HYPEROPT_TPU_TENANT_SLO": Knob("honoured", None, "service/server (parse_tenant_slo)"),
+    "HYPEROPT_TPU_TENANT_QUOTA": Knob("honoured", None, "service/overload "
+                                      "(parse_tenant_quota)"),
+    "HYPEROPT_TPU_FLEET_SHARDS": Knob("honoured", None, "service/fleet "
+                                      "(parse_fleet_shards)"),
+    "HYPEROPT_TPU_FLEET_LEASE_TTL": Knob("honoured", None, "service/fleet "
+                                         "(parse_fleet_lease_ttl)"),
+    "HYPEROPT_TPU_FLEET_ADDR": Knob("honoured", None, "service/server (parse_fleet_addr, "
+                                    "for --fleet)"),
+    # refused at the server: the blackbox prober
     "HYPEROPT_TPU_PROBE": Knob("refused", 14, "service/server (the blackbox prober)",
                                _SERVER, lambda r: r.lower() in ("1", "on", "true", "yes")),
     "HYPEROPT_TPU_PROBE_PERIOD": Knob("refused", 14, "obs/prober",
                                       under="HYPEROPT_TPU_PROBE"),
     "HYPEROPT_TPU_PROBE_SLO": Knob("refused", 14, "service/server (with the prober)",
                                    under="HYPEROPT_TPU_PROBE"),
-    # the replicated fleet: refused at the server whenever set
-    "HYPEROPT_TPU_FLEET_SHARDS": Knob("refused", "13b", "service/fleet", _SERVER, _set),
-    "HYPEROPT_TPU_FLEET_LEASE_TTL": Knob("refused", "13b", "service/fleet", _SERVER, _set),
-    "HYPEROPT_TPU_FLEET_ADDR": Knob("refused", "13b", "service/fleet (the server reads it "
-                                    "for --fleet only)", _SERVER, _set),
     # no counterpart: they tune XLA only
     "HYPEROPT_TPU_NO_CACHE": Knob("none", None, "fmin (the XLA compilation cache)"),
     "HYPEROPT_TPU_COMPILE_CACHE": Knob("none", None, "fmin (the XLA compilation cache)"),

@@ -271,42 +271,52 @@ class FileStore:
 
     # -- tid allocation (counter-doc analog) ------------------------------
 
+    @staticmethod
+    def _write_counter(f, old, value):
+        """Overwrite the counter file ``f`` (holding the text ``old``) with
+        ``value`` so that it never reads empty: the new digits, padded with
+        spaces to the old length, land before the file is trimmed.  (The
+        JAX package truncates first, so a process killed between its
+        truncate and its write leaves an empty counter, which reads as 0:
+        the next ask would reuse every id of the study.)"""
+        text = str(value)
+        f.seek(0)
+        f.write(text.ljust(len(old)))
+        f.flush()
+        f.truncate(len(text))
+        f.flush()
+        os.fsync(f.fileno())
+
     def new_trial_ids(self, n):
         path = os.path.join(self.root, "counter")
         with open(path, "r+") as f:
             fcntl.flock(f, fcntl.LOCK_EX)
             try:
-                start = int(f.read().strip() or "0")
-                f.seek(0)
-                f.truncate()
-                f.write(str(start + n))
-                f.flush()
-                os.fsync(f.fileno())
+                old = f.read()
+                start = int(old.strip() or "0")
+                self._write_counter(f, old, start + n)
             finally:
                 fcntl.flock(f, fcntl.LOCK_UN)
         return list(range(start, start + n))
 
     def reset_counter(self, value):
-        """Clamp the tid allocator DOWN to ``value`` (no-op if it is
-        already at or below).  WAL resume uses this to reclaim ids an
-        ask consumed before dying un-journaled mid-wave: the TPE kernel
-        keys per-trial PRNG streams off the id VALUE, so a counter gap
-        would make every post-restart proposal diverge from the
-        uninterrupted run the crash-resume pin compares against.  Only
-        safe when the caller owns the store exclusively (the service
-        scheduler does; worker fleets never call this)."""
+        """Set the tid allocator to ``value``: down, to reclaim ids an ask
+        consumed before dying un-journaled mid-wave (the TPE kernel keys
+        per-trial PRNG streams off the id VALUE, so a counter gap would
+        make every post-restart proposal diverge from the uninterrupted
+        run the crash-resume pin compares against), and up when the
+        counter reads below ``value`` (a counter a killed process left
+        empty; the JAX package only clamps down).  Only safe when the
+        caller owns the store exclusively (the service scheduler does;
+        worker fleets never call this)."""
         path = os.path.join(self.root, "counter")
         value = int(value)
         with open(path, "r+") as f:
             fcntl.flock(f, fcntl.LOCK_EX)
             try:
-                cur = int(f.read().strip() or "0")
-                if value < cur:
-                    f.seek(0)
-                    f.truncate()
-                    f.write(str(value))
-                    f.flush()
-                    os.fsync(f.fileno())
+                old = f.read()
+                if value != int(old.strip() or "0"):
+                    self._write_counter(f, old, value)
             finally:
                 fcntl.flock(f, fcntl.LOCK_UN)
 

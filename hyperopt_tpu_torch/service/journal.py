@@ -201,8 +201,13 @@ class StudyJournal:
         raise JournalError(f"journal {what} failed: {e}") from e
 
     def append(self, rec):
-        """One record onto the journal (buffered — call :meth:`sync` at
-        the durability point).  Any OSError surfaces as
+        """One record onto the journal, handed to the kernel at once (a
+        killed process loses no appended record; :meth:`sync` is the
+        durability point against a lost machine).  The JAX package keeps
+        records in the process's buffer until the sync, so a replica
+        killed between an ask's append and the wave's sync left the ask's
+        landed docs in the store with no record: the adopter then served
+        the next ask one id past them.  Any OSError surfaces as
         :class:`JournalError` — ENOSPC as the retryable
         :class:`JournalFullError` — so the serving path fails THIS
         request instead of silently losing the record."""
@@ -215,6 +220,7 @@ class StudyJournal:
                                        _metrics())
             fh = self._handle()
             fh.write(data)
+            fh.flush()
         except OSError as e:
             self._drop_handle()
             self._raise_typed("append", e)

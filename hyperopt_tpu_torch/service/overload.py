@@ -124,13 +124,19 @@ class AdmissionGuard:
 
     def __init__(self, max_queue=None, metrics=None, clock=time.monotonic,
                  tenant_quota=None):
-        from .._env import not_ported, parse_service_queue
+        from .._env import parse_service_queue, parse_tenant_quota
 
         self.max_queue = (parse_service_queue() if max_queue is None
                           else int(max_queue))
-        if tenant_quota:
-            # the per-tenant ask budget rides the tenant plane
-            raise not_ported("AdmissionGuard(tenant_quota=...)", 14)
+        # the per-tenant ask budget, checked before the global bound: a
+        # noisy tenant sheds while the others still admit.  None resolves
+        # HYPEROPT_TPU_TENANT_QUOTA (off by default), False disarms, an
+        # int arms.  Entries drop at zero in flight, so the map is bounded
+        # by concurrency, not by tenant cardinality.
+        if tenant_quota is None:
+            tenant_quota = parse_tenant_quota()
+        self.tenant_quota = None if not tenant_quota else max(1, int(tenant_quota))
+        self._tenant_inflight = {}
         self._clock = clock
         self._lock = threading.Lock()
         self._inflight = {"ask": 0, "tell": 0}
@@ -175,13 +181,14 @@ class AdmissionGuard:
 
     # -- admission ---------------------------------------------------------
 
-    def admit_ask(self, deadline=None):
+    def admit_ask(self, deadline=None, tenant=None):
         """Admit one ask or shed.  Sheds when the queue is full OR when
         the request's remaining deadline cannot cover even the predicted
         wait (``queued waves x wave EWMA``) — refusing up front beats
         burning a wave slot on an answer the client will have abandoned.
-        A store-full latch sheds with 507 before either.  (The JAX
-        package's per-tenant budget comes with the tenant plane.)"""
+        A store-full latch sheds with 507 before either; with a
+        ``tenant_quota`` armed, a tenant past its own budget sheds a
+        per-tenant 429 before it contends for the global queue."""
         with self._lock:
             if self._store_full_locked():
                 self._count("service.shed.store_full")
@@ -190,6 +197,14 @@ class AdmissionGuard:
                     " — retry after space frees",
                     retry_after=self._store_retry_after)
             depth = self._inflight["ask"]
+            if self.tenant_quota is not None and tenant is not None:
+                t_depth = self._tenant_inflight.get(tenant, 0)
+                if t_depth >= self.tenant_quota:
+                    self._count("service.shed.tenant")
+                    raise OverloadError(
+                        f"tenant {tenant!r} over its ask budget "
+                        f"({t_depth}/{self.tenant_quota} admitted)",
+                        retry_after=self._retry_after_locked(depth))
             if depth >= self.max_queue:
                 self._count("service.shed.ask")
                 raise OverloadError(
@@ -206,6 +221,8 @@ class AdmissionGuard:
                         f"wait vs {remaining:.3f}s remaining",
                         retry_after=self._retry_after_locked(depth))
             self._inflight["ask"] = depth + 1
+            if self.tenant_quota is not None and tenant is not None:
+                self._tenant_inflight[tenant] = self._tenant_inflight.get(tenant, 0) + 1
             self._gauge("service.queue_depth", depth + 1)
         return "ask"
 
@@ -223,9 +240,15 @@ class AdmissionGuard:
             self._inflight["tell"] = depth + 1
         return "tell"
 
-    def release(self, token):
+    def release(self, token, tenant=None):
         with self._lock:
             self._inflight[token] = max(0, self._inflight[token] - 1)
+            if token == "ask" and tenant is not None and self.tenant_quota is not None:
+                left = self._tenant_inflight.get(tenant, 0) - 1
+                if left > 0:
+                    self._tenant_inflight[tenant] = left
+                else:
+                    self._tenant_inflight.pop(tenant, None)
             if token == "ask":
                 self._gauge("service.queue_depth", self._inflight["ask"])
 

@@ -42,12 +42,28 @@ waves; a fault of the kernels themselves is not one of them
 (``overload.is_device_fault``).  Corrupt journal records quarantine their
 study (410), never the process; a full disk sheds with 507.
 
+The serving planes are armed by default, as in the JAX package: the
+search-quality plane (``obs/quality.py``) and the tenant ledger
+(``obs/tenant.py``) fold every settled tell, and the cost ledger
+(``obs/load.py``) and the tenant ledger are charged each cohort tick's
+measured dispatch+readback seconds (on the card the readback's host copy
+waits for the kernels, so the sum is the tick's wall; nothing
+synchronises for them).  A wave's asks pack by deficit-round-robin over
+tenants.  None of them reads the RNG or a proposal, so armed and disarmed
+schedulers propose the same streams bit for bit.
+
+In a fleet (``service/fleet.py``) each shard's scheduler carries an
+ownership ``fence``: a callable checked at every durability point (admit,
+close, ask, wave start, tell), so a holder whose shard lease was
+reclaimed refuses the mutation (:class:`StaleOwnershipError`, HTTP 503)
+instead of journaling into a fenced epoch WAL.  ``fence is None`` outside
+a fleet.
+
 The compile plane has nothing to compile here: a cohort's program is
 ready at once, so no ask is served at the warming floor (see
-``service/compile_plane.py``).  Not ported yet: the replicated fleet's
-ownership fence (ROADMAP.md, queue 1, item 13b), the prober's canary
-studies and the quality, cost and tenant planes (item 14); their options
-raise.
+``service/compile_plane.py``).  Not ported yet: the prober's canary
+studies (ROADMAP.md, queue 1, item 14); ``create_study(canary=...)``
+raises.
 """
 
 from __future__ import annotations
@@ -64,10 +80,10 @@ import torch
 
 from .. import chaos, quant
 from .._env import (not_ported, parse_compile_plane, parse_compile_widen, parse_hist_dtype,
-                    parse_service_degrade, parse_service_idle_sec,
+                    parse_load, parse_quality, parse_service_degrade, parse_service_idle_sec,
                     parse_service_max_pending, parse_service_max_studies, parse_service_wal,
-                    parse_shard, parse_store_gc, parse_store_watermark, refuse_armed_knobs,
-                    resolve_device)
+                    parse_shard, parse_store_gc, parse_store_watermark, parse_tenant,
+                    parse_tenant_top_k, refuse_armed_knobs, resolve_device)
 from ..algos import rand, tpe
 from ..base import (JOB_STATE_DONE, STATUS_FAIL, STATUS_OK, Domain, Trials,
                     coarse_utcnow, spec_from_misc)
@@ -81,7 +97,8 @@ from .overload import (LADDER_LEVELS, DeadlineExceeded, DegradeLadder, NonFinite
                        is_device_fault)
 
 __all__ = ["StudyScheduler", "Study", "StudyQuotaError", "UnknownStudyError",
-           "DuplicateTellError", "DrainingError", "QuarantinedStudyError"]
+           "DuplicateTellError", "DrainingError", "QuarantinedStudyError",
+           "StaleOwnershipError"]
 
 log = logging.getLogger(__name__)
 
@@ -108,6 +125,13 @@ class DrainingError(RuntimeError):
 
 class DuplicateTellError(RuntimeError):
     """The trial was already told (HTTP 409, a permanent conflict)."""
+
+
+class StaleOwnershipError(RuntimeError):
+    """The shard lease behind this scheduler was reclaimed (fleet mode):
+    the mutation was refused before anything became durable, so the
+    fenced epoch WAL gains no record the new owner's replay never saw.
+    Retryable (HTTP 503): the retry meets the new owner's 307."""
 
 
 def _refresh(study):
@@ -149,11 +173,15 @@ class Study:
     def __init__(self, study_id, space, seed=0, n_startup_jobs=None,
                  max_trials=None, trials=None, space_spec=None, canary=False,
                  tenant=None, **tpe_kwargs):
+        from ..obs.tenant import ANON, sanitize_tenant
+
         if canary:
             raise not_ported("create_study(canary=...)", 14)
-        if tenant is not None and tenant != "anon":
-            raise not_ported("create_study(tenant=...)", 14)
         self.study_id = study_id
+        # the principal the study's device time and tells are charged to;
+        # "anon" is not stamped into the admit kwargs, so tenantless
+        # journals stay byte-identical
+        self.tenant = sanitize_tenant(tenant)
         self.domain = Domain(None, space)
         self.trials = trials if trials is not None else Trials()
         self.rstate = np.random.default_rng(seed)
@@ -161,6 +189,8 @@ class Study:
         self.space_spec = space_spec
         # the WAL registry entry's kwargs, as the JAX package stamps them
         self.admit_kwargs = {}
+        if self.tenant != ANON:
+            self.admit_kwargs["tenant"] = self.tenant
         if n_startup_jobs is not None:
             self.admit_kwargs["n_startup_jobs"] = int(n_startup_jobs)
         if max_trials is not None:
@@ -252,6 +282,9 @@ class Study:
             self._best_dirty = False
         return self._best
 
+    def mark_best_dirty(self):
+        self._best_dirty = True
+
     def record_result(self, loss):
         if loss is None or self._best_dirty:
             return
@@ -259,7 +292,7 @@ class Study:
             self._best = float(loss)
 
     def status_dict(self):
-        return {
+        out = {
             "study_id": self.study_id,
             "state": self.state,
             "labels": list(self.domain.cs.labels),
@@ -276,6 +309,9 @@ class Study:
             # ready here, so no study ever warms
             "warming": False,
         }
+        if self.tenant != "anon":
+            out["tenant"] = self.tenant
+        return out
 
 
 class _AskReq:
@@ -537,15 +573,18 @@ class StudyScheduler:
     fault fails its asks).  ``overload`` is an optional
     :class:`~hyperopt_tpu_torch.service.overload.AdmissionGuard` fed the
     wave times.  ``compile_plane`` (None: ``HYPEROPT_TPU_COMPILE_PLANE``,
-    off by default) keeps the signature census."""
+    off by default) keeps the signature census.
+
+    ``quality``, ``load`` and ``tenants`` are the serving planes: None
+    resolves ``HYPEROPT_TPU_QUALITY`` / ``_LOAD`` / ``_TENANT`` (each on
+    by default), False disarms (the attribute is then None), an instance
+    arms it explicitly.  They are built before the WAL replays, so a
+    resume rebuilds their state."""
 
     def __init__(self, max_studies=None, max_pending=None, idle_sec=None,
                  device=None, hist_dtype=None, store_root=None, wave_window=0.0,
                  wal=None, degrade=None, overload=None, auto_resume=True,
                  compile_plane=None, widen=None, quality=None, load=None, tenants=None):
-        for what, value in (("quality=", quality), ("load=", load), ("tenants=", tenants)):
-            if value is not None and value is not False:
-                raise not_ported(f"StudyScheduler({what}...)", 14)
         refuse_armed_knobs("StudyScheduler")
         self.device = resolve_device(device)
         self.hist_dtype = str(hist_dtype) if hist_dtype else parse_hist_dtype()
@@ -570,6 +609,10 @@ class StudyScheduler:
         self._wave_seq = 0
         self.metrics = get_metrics("service")
         self.overload = overload
+        # the fleet's ownership fence: a callable answering "does this
+        # shard's lease still stand?", checked at every durability point;
+        # None outside a fleet
+        self.fence = None
 
         self._owns_plane = False
         if compile_plane is None and parse_compile_plane():
@@ -624,6 +667,24 @@ class StudyScheduler:
             self.watermark = integrity.DiskWatermark(
                 wm_root, threshold=parse_store_watermark(), metrics=self.metrics)
 
+        if quality is None:
+            from ..obs.quality import QualityPlane
+
+            quality = QualityPlane(metrics=self.metrics, tracer=_tracer) \
+                if parse_quality() else False
+        self.quality = quality or None
+        if load is None:
+            from ..obs.load import CostLedger
+
+            load = CostLedger(metrics=self.metrics) if parse_load() else False
+        self.load = load or None
+        if tenants is None:
+            from ..obs.tenant import TenantLedger
+
+            tenants = TenantLedger(metrics=self.metrics, top_k=parse_tenant_top_k()) \
+                if parse_tenant() else False
+        self.tenants = tenants or None
+
         self.last_resume = None  # stats of the latest WAL replay
         if auto_resume and self.journal is not None:
             self.resume()
@@ -644,6 +705,10 @@ class StudyScheduler:
         with self._lock:
             if self._draining and not _replay:
                 raise DrainingError("service is draining; not admitting new studies")
+            if not _replay and self.fence is not None and not self.fence():
+                # an admit journaled into a fenced epoch WAL would mint a
+                # study no later owner learns of
+                raise StaleOwnershipError("shard lease lost; study admission refused")
             live = sum(1 for s in self._studies.values() if s.state == "active")
             if live >= self.max_studies and not _replay:
                 raise StudyQuotaError(f"study quota reached ({self.max_studies} live studies)")
@@ -668,6 +733,9 @@ class StudyScheduler:
                     raise
             st.note("admit", trace=trace, replay=True if _replay else None)
             self._studies[study_id] = st
+            if self.tenants is not None:
+                # replay included: WAL replay rebuilds the tenant tables
+                self._plane_call("tenant note_study", self.tenants.note_study, st.tenant)
             self.metrics.counter("service.studies_created").inc()
             self.metrics.gauge("service.studies_live").set(live + 1)
             return study_id
@@ -678,17 +746,30 @@ class StudyScheduler:
         compacts the WAL."""
         with self._lock:
             st = self._get(study_id)
+            if self.fence is not None and not self.fence():
+                raise StaleOwnershipError(f"{study_id}: shard lease lost; close refused")
             st.state = "closed"
             trace = reqtrace.current_trace_id()
             if self.journal is not None:
                 self.journal.append(StudyJournal.close_rec(study_id, trace=trace))
                 self.journal.sync()
             st.note("close", trace=trace)
+            if self.tenants is not None:
+                self._plane_call("tenant forget_study", self.tenants.forget_study, st.tenant)
             self._evict_from_cohort(st)
             self._gc_cohorts()
             self.metrics.gauge("service.studies_live").set(
                 sum(1 for s in self._studies.values() if s.state == "active"))
             self._maybe_compact()
+
+    @staticmethod
+    def _plane_call(what, fn, *args, **kwargs):
+        """Feed an observability plane; a plane fault is logged, never
+        raised (it must not fail an admit, a wave or a tell)."""
+        try:
+            fn(*args, **kwargs)
+        except Exception as e:  # noqa: BLE001
+            log.warning("%s failed: %s", what, e)
 
     def _get(self, study_id):
         if study_id in self._quarantined:
@@ -871,6 +952,8 @@ class StudyScheduler:
             raise UnknownStudyError(f"{st.study_id} is {st.state}")
         if self._draining:
             raise DrainingError("service is draining; not admitting new asks")
+        if self.fence is not None and not self.fence():
+            raise StaleOwnershipError(f"{st.study_id}: shard lease lost; ask refused")
         n = int(n)
         if n < 1:
             raise ValueError("ask n must be >= 1")
@@ -1129,7 +1212,16 @@ class StudyScheduler:
         the overload guard; served asks journal before they land and the
         WAL fsyncs once per wave, before any asker unblocks.  The wave's
         startup asks are served first (:meth:`_serve_startup`); a wave of
-        startup asks alone is not a tick and takes no wave number."""
+        startup asks alone is not a tick and takes no wave number.  A
+        fenced scheduler refuses the whole wave before any journal append
+        or landing: the seeds drawn stay in memory only, so the new
+        owner's replayed stream never diverges."""
+        if self.fence is not None and not self.fence():
+            err = StaleOwnershipError("shard lease lost; wave refused")
+            for r in reqs:
+                if r.docs is None and r.error is None:
+                    r.error = err
+            return
         startup = [r for r in reqs if r.startup]
         if startup:
             self._serve_startup(startup)
@@ -1147,12 +1239,43 @@ class StudyScheduler:
         with _tracer.span("service.wave", **attrs):
             self._run_wave_inner(reqs)
 
+    def _charge_wave(self, cohort, cohort_reqs, device_sec):
+        """Charge one cohort tick's measured dispatch+readback seconds to
+        the cost ledger and the tenant ledger, by each ask's share of the
+        tick's rows.  The history bytes follow the JAX package's float32
+        formula (per label a float32 value plane and a bool active plane,
+        plus the losses and has_loss planes, all ``[n_slots, cap]``),
+        whatever the storage dtype."""
+        hbm = float(cohort.n_slots * cohort.cap * (len(cohort.cs.labels) * 5 + 5))
+        if self.load is not None:
+            entries = [(r.study.study_id, len(r.new_ids)) for r in cohort_reqs]
+            cand = float(sum(k for _, k in entries) * cohort.cfg.get("n_EI_candidates", 24))
+            self._plane_call("load observe_tick", self.load.observe_tick, entries, device_sec,
+                             cand=cand, hbm_bytes=hbm, cohort=f"cap{cohort.cap}")
+        if self.tenants is not None:
+            self._plane_call("tenant observe_tick", self.tenants.observe_tick,
+                             [(r.study.tenant, len(r.new_ids)) for r in cohort_reqs],
+                             device_sec, hbm_bytes=hbm)
+
     def _run_wave_inner(self, reqs):
         t_wave = time.perf_counter()
         wave_faults = 0
         served_any = False
         self._check_store()
         self.evict_idle()
+        # either attribution plane armed: time each cohort tick
+        charge = self.load is not None or self.tenants is not None
+        if self.tenants is not None and len(reqs) > 1:
+            # weighted-fair packing: a stable reorder by deficit-round-
+            # robin over tenants.  A study has one tenant, so the one-ask-
+            # per-study round split below picks the same req per study;
+            # per-id keys never depend on order, so proposals do not move
+            try:
+                rank = {t: i for i, t in enumerate(
+                    self.tenants.drr_order([r.study.tenant for r in reqs]))}
+                reqs = sorted(reqs, key=lambda r: rank.get(r.study.tenant, len(rank)))
+            except Exception as e:  # noqa: BLE001 - packing is advisory
+                log.warning("tenant drr_order failed (first-come order): %s", e)
         while reqs:
             this_round, leftover, seen = [], [], set()
             for r in reqs:
@@ -1170,23 +1293,34 @@ class StudyScheduler:
             for cohort, cohort_reqs in by_cohort.values():
                 mesh = self._cohort_mesh(cohort)
                 spec = self._ladder_spec()
+                t_c = time.perf_counter() if charge else 0.0
                 try:
                     packed = self._dispatch_cohort(cohort, cohort_reqs, mesh, spec)
                 except Exception as e:  # noqa: BLE001
                     wave_faults += self._retry_cohort_down_ladder(cohort, cohort_reqs, mesh, e)
                     served_any = True
+                    if charge:
+                        self._charge_wave(cohort, cohort_reqs, time.perf_counter() - t_c)
                     continue
                 if packed is None:  # the ladder's floor
                     self._serve_cohort_host_side(cohort_reqs)
                     served_any = True
+                    if charge:
+                        # no device time, but the asks and the wave count
+                        self._charge_wave(cohort, cohort_reqs, 0.0)
                     continue
-                launched.append((cohort, cohort_reqs, mesh, packed))
-            for cohort, cohort_reqs, mesh, packed in launched:
+                dt_disp = time.perf_counter() - t_c if charge else 0.0
+                launched.append((cohort, cohort_reqs, mesh, packed, dt_disp))
+            for cohort, cohort_reqs, mesh, packed, dt_disp in launched:
                 served_any = True
+                t_c = time.perf_counter() if charge else 0.0
                 try:
                     self._readback_cohort(cohort, cohort_reqs, packed)
                 except Exception as e:  # noqa: BLE001
                     wave_faults += self._retry_cohort_down_ladder(cohort, cohort_reqs, mesh, e)
+                if charge:
+                    self._charge_wave(cohort, cohort_reqs,
+                                      dt_disp + (time.perf_counter() - t_c))
             reqs = leftover
         if self.journal is not None:
             try:
@@ -1264,7 +1398,9 @@ class StudyScheduler:
                 req.study.n_asked -= len(req.new_ids)
                 if isinstance(req.error, StoreFullError):
                     self._enter_store_full(f"wave WAL append: {req.error}")
-                if not req.journaled:
+                if not req.journaled and not isinstance(req.error, StaleOwnershipError):
+                    # a fenced req never voids: its journal is dead to every
+                    # later replay and the draw was in memory only
                     self._journal_void_ask(
                         req.study, req.new_ids, req.seed, trace=req.trace,
                         reason=("deadline_shed" if isinstance(req.error, DeadlineExceeded)
@@ -1329,7 +1465,7 @@ class StudyScheduler:
         failed = [r for r in reqs if r.error is not None]
         for r in failed:
             r.study.n_asked -= len(r.new_ids)
-            if not r.journaled:
+            if not r.journaled and not isinstance(r.error, StaleOwnershipError):
                 self._journal_void_ask(r.study, r.new_ids, r.seed, trace=r.trace)
         return failed
 
@@ -1340,8 +1476,19 @@ class StudyScheduler:
         chaos.point("tell", self.metrics)
         with self._lock:
             st = self._get(study_id)
+            if self.fence is not None and not self.fence():
+                raise StaleOwnershipError(f"{study_id}: shard lease lost; tell refused")
             tid = int(tid)
             doc = next((d for d in st.trials._dynamic_trials if d["tid"] == tid), None)
+            if doc is None and self.fence is not None \
+                    and getattr(st.trials, "store", None) is not None:
+                # fleet mode only: the doc may have landed in the shared
+                # store a heartbeat before this owner's adoption scan, so
+                # rescan once before answering 404 (a single server keeps
+                # the cheap 404: no migration races it)
+                st.trials.refresh()
+                st.mark_best_dirty()
+                doc = next((d for d in st.trials._dynamic_trials if d["tid"] == tid), None)
             if doc is None:
                 raise UnknownStudyError(f"{study_id}: no trial with tid {tid}")
             if doc["state"] == JOB_STATE_DONE:
@@ -1363,8 +1510,11 @@ class StudyScheduler:
             if st.state == "done":
                 self._maybe_compact()
 
-    def _apply_tell(self, st, doc, loss, status):
-        """Settle one told doc (the live path and WAL replay alike)."""
+    def _apply_tell(self, st, doc, loss, status, replay=False):
+        """Settle one told doc (the live path and WAL replay alike) and
+        feed the planes: the quality plane and the tenant ledger fold
+        replayed tells too (replay is their rebuild), the cost ledger only
+        live ones (adopted heat comes from the heat ledger)."""
         ok = (loss is not None and math.isfinite(float(loss))
               and (status is None or status == STATUS_OK))
         doc["result"] = ({"loss": float(loss), "status": STATUS_OK} if ok
@@ -1377,8 +1527,16 @@ class StudyScheduler:
         _refresh(st)
         st.n_told += 1
         st.touch()
-        st.record_result(float(loss) if ok else None)
+        ok_loss = float(loss) if ok else None
+        st.record_result(ok_loss)
         self.metrics.counter("service.tells").inc()
+        if self.quality is not None:
+            self._plane_call("quality observe_tell", self.quality.observe_tell, st, ok_loss,
+                             replay=replay)
+        if self.load is not None and not replay:
+            self._plane_call("load observe_tell", self.load.observe_tell, st.study_id)
+        if self.tenants is not None:
+            self._plane_call("tenant observe_tell", self.tenants.observe_tell, st.tenant)
         if st.max_trials is not None and st.n_trials >= st.max_trials and st.n_pending == 0:
             st.state = "done"
             self._evict_from_cohort(st)
@@ -1490,7 +1648,8 @@ class StudyScheduler:
                 sum(1 for s in self._studies.values() if s.state == "active"))
             for st in self._studies.values():
                 # reclaim tid gaps left by asks that died un-journaled (per
-                # trial keys derive from the id value); void ids stay retired
+                # trial keys derive from the id value), and set a counter a
+                # killed process left empty back up; void ids stay retired
                 store = getattr(st.trials, "store", None)
                 if store is not None:
                     tids = [d["tid"] for d in st.trials._dynamic_trials]
@@ -1567,6 +1726,17 @@ class StudyScheduler:
                 st.state = rec.get("state", "active")
                 for rid, tids in (rec.get("served") or {}).items():
                     st.remember_req(rid, tids)
+                if self.quality is not None and st.n_told:
+                    # a compacted WAL holds no tell records for the settled
+                    # history: fold the store's DONE docs in tid order (docs
+                    # past the snapshot's n_told fold through their records)
+                    done = [d for d in st.trials._dynamic_trials
+                            if d["state"] == JOB_STATE_DONE][:st.n_told]
+                    for d in done:
+                        res = d.get("result") or {}
+                        self._plane_call("quality snapshot fold", self.quality.observe_tell,
+                                         st, res.get("loss") if res.get("status") == STATUS_OK
+                                         else None, replay=True)
             stats["studies"] += 1
             return
         st = self._studies.get(sid)
@@ -1622,14 +1792,23 @@ class StudyScheduler:
                 st.note("tell", tid=tid, replay=True, trace=rec.get("trace"))
                 stats["tells"] += 1
                 res = doc.get("result") or {}
-                st.record_result(res.get("loss") if res.get("status") == STATUS_OK else None)
+                ok_loss = res.get("loss") if res.get("status") == STATUS_OK else None
+                st.record_result(ok_loss)
+                # the tell-time bookkeeping still folds it: once per told
+                # trial on both replay branches
+                if self.quality is not None:
+                    self._plane_call("quality observe_tell", self.quality.observe_tell, st,
+                                     ok_loss, replay=True)
+                if self.tenants is not None:
+                    self._plane_call("tenant observe_tell", self.tenants.observe_tell,
+                                     st.tenant)
                 if (st.max_trials is not None and st.n_trials >= st.max_trials
                         and st.n_pending == 0):
                     st.state = "done"
             else:
                 self._replay_ctx["told"].add(key)
                 st.note("tell", tid=tid, replay=True, trace=rec.get("trace"))
-                self._apply_tell(st, doc, rec.get("loss"), rec.get("status"))
+                self._apply_tell(st, doc, rec.get("loss"), rec.get("status"), replay=True)
                 stats["tells"] += 1
         elif kind == "close":
             st.state = "closed"
@@ -1695,14 +1874,19 @@ class StudyScheduler:
             return self._get(study_id).timeline_dict()
 
     def studies_status(self):
-        """The ``GET /studies`` payload: per-study status plus the cohort
-        roll-up (the JAX package's quality, load and tenant sections come
-        with item 14)."""
+        """The ``GET /studies`` payload: per-study status (with its quality
+        and cost sections), the cohort roll-up and the tenant table."""
         with self._lock:
             cohorts = [{"space_sig": repr(key[0])[:64], "cap": c.cap, "n_slots": c.n_slots,
                         "n_live": c.n_live, "ticks": c.ticks}
                        for key, c in self._cohorts.items()]
             studies = [s.status_dict() for s in self._studies.values()]
+            for plane, key in ((self.quality, "quality"), (self.load, "load")):
+                if plane is not None:
+                    for s in studies:
+                        sec = plane.study_status(s.get("study_id"))
+                        if sec is not None:
+                            s[key] = sec
             for sid, info in sorted(self._quarantined.items()):
                 if sid not in self._studies:
                     studies.append({"study_id": sid, "state": "quarantined",
@@ -1716,6 +1900,8 @@ class StudyScheduler:
                 "studies": studies,
                 "draining": self._draining,
             }
+            if self.tenants is not None:
+                out["tenants"] = self.tenants.status()
             if self._quarantined:
                 out["quarantined"] = {sid: info.get("reason")
                                       for sid, info in sorted(self._quarantined.items())}

@@ -1,5 +1,5 @@
-"""HTTP ask/tell front end over the :class:`StudyScheduler` (counterpart
-of ``hyperopt_tpu/service/server.py``, single-scheduler mode).
+"""HTTP ask/tell front end over the :class:`StudyScheduler` or a fleet
+replica (counterpart of ``hyperopt_tpu/service/server.py``).
 
 Endpoints, all JSON, with the JAX package's request and answer shapes:
 
@@ -12,27 +12,39 @@ Endpoints, all JSON, with the JAX package's request and answer shapes:
 * ``POST /tell`` — ``{"study_id", "tid", "loss"}`` (or ``"results": [...]``).
 * ``POST /close`` — ``{"study_id"}``.
 * ``GET /studies``, ``GET /study/<id>/timeline``, ``GET /healthz``,
-  ``GET /metrics`` (Prometheus text: the ``service.*`` family and the
-  ``slo_*`` gauges), ``GET /snapshot``.
+  ``GET /metrics`` (Prometheus text: the ``service.*``, ``quality.*`` and
+  ``slo_*`` families), ``GET /snapshot``, ``GET /tenants`` (the tenant
+  table) and ``GET /fleet/load`` (this replica's cost view and the
+  fleet-wide heat read from the store root's heat ledgers).
 
-Errors are in-band and typed: 400 for a malformed request, 404 for an
-unknown study, 409 for a duplicate tell, 410 for a quarantined study,
-429 (+ ``Retry-After`` from the wave-time EWMA) for a shed or a quota,
-503 while draining, 507 when the store is full, 501 for a plane that is
-not ported, 500 for a handler fault (recorded in the flight ring).
+Errors are in-band and typed: 400 for a malformed request (a hostile
+``x-tenant`` header included), 404 for an unknown study, 409 for a
+duplicate tell, 410 for a quarantined study, 429 (+ ``Retry-After`` from
+the wave-time EWMA) for a shed, a per-tenant budget or a quota, 503 while
+draining, for a shard nobody serves yet and for a fenced shard, 507 when
+the store is full, 501 for the prober (not ported), 500 for a handler
+fault, a kernel's build or launch included (recorded in the flight ring).
 Every request carries a trace id (``obs/reqtrace.py``) and feeds the SLO
-plane (``obs/slo.py``); ``HYPEROPT_TPU_SERVICE_ACCESS_LOG`` adds a JSONL
-access log.
+plane (``obs/slo.py``), with the quality, load and per-tenant objectives
+installed beside the armed planes; ``HYPEROPT_TPU_SERVICE_ACCESS_LOG``
+adds a JSONL access log.
+
+Fleet mode: ``--fleet`` (with ``--store``) joins the replicated serving
+fleet (``service/fleet.py``): N replicas over one store root share the
+study shards, each held shard served by its own scheduler and epoch WAL;
+a study another replica owns answers 307 with the owner's address
+(``Location`` and the JSON ``location``), which ``ServiceClient``
+follows.
 
 Run it with ``python -m hyperopt_tpu_torch.service.server --port 0
---announce --store <root>``: the scheduler runs on the CUDA card unless
-``--device cpu`` is given.  SIGTERM drains: stop admitting, finish the
-waves in flight, compact and close the WAL, exit 0.
+--announce --store <root> [--fleet]``: the schedulers run on the CUDA
+card unless ``--device cpu`` is given.  SIGTERM drains: stop admitting,
+finish the waves in flight, compact and close the WAL (in a fleet, hand
+every held shard off), exit 0.
 
-Not ported: the replicated fleet (``--fleet`` and its options, ROADMAP.md
-queue 1, item 13b) and the prober, quality, load and tenant planes (item
-14).  Asking for any of them raises ``not_ported``; over HTTP, a request
-that names a tenant other than ``anon`` answers 501.
+Not ported: the blackbox prober (``--probe``, ``GET /probes``, canary
+studies; ROADMAP.md queue 1, item 14), which raises ``not_ported`` or
+answers 501.
 """
 
 from __future__ import annotations
@@ -43,16 +55,19 @@ import math
 import threading
 import time
 
-from .._env import (not_ported, parse_reqtrace, parse_service, parse_service_access_log,
-                    parse_service_deadline_ms, parse_service_slo, refuse_armed_knobs)
+from .._env import (not_ported, parse_load, parse_load_slo, parse_quality_slo, parse_reqtrace,
+                    parse_service, parse_service_access_log, parse_service_deadline_ms,
+                    parse_service_slo, parse_tenant_slo, parse_tenant_top_k,
+                    refuse_armed_knobs)
 from ..exceptions import StoreFullError
 from ..obs import reqtrace
 from ..obs.serve import prometheus_text, split_hostport
 from ..obs.tenant import ANON, sanitize_tenant
 from ..obs.trace import JsonlSink, Tracer
+from .fleet import ShardNotOwned, ShardUnavailable
 from .overload import AdmissionGuard, Deadline, OverloadError, StoreFullShed
 from .scheduler import (DrainingError, DuplicateTellError, QuarantinedStudyError,
-                        StudyQuotaError, StudyScheduler, UnknownStudyError)
+                        StaleOwnershipError, StudyQuotaError, StudyScheduler, UnknownStudyError)
 from .spacespec import SpaceSpecError, space_from_spec
 
 __all__ = ["ServiceHTTPServer", "main"]
@@ -62,9 +77,6 @@ logger = logging.getLogger(__name__)
 _STUDY_KWARGS = ("n_startup_jobs", "max_trials", "prior_weight", "n_EI_candidates", "gamma",
                  "linear_forgetting", "ei_select", "ei_tau", "prior_eps", "canary", "tenant")
 
-#: routes of the JAX package's planes that are not ported yet
-_ITEM_14_ROUTES = {"/tenants": "the tenant plane", "/fleet/load": "the cost ledger",
-                   "/probes": "the blackbox prober"}
 
 
 class _RequestError(Exception):
@@ -86,16 +98,17 @@ def _timeline_study_id(path):
 
 
 class ServiceHTTPServer:
-    """Daemon-thread ask/tell server over one scheduler.  ``start()``
-    warns and returns False on a bind failure instead of raising;
-    ``stop()`` is idempotent.  Without ``scheduler`` it builds
-    ``StudyScheduler(store_root=..., wave_window=0.005, device=device)``
-    (the card unless ``device="cpu"``)."""
+    """Daemon-thread ask/tell server over one scheduler, or over a
+    :class:`~hyperopt_tpu_torch.service.fleet.FleetReplica` (``fleet``:
+    study-scoped requests route through its shard table, and the replica's
+    schedulers run on its device).  ``start()`` warns and returns False on
+    a bind failure instead of raising; ``stop()`` is idempotent.  Without
+    ``scheduler`` or ``fleet`` it builds ``StudyScheduler(store_root=...,
+    wave_window=0.005, device=device)`` (the card unless
+    ``device="cpu"``)."""
 
     def __init__(self, port, scheduler=None, host=None, store_root=None, guard=None,
                  trace=None, slo=None, access_log=None, fleet=None, device=None):
-        if fleet is not None:
-            raise not_ported("ServiceHTTPServer(fleet=...)", "13b")
         refuse_armed_knobs("ServiceHTTPServer")
         try:
             if host is None:
@@ -104,12 +117,25 @@ class ServiceHTTPServer:
         except (TypeError, ValueError):
             self.port = None  # start() warns and fails open
         self.host = host or "127.0.0.1"
-        self.scheduler = scheduler if scheduler is not None else StudyScheduler(
-            store_root=store_root, wave_window=0.005, device=device)
-        self.metrics = self.scheduler.metrics
-        self.compile_plane = self.scheduler.compile_plane
+        self.fleet = fleet
+        if fleet is not None:
+            self.scheduler = None
+            self.metrics = fleet.metrics
+            # fleet replicas share one compile plane through scheduler_kwargs
+            self.compile_plane = fleet.scheduler_kwargs.get("compile_plane") or None
+        else:
+            self.scheduler = scheduler if scheduler is not None else StudyScheduler(
+                store_root=store_root, wave_window=0.005, device=device)
+            self.metrics = self.scheduler.metrics
+            self.compile_plane = self.scheduler.compile_plane
         self.guard = guard if guard is not None else AdmissionGuard(metrics=self.metrics)
-        if self.scheduler.overload is None:
+        if fleet is not None:
+            # every held shard's scheduler feeds the one guard its wave times
+            fleet.overload = self.guard
+            for sched in fleet.schedulers.values():
+                if sched.overload is None:
+                    sched.overload = self.guard
+        elif self.scheduler.overload is None:
             self.scheduler.overload = self.guard
         self.default_deadline_ms = parse_service_deadline_ms()
         self.trace_enabled = parse_reqtrace() if trace is None else bool(trace)
@@ -122,6 +148,34 @@ class ServiceHTTPServer:
 
                 self.slo = SLOPlane(targets, metrics=self.metrics,
                                     escalation=self._slo_escalation)
+        # the planes' objectives, installed beside an armed plane: the
+        # stagnant fraction (fed one event per live tell by the quality
+        # planes), the fleet imbalance (fed one judged event per load-gauge
+        # refresh) and the per-tenant objectives (installed lazily per
+        # tenant, at most top-K of them)
+        self.load_skew_max = None
+        self.tenant_slo = None
+        self._tenant_objs = set()
+        if self.slo is not None:
+            q_targets = parse_quality_slo()
+            if q_targets is not None and self._quality_planes():
+                for name, spec in q_targets.items():
+                    self.slo.add_objective(name, spec)
+                for plane in self._quality_planes():
+                    plane.slo = self.slo
+            l_targets = parse_load_slo()
+            # a fleet adopts its shards after this, so judge "a cost ledger
+            # is armed" from the kwargs its schedulers will be built with
+            kw_load = fleet.scheduler_kwargs.get("load") if fleet is not None else False
+            armed = bool(self._load_planes()) or (
+                fleet is not None and kw_load is not False
+                and (kw_load is not None or parse_load()))
+            if l_targets is not None and armed:
+                for name, spec in l_targets.items():
+                    self.slo.add_objective(name, spec)
+                self.load_skew_max = l_targets.get("imbalance", {}).get("skew_max")
+            self.tenant_slo = parse_tenant_slo()
+            self._tenant_obj_bound = parse_tenant_top_k()
         log_path = parse_service_access_log() if access_log is None else (access_log or None)
         self.access_log = JsonlSink(log_path) if log_path else None
         self._httpd = None
@@ -139,7 +193,8 @@ class ServiceHTTPServer:
         malformed one gets a fresh trace, and every answer carries the
         trace id."""
         headers = headers or {}
-        observing = self.slo is not None or self.access_log is not None
+        observing = (self.slo is not None or self.access_log is not None
+                     or bool(self._tenant_planes()))
         if not self.trace_enabled and not observing:
             status, payload = self._handle(method, path, body, headers)
             self._count_response(method, path, status)
@@ -161,14 +216,20 @@ class ServiceHTTPServer:
         if req_id and isinstance(payload, dict):
             payload.setdefault("request_id", req_id)
         self._count_response(method, path, status)
+        try:
+            # a hostile id answered 400 already and is charged to no one
+            tenant = sanitize_tenant(headers.get("x-tenant"))
+        except ValueError:
+            tenant = None
         self._observe_response(method, path, status, latency, payload, ctx, req_id,
-                               probe=headers.get("x-probe") == "1")
+                               probe=headers.get("x-probe") == "1", tenant=tenant)
         return status, payload
 
     def _observe_response(self, method, path, status, latency_sec, payload, ctx, req_id,
-                          probe=False):
-        """Feed the SLO plane and write the access-log record; never
-        raises."""
+                          probe=False, tenant=None):
+        """Feed the SLO plane, the tenant ledger (a finished ask's latency
+        or shed) and the access-log record; never raises.  Probe traffic
+        (``x-probe: 1``) feeds neither the SLOs nor the tenant ledger."""
         ep = self._endpoint_label(method, path)
         shed = bool(status == 429 and isinstance(payload, dict)
                     and payload.get("retry_after") is not None)
@@ -179,6 +240,11 @@ class ServiceHTTPServer:
                 if not self._slo_warned:
                     self._slo_warned = True
                     logger.warning("slo plane record failed (continuing)", exc_info=True)
+        if tenant is not None and not probe and ep == "ask":
+            try:
+                self._observe_tenant(tenant, payload, status, latency_sec, shed)
+            except Exception:  # noqa: BLE001 - observability never fails a request
+                pass
         if self.access_log is None:
             return
         try:
@@ -187,6 +253,8 @@ class ServiceHTTPServer:
                    "trace": ctx.trace_id if ctx is not None else None}
             if probe:
                 rec["probe"] = True
+            if tenant is not None and tenant != ANON:
+                rec["tenant"] = tenant
             if req_id:
                 rec["request_id"] = req_id
             if isinstance(payload, dict):
@@ -241,9 +309,20 @@ class ServiceHTTPServer:
         except Exception:  # noqa: BLE001
             pass
 
+    def _route(self, study_id):
+        """The scheduler serving ``study_id``: ``self.scheduler``, or in a
+        fleet the replica's shard table (which raises
+        :class:`ShardNotOwned`, a 307, or :class:`ShardUnavailable`, a
+        503)."""
+        if self.fleet is None:
+            return self.scheduler
+        return self.fleet.scheduler_for(study_id)
+
     def healthz_dict(self):
-        """``GET /healthz``: the JAX package's single-server shape (no
-        shard table), drain state, WAL and store health."""
+        """``GET /healthz``: the replica's shard table in a fleet, else the
+        same shape with no shards; drain state, WAL and store health."""
+        if self.fleet is not None:
+            return self.fleet.healthz()
         sched = self.scheduler
         out = {"ok": True, "replica": None, "addr": self.url, "n_shards": None,
                "shards_held": [], "shards": {}, "draining": sched._draining,
@@ -257,39 +336,56 @@ class ServiceHTTPServer:
         out["store"] = store
         if store.get("store_full"):
             out["ok"] = False
+        if sched.tenants is not None:
+            try:
+                ts = sched.tenants.status()
+                out["tenants"] = {"tracked": ts["tenants"], "sheds": ts["sheds"],
+                                  "evictions": ts["evictions"]}
+            except Exception:  # noqa: BLE001 - fail-open roll-up
+                pass
         out["ok"] = out["ok"] and not sched._draining
         return out
 
+    def _studies_status(self):
+        if self.fleet is not None:
+            return self.fleet.studies_status()
+        return self.scheduler.studies_status()
+
     def _handle(self, method, path, body, headers):
         try:
+            # a malformed x-tenant answers 400 on every route
             tenant = sanitize_tenant(headers.get("x-tenant"))
-            if tenant != ANON:
-                raise not_ported(f"the x-tenant header ({tenant!r})", 14)
             if method == "GET":
                 if path == "/studies":
-                    return 200, self.scheduler.studies_status()
+                    return 200, self._studies_status()
+                if path == "/tenants":
+                    return 200, self.tenants_dict()
                 if path == "/healthz":
                     return 200, self.healthz_dict()
                 if path == "/snapshot":
                     return 200, self.snapshot_dict()
-                if path in _ITEM_14_ROUTES:
-                    raise not_ported(f"GET {path} ({_ITEM_14_ROUTES[path]})", 14)
+                if path == "/fleet/load":
+                    return 200, self.fleet_load_dict()
+                if path == "/probes":
+                    raise not_ported("GET /probes (the blackbox prober)", 14)
                 sid = _timeline_study_id(path)
                 if sid is not None:
-                    return 200, self.scheduler.study_timeline(sid)
+                    return 200, self._route(sid).study_timeline(sid)
                 if path == "/":
                     return 200, {"ok": True,
                                  "endpoints": ["POST /study", "POST /ask", "POST /tell",
                                                "POST /close", "GET /studies",
                                                "GET /study/<id>/timeline", "GET /healthz",
-                                               "GET /metrics", "GET /snapshot"]}
+                                               "GET /metrics", "GET /snapshot",
+                                               "GET /fleet/load", "GET /tenants"]}
                 raise _RequestError(404, f"no such endpoint: {path}")
             if method != "POST":
                 raise _RequestError(405, f"{method} not supported")
             if path == "/study":
-                return 200, self._create_study(body)
+                return 200, self._create_study(body, tenant)
             if path == "/ask":
                 study_id = self._required(body, "study_id")
+                sched = self._route(study_id)
                 n = int(body.get("n", 1))
                 # the client's ask-idempotency token, sanitized like
                 # X-Request-Id
@@ -298,12 +394,11 @@ class ServiceHTTPServer:
                     req_id = None
                 deadline = Deadline.from_request(headers.get("x-deadline-ms"),
                                                  self.default_deadline_ms)
-                token = self.guard.admit_ask(deadline)
+                token = self.guard.admit_ask(deadline, tenant=tenant)
                 try:
-                    trials = self.scheduler.ask(study_id, n, deadline=deadline,
-                                                req_id=req_id)
+                    trials = sched.ask(study_id, n, deadline=deadline, req_id=req_id)
                 finally:
-                    self.guard.release(token)
+                    self.guard.release(token, tenant=tenant)
                 out = {"ok": True, "study_id": study_id,
                        "trials": [{k: t[k] for k in ("tid", "params", "degraded", "algo")
                                    if k in t} for t in trials]}
@@ -316,6 +411,7 @@ class ServiceHTTPServer:
                 return 200, out
             if path == "/tell":
                 study_id = self._required(body, "study_id")
+                sched = self._route(study_id)
                 token = self.guard.admit_tell()
                 try:
                     results = body.get("results")
@@ -328,8 +424,8 @@ class ServiceHTTPServer:
                         if not isinstance(r, dict) or r.get("tid") is None:
                             raise _RequestError(400, f"each result needs a 'tid': {r!r}")
                         try:
-                            self.scheduler.tell(study_id, r["tid"], loss=r.get("loss"),
-                                                status=r.get("status"))
+                            sched.tell(study_id, r["tid"], loss=r.get("loss"),
+                                       status=r.get("status"))
                             told += 1
                         except DuplicateTellError:
                             # a retried batch must not strand its untold
@@ -343,11 +439,21 @@ class ServiceHTTPServer:
                              "duplicates": dups}
             if path == "/close":
                 study_id = self._required(body, "study_id")
-                self.scheduler.close_study(study_id)
+                self._route(study_id).close_study(study_id)
                 return 200, {"ok": True, "study_id": study_id}
             raise _RequestError(404, f"no such endpoint: {path}")
         except _RequestError as e:
             return e.status, {"ok": False, "error": str(e)}
+        except ShardNotOwned as e:
+            # another replica serves the study's shard: the HTTP layer sends
+            # Location and the client re-issues the same request there
+            return 307, {"ok": False, "error": str(e), "location": e.location}
+        except ShardUnavailable as e:
+            return 503, {"ok": False, "error": str(e), "retry_after": e.retry_after}
+        except StaleOwnershipError as e:
+            # this replica lost the shard's lease at the fence: nothing
+            # landed; the retry meets the new owner's 307
+            return 503, {"ok": False, "error": str(e), "retry_after": 0.25}
         except QuarantinedStudyError as e:
             return 410, {"ok": False, "error": str(e), "quarantined": True}
         except StoreFullShed as e:
@@ -380,7 +486,7 @@ class ServiceHTTPServer:
             raise _RequestError(400, f"missing required field {key!r}")
         return v
 
-    def _create_study(self, body):
+    def _create_study(self, body, header_tenant=ANON):
         if "space" in body:
             space = space_from_spec(body["space"])
             space_spec = {"space": body["space"]}
@@ -396,13 +502,186 @@ class ServiceHTTPServer:
         else:
             raise _RequestError(400, "POST /study needs 'space' or 'zoo'")
         kwargs = {k: body[k] for k in _STUDY_KWARGS if k in body}
-        if "tenant" in kwargs:
-            kwargs["tenant"] = sanitize_tenant(kwargs["tenant"])
+        # a body tenant wins; the (sanitized) x-tenant header covers
+        # clients that only set the ambient identity
+        if "tenant" not in kwargs and header_tenant != ANON:
+            kwargs["tenant"] = header_tenant
         # the wire schema is the WAL registry entry: every HTTP-created
         # study is resumable
+        if self.fleet is not None:
+            # a fleet mints an id landing in a held shard (creation cannot
+            # redirect); the id already claimed its store directory
+            study_id, sched = self.fleet.place_study()
+            sched.create_study(space, seed=int(body.get("seed", 0)), study_id=study_id,
+                               space_spec=space_spec, **kwargs)
+            return {"ok": True, "study_id": study_id}
         study_id = self.scheduler.create_study(space, seed=int(body.get("seed", 0)),
                                                space_spec=space_spec, **kwargs)
         return {"ok": True, "study_id": study_id}
+
+    def _schedulers(self):
+        """Every scheduler this server fronts: the held shards' in a fleet."""
+        if self.fleet is not None:
+            return list(self.fleet.schedulers.values())
+        return [self.scheduler] if self.scheduler is not None else []
+
+    def _quality_planes(self):
+        return [s.quality for s in self._schedulers() if s.quality is not None]
+
+    def _load_planes(self):
+        return [s.load for s in self._schedulers() if s.load is not None]
+
+    def _tenant_planes(self):
+        return [s.tenants for s in self._schedulers() if s.tenants is not None]
+
+    def _refresh_quality_gauges(self):
+        """Scrape-time ``quality.*`` refresh; the merged section, or None
+        when disarmed."""
+        from ..obs.quality import merge_status
+
+        try:
+            return merge_status([p.publish() for p in self._quality_planes()])
+        except Exception:  # noqa: BLE001 - fail-open scrape
+            return None
+
+    def _refresh_load_gauges(self):
+        """Scrape-time ``service.load.*`` refresh: each ledger's per-shard
+        gauges, the replica's merged family (totals, busy fraction, heat
+        skew) and one judged event for the ``imbalance`` objective.  The
+        merged section, or None when disarmed."""
+        from ..obs.load import merge_status
+
+        try:
+            merged = merge_status([p.publish() for p in self._load_planes()])
+        except Exception:  # noqa: BLE001 - fail-open scrape
+            return None
+        if merged is None:
+            return None
+        try:
+            g = self.metrics.gauge
+            for k in ("device_ms", "heat_ms", "busy_frac", "heat_skew", "studies"):
+                g(f"service.load.{k}").set(merged[k])
+            if self.slo is not None and self.load_skew_max:
+                self.slo.record_load(merged["heat_skew"] <= self.load_skew_max)
+        except Exception:  # noqa: BLE001 - fail-open scrape
+            pass
+        return merged
+
+    def _tenant_plane_for(self, payload):
+        """The tenant ledger of the request's study (a routing miss falls
+        back to the first armed ledger: the merge sums them)."""
+        if self.fleet is None:
+            return self.scheduler.tenants
+        sid = payload.get("study_id") if isinstance(payload, dict) else None
+        if sid:
+            try:
+                return self.fleet.scheduler_for(sid).tenants
+            except Exception:  # noqa: BLE001 - not owned, or mid-handoff
+                pass
+        planes = self._tenant_planes()
+        return planes[0] if planes else None
+
+    def _observe_tenant(self, tenant, payload, status, latency_sec, shed):
+        """One finished ask's tenant accounting: the ledger's latency or
+        shed, and the per-tenant SLO events."""
+        plane = self._tenant_plane_for(payload)
+        if plane is not None:
+            if shed or status == 429:
+                plane.observe_request(tenant, shed=True)
+            elif status == 200:
+                plane.observe_request(tenant, latency_sec=latency_sec)
+        if self.slo is None or not self.tenant_slo:
+            return
+        self._ensure_tenant_objectives(tenant)
+        pre = f"tenant:{tenant}:"
+        self.slo.record_event(pre + "availability", status < 500)
+        self.slo.record_event(pre + "shed_rate", not (shed or status == 429))
+        if status == 200:
+            thr = float(self.tenant_slo.get("ask_p99", {}).get("threshold_ms") or 2000.0)
+            self.slo.record_event(pre + "ask_p99", latency_sec * 1e3 <= thr)
+
+    def _ensure_tenant_objectives(self, tenant):
+        """Install a tenant's objectives once, for at most top-K tenants
+        (past the bound a tenant still counts in the ledger's ``other``)."""
+        if tenant in self._tenant_objs or len(self._tenant_objs) >= self._tenant_obj_bound:
+            return
+        for name, spec in self.tenant_slo.items():
+            self.slo.add_objective(f"tenant:{tenant}:{name}", spec)
+        self._tenant_objs.add(tenant)
+
+    def _refresh_tenant_gauges(self):
+        """Scrape-time ``service.tenant.*`` refresh from the merged ledgers
+        (set once, so shards never overwrite each other), installing the
+        merged tenants' objectives.  The merged section, or None when
+        disarmed."""
+        from ..obs.tenant import _metric_label, merge_status
+
+        try:
+            merged = merge_status([p.status() for p in self._tenant_planes()])
+        except Exception:  # noqa: BLE001 - fail-open scrape
+            return None
+        if merged is None:
+            return None
+        try:
+            g = self.metrics.gauge
+            g("service.tenant.tracked").set(merged["tenants"])
+            for k in ("evictions", "sheds", "device_ms"):
+                g(f"service.tenant.{k}").set(merged[k])
+            for tenant, row in merged["table"].items():
+                base = f"service.tenant.{_metric_label(tenant)}"
+                for k in ("device_ms", "asks", "tells", "sheds", "studies"):
+                    g(f"{base}.{k}").set(row[k])
+                if row.get("ask_p99_ms") is not None:
+                    g(f"{base}.ask_p99_ms").set(row["ask_p99_ms"])
+            if self.slo is not None and self.tenant_slo:
+                for tenant in merged["table"]:
+                    if tenant != "other":
+                        self._ensure_tenant_objectives(tenant)
+        except Exception:  # noqa: BLE001 - fail-open scrape
+            pass
+        return merged
+
+    def tenants_dict(self):
+        """``GET /tenants``: the bounded per-tenant table (merged across
+        shards), or ``{"armed": false}`` when the ledger is disarmed."""
+        out = {"ok": True, "ts": time.time(), "endpoint": "tenants"}
+        merged = self._refresh_tenant_gauges()
+        out["armed"] = merged is not None
+        if merged is not None:
+            out.update(merged)
+        return out
+
+    def fleet_load_dict(self):
+        """``GET /fleet/load``: this replica's merged cost view, its
+        tenant table, and the fleet-wide heat (and per-tenant heat) read
+        from every replica's ledger under the store root."""
+        out = {"ok": True, "ts": time.time(), "endpoint": "fleet_load"}
+        merged = self._refresh_load_gauges()
+        if merged is not None:
+            out["local"] = merged
+        ten = self._refresh_tenant_gauges()
+        if ten is not None:
+            out["tenants"] = ten
+        if self.fleet is not None:
+            out["replica"] = self.fleet.replica_id
+            store_root = self.fleet.store_root
+        else:
+            store_root = self.scheduler.store_root
+        if store_root is not None:
+            from ..obs.load import read_heat
+            from ..obs.tenant import read_tenant_heat
+
+            try:
+                out["fleet"] = read_heat(store_root)
+            except Exception:  # noqa: BLE001 - fail-open read
+                logger.warning("fleet/load: heat-ledger read failed", exc_info=True)
+            try:
+                heat = read_tenant_heat(store_root)["tenants"]
+                if heat:
+                    out["tenant_heat"] = heat
+            except Exception:  # noqa: BLE001 - fail-open read
+                pass
+        return out
 
     def _refresh_compile_gauges(self):
         """The cohort-program cache counters as ``service.compile.*``."""
@@ -420,13 +699,18 @@ class ServiceHTTPServer:
         out = {"ts": time.time(), "endpoint": "snapshot", "service": True}
         if self.slo is not None:
             out["slo"] = self.slo.publish()
+        for key, section in (("quality", self._refresh_quality_gauges()),
+                             ("load", self._refresh_load_gauges()),
+                             ("tenants", self._refresh_tenant_gauges())):
+            if section is not None:
+                out[key] = section
         self._refresh_compile_gauges()
         out["sections"] = {"service": self.metrics.snapshot()["metrics"]}
-        status = self.scheduler.studies_status()
+        status = self._studies_status()
         for key in ("studies", "cohorts", "slot_utilization", "cohort_cache"):
             out[key] = status[key]
         out["draining"] = status.get("draining", False)
-        for key in ("degrade", "compile", "wal", "store", "quarantined"):
+        for key in ("fleet", "degrade", "compile", "wal", "store", "quarantined"):
             if key in status:
                 out[key] = status[key]
         return out
@@ -435,7 +719,8 @@ class ServiceHTTPServer:
         """Scrape-time disk-watermark poll: a quiet service on a filling
         disk still sees (and sheds) it."""
         try:
-            self.scheduler.store_health(force=True)
+            for sched in self._schedulers():
+                sched.store_health(force=True)
         except Exception:  # noqa: BLE001 - fail-open scrape
             pass
 
@@ -479,9 +764,13 @@ class ServiceHTTPServer:
 
     def drain(self, timeout=30.0):
         """Graceful shutdown: stop admitting, finish in-flight waves,
-        compact and close the WAL, stop serving.  Returns True when the
-        scheduler quiesced within ``timeout``."""
-        quiesced = self.scheduler.drain(timeout=timeout)
+        compact and close the WAL (in a fleet, hand every held shard off so
+        a survivor adopts it), stop serving.  Returns True when everything
+        quiesced within ``timeout``."""
+        if self.fleet is not None:
+            quiesced = self.fleet.drain(timeout=timeout)
+        else:
+            quiesced = self.scheduler.drain(timeout=timeout)
         self.stop()
         return quiesced
 
@@ -517,6 +806,9 @@ def _make_handler(server):
                 self.send_header("X-Trace-Id", str(payload["trace"]))
             if isinstance(payload, dict) and payload.get("request_id"):
                 self.send_header("X-Request-Id", str(payload["request_id"]))
+            if status == 307 and isinstance(payload, dict) and payload.get("location"):
+                # the fleet's redirect to the owner (the JSON carries it too)
+                self.send_header("Location", str(payload["location"]))
             if (status in (429, 503, 507) and isinstance(payload, dict)
                     and payload.get("retry_after") is not None):
                 # RFC 7231 delta-seconds are integers: the header rounds
@@ -541,6 +833,9 @@ def _make_handler(server):
                             server.compile_plane.publish()
                     except Exception:  # noqa: BLE001 - fail-open scrape
                         pass
+                    server._refresh_quality_gauges()
+                    server._refresh_load_gauges()
+                    server._refresh_tenant_gauges()
                     server._refresh_store_gauges()
                     server._count_response(method, path, 200)
                     self._answer(200, prometheus_text().encode(),
@@ -579,10 +874,6 @@ def _make_handler(server):
     return Handler
 
 
-#: the fleet's options (item 13b) and the prober's (item 14)
-_FLEET_OPTIONS = ("fleet", "fleet_shards", "replica_id", "addr", "lease_ttl")
-
-
 def main(argv=None):
     import argparse
     import signal
@@ -594,8 +885,8 @@ def main(argv=None):
     p.add_argument("--port", default=None,
                    help="bind port or host:port (0 = ephemeral; default: $HYPEROPT_TPU_SERVICE)")
     p.add_argument("--device", default=None,
-                   help="where the cohorts tick: the CUDA card by default, 'cpu' to run "
-                        "on the CPU")
+                   help="where the cohorts tick (every shard's, with --fleet): the CUDA "
+                        "card by default, 'cpu' to run on the CPU")
     p.add_argument("--store", default=None,
                    help="FileStore root: persist each study's trials under <store>/<study_id>")
     p.add_argument("--max-studies", type=int, default=None,
@@ -616,11 +907,19 @@ def main(argv=None):
                    help="census cohorts ticked once before the listener opens "
                         "(default: $HYPEROPT_TPU_COMPILE_BANK_TOP_N or 8)")
     p.add_argument("--fleet", action="store_true",
-                   help="the replicated serving fleet (not ported: item 13b)")
-    p.add_argument("--fleet-shards", type=int, default=None, help="(item 13b)")
-    p.add_argument("--replica-id", default=None, help="(item 13b)")
-    p.add_argument("--addr", default=None, help="(item 13b)")
-    p.add_argument("--lease-ttl", type=float, default=None, help="(item 13b)")
+                   help="join the replicated serving fleet on --store: leased study "
+                        "shards, per-shard epoch WALs, 307 routing (needs --store)")
+    p.add_argument("--fleet-shards", type=int, default=None,
+                   help="study-shard count (write-once per store root; default: "
+                        "$HYPEROPT_TPU_FLEET_SHARDS or 8)")
+    p.add_argument("--replica-id", default=None,
+                   help="this replica's fleet identity (default: <hostname>-<pid>)")
+    p.add_argument("--addr", default=None,
+                   help="the URL this replica advertises in the ownership table "
+                        "(default: $HYPEROPT_TPU_FLEET_ADDR or the bound URL)")
+    p.add_argument("--lease-ttl", type=float, default=None,
+                   help="shard-lease reclaim TTL in seconds (default: "
+                        "$HYPEROPT_TPU_FLEET_LEASE_TTL or 15)")
     p.add_argument("--announce", action="store_true",
                    help="print 'SERVICE_URL <url>' once bound")
     p.add_argument("--probe", default=None, choices=("on", "off"),
@@ -628,9 +927,6 @@ def main(argv=None):
     p.add_argument("--probe-period", type=float, default=None, help="(item 14)")
     args = p.parse_args(argv)
 
-    for name in _FLEET_OPTIONS:
-        if getattr(args, name) not in (None, False):
-            raise not_ported(f"--{name.replace('_', '-')}", "13b")
     if args.probe == "on" or args.probe_period is not None:
         raise not_ported("--probe", 14)
     port = args.port if args.port is not None else parse_service()
@@ -653,16 +949,44 @@ def main(argv=None):
             wal = False
         else:
             wal = args.wal
-    sched = StudyScheduler(max_studies=args.max_studies, max_pending=args.max_pending,
-                           idle_sec=args.idle_sec, device=args.device, store_root=args.store,
-                           wal=wal, wave_window=0.005,
-                           compile_plane=plane if plane is not None else False)
-    if plane is not None:
-        # after the WAL resume, before the listener opens
-        plane.warm_from_census(top_n=args.bank_top_n)
-    server = ServiceHTTPServer(port, scheduler=sched)
-    if not server.start():
-        return 1
+    if args.fleet:
+        if not args.store:
+            p.error("--fleet needs --store (the shared store root is the fleet's "
+                    "coordination plane)")
+        if args.wal is not None:
+            p.error("--wal does not compose with --fleet: each shard journals to its own "
+                    "epoch WAL under <store>/fleet/wal/")
+        from .._env import parse_fleet_addr
+        from .fleet import FleetReplica
+
+        replica = FleetReplica(
+            args.store, n_shards=args.fleet_shards, replica_id=args.replica_id,
+            lease_ttl=args.lease_ttl, device=args.device,
+            scheduler_kwargs={"max_studies": args.max_studies,
+                              "max_pending": args.max_pending, "idle_sec": args.idle_sec,
+                              "wave_window": 0.005,
+                              "compile_plane": plane if plane is not None else False})
+        if plane is not None:
+            plane.warm_from_census(top_n=args.bank_top_n)
+        server = ServiceHTTPServer(port, fleet=replica)
+        if not server.start():
+            return 1
+        # advertise after the bind (an ephemeral port has no address until
+        # now), and claim shards only then, so every published ownership
+        # entry routes somewhere reachable
+        replica.set_addr(args.addr or parse_fleet_addr() or server.url)
+        replica.start()
+    else:
+        sched = StudyScheduler(max_studies=args.max_studies, max_pending=args.max_pending,
+                               idle_sec=args.idle_sec, device=args.device,
+                               store_root=args.store, wal=wal, wave_window=0.005,
+                               compile_plane=plane if plane is not None else False)
+        if plane is not None:
+            # after the WAL resume, before the listener opens
+            plane.warm_from_census(top_n=args.bank_top_n)
+        server = ServiceHTTPServer(port, scheduler=sched)
+        if not server.start():
+            return 1
     if args.announce:
         print(f"SERVICE_URL {server.url}", flush=True)
 

@@ -41,6 +41,7 @@ class DomainZoo:
     objective: Callable
     loss_target: float  # a loss an OK optimizer reaches within ~100 evals
     traceable: Callable | None = None  # the objective in torch ops, or None
+    optimum: float | None = None  # the known global minimum, where analytic
 
 
 def _f32(v):
@@ -136,6 +137,7 @@ def _quadratic1():
         space={"x": hp.uniform("x", -5, 5)},
         objective=lambda d: (d["x"] - 3.0) ** 2,
         loss_target=0.1,
+        optimum=0.0,
         traceable=lambda d: (d["x"] - 3.0) ** 2,
     )
 
@@ -146,6 +148,7 @@ def _q1_lognormal():
         space={"x": hp.qlognormal("x", 0.0, 2.0, 1.0)},
         objective=lambda d: float(np.maximum(np.float32(-(d["x"] ** 2)), np.float32(-100.0))),
         loss_target=-9.0,
+        optimum=-100.0,
         traceable=lambda d: torch.clamp(-(_f32(d["x"]) ** 2), min=-100.0),
     )
 
@@ -159,6 +162,7 @@ def _q1_choice():
         ),
         objective=lambda d: (d["x"] + 2.0) ** 2,
         loss_target=0.5,
+        optimum=0.0,
     )
 
 
@@ -168,6 +172,7 @@ def _n_arms(n=2):
         space=hp.choice("arm", list(range(n))),
         objective=lambda arm: 0.0 if arm == 0 else 1.0,
         loss_target=0.0,
+        optimum=0.0,
     )
 
 
@@ -200,6 +205,7 @@ def _gauss_wave():
         space={"x": hp.uniform("x", -20, 20)},
         objective=obj,
         loss_target=-0.8,
+        optimum=-1.0,
     )
 
 
@@ -226,6 +232,7 @@ def _branin_domain():
         space={"x": hp.uniform("x", -5, 10), "y": hp.uniform("y", 0, 15)},
         objective=lambda d: branin(d["x"], d["y"]),
         loss_target=0.9,
+        optimum=0.397887,
         traceable=lambda d: branin_torch(d["x"], d["y"]),
     )
 
@@ -260,6 +267,7 @@ def _hartmann6_domain():
         space={f"x{i}": hp.uniform(f"x{i}", 0, 1) for i in range(6)},
         objective=lambda d: hartmann6([d[f"x{i}"] for i in range(6)]),
         loss_target=-2.0,
+        optimum=-3.32237,
         traceable=lambda d: hartmann6_torch(_stack(d, [f"x{i}" for i in range(6)])),
     )
 
@@ -270,6 +278,7 @@ def _rosenbrock4():
         space={f"x{i}": hp.uniform(f"x{i}", -2, 2) for i in range(4)},
         objective=lambda d: rosenbrock([d[f"x{i}"] for i in range(4)]),
         loss_target=30.0,
+        optimum=0.0,
         traceable=lambda d: rosenbrock_torch(_stack(d, [f"x{i}" for i in range(4)])),
     )
 

@@ -261,17 +261,26 @@ def test_scheduler_quotas_errors_and_unported_options(tmp_path):
     sched.close_study(a)
     with pytest.raises(UnknownStudyError):
         sched.ask("nope")
-    # the store, the journal and the ladder are ported; the quality and
-    # tenant planes are not
+    # the store, the journal, the ladder and the serving planes are ported
+    # (the planes armed by default, an instance arms, False disarms); the
+    # prober's canary studies are not
+    from hyperopt_tpu_torch.obs.quality import QualityPlane
+    from hyperopt_tpu_torch.obs.tenant import TenantLedger
+
     accepted = StudyScheduler(device="cpu", store_root=str(tmp_path),
                               wal=str(tmp_path / "w.jsonl"), degrade=8)
     assert accepted.journal.path == str(tmp_path / "w.jsonl")
     assert accepted.degrade.recover_after == 8 and accepted.store_root == str(tmp_path)
-    for kw, item in (({"quality": True}, 14), ({"tenants": True}, 14)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            StudyScheduler(device="cpu", **kw)
+    assert None not in (accepted.quality, accepted.load, accepted.tenants)
+    plane, ledger = QualityPlane(), TenantLedger()
+    armed = StudyScheduler(device="cpu", quality=plane, tenants=ledger, load=False)
+    assert armed.quality is plane and armed.tenants is ledger and armed.load is None
+    t = armed.create_study(_space(hp, "mixed"), tenant="t")
+    assert armed.study_status(t)["tenant"] == "t" and ledger.status()["table"]["t"]["studies"] == 1
+    with pytest.raises(ValueError, match="reserved"):
+        armed.create_study(_space(hp, "mixed"), tenant="other")
     with pytest.raises(NotImplementedError, match="item 14"):
-        sched.create_study(_space(hp, "mixed"), tenant="t")
+        sched.create_study(_space(hp, "mixed"), canary=True)
 
 
 def test_study_mix_serves_every_study_inside_its_space(monkeypatch):

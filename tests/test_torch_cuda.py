@@ -484,3 +484,87 @@ def test_ladder_rungs_launch_the_kernels_at_scaled_candidates(cuda_device, monke
         assert (ei.launches - before[0], fused.launches - before[1]) == (1, 1)
         for sid, (a,) in answers.items():
             sched.tell(sid, a["tid"], float(objective_of[sid](a["params"])))
+
+
+def test_fleet_handoff_on_the_card_is_bit_for_bit(cuda_device, tmp_path):
+    """Two replicas on the card: the second joins, the first hands it its
+    hottest shard, and every stream equals an undisturbed card scheduler's
+    bit for bit; both kernels ran on the replicas' cohort ticks."""
+    from hyperopt_tpu_torch.service import FleetReplica, shard_of
+    from hyperopt_tpu_torch.service.server import ServiceHTTPServer
+
+    mix = [it for it in zoo.make_study_mix(5)
+           if it.domain.name in ("quadratic1", "hpob_surrogate")]
+
+    def loss(i, tid):
+        return float(((tid * 7919 + i * 104729) % 1009) / 1009.0)
+
+    def replica(rid):
+        return FleetReplica(str(tmp_path), n_shards=2, replica_id=rid, addr=f"http://{rid}",
+                            lease_ttl=30.0, scheduler_kwargs={"wave_window": 0.0})
+
+    def drive(route, sids, rounds, out):
+        for _ in range(rounds):
+            for i, sid in enumerate(sids):
+                srv = route(sid)
+                status, p = srv.handle("POST", "/ask", {"study_id": sid})
+                assert status == 200, p
+                t = p["trials"][0]
+                assert srv.handle("POST", "/tell", {"study_id": sid, "tid": t["tid"],
+                                                    "loss": loss(i, t["tid"])})[0] == 200
+                out.append((i, t["tid"], {k: repr(v) for k, v in t["params"].items()}))
+
+    launches = (megakernel.ei_diff.launches, megakernel.fused_sample_ei.launches)
+    ra = replica("ra")
+    assert ra.device.type == "cuda"
+    ra.join()
+    ra.steward_once()
+    sa = ServiceHTTPServer(0, fleet=ra)
+    sids = [sa.handle("POST", "/study", {"zoo": it.domain.name, "seed": it.seed,
+                                          "n_startup_jobs": 3})[1]["study_id"] for it in mix]
+    got = []
+    drive(lambda sid: sa, sids, 5, got)
+    rb = replica("rb")
+    rb.join()
+    ra.manage_once()  # two live replicas: the first hands off its hottest shard
+    rb.manage_once()
+    assert ra.handoffs == 1 and rb.adoptions == 1
+    sb = ServiceHTTPServer(0, fleet=rb)
+    drive(lambda sid: sb if shard_of(sid, 2) in rb.schedulers else sa, sids, 5, got)
+    assert megakernel.ei_diff.launches > launches[0]
+    assert megakernel.fused_sample_ei.launches > launches[1]
+
+    ref = StudyScheduler(wal=False)
+    rsids = [ref.create_study(it.domain.space, seed=it.seed, n_startup_jobs=3) for it in mix]
+    want = []
+    for _ in range(10):
+        for i, sid in enumerate(rsids):
+            (a,) = ref.ask(sid)
+            ref.tell(sid, a["tid"], loss(i, a["tid"]))
+            want.append((i, a["tid"], {k: repr(v) for k, v in a["params"].items()}))
+    assert got == want
+    ra.drain()
+    rb.drain()
+
+
+def test_serving_planes_armed_propose_what_disarmed_do_on_the_card(cuda_device):
+    """The quality, cost and tenant planes (on by default) never move a
+    proposal on the card: tenants' waves, packed by deficit-round-robin,
+    propose bit for bit as with every plane disarmed."""
+    mix = zoo.make_study_mix(10)
+    streams = []
+    for off in ({}, {"quality": False, "load": False, "tenants": False}):
+        sched = StudyScheduler(wal=False, **off)
+        sids = [sched.create_study(it.domain.space, seed=it.seed, n_startup_jobs=3,
+                                   tenant=f"t{i % 3}") for i, it in enumerate(mix)]
+        stream = []
+        for r in range(7):
+            out = sched.ask_many([(sid, 1) for sid in (sids if r % 2 else sids[::-1])])
+            for i, sid in enumerate(sids):
+                (a,) = out[sid]
+                sched.tell(sid, a["tid"], float(((a["tid"] * 13 + i) % 11) / 11.0))
+                stream.append((i, a["tid"], {k: repr(v) for k, v in a["params"].items()}))
+        streams.append(stream)
+        if not off:
+            assert sched.load.status()["waves"] > 0 and sched.tenants.status()["tenants"] == 3
+    assert streams[0] == streams[1]

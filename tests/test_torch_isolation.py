@@ -16,7 +16,7 @@ import torch
 import hyperopt_tpu_torch as port
 from hyperopt_tpu_torch import convert, hp, spaces
 from hyperopt_tpu_torch.base import PaddedHistory
-from hyperopt_tpu_torch.service import StudyScheduler, server
+from hyperopt_tpu_torch.service import FleetReplica, StudyScheduler, server
 from hyperopt_tpu_torch.service.server import ServiceHTTPServer
 
 PKG = pathlib.Path(port.__file__).resolve().parent
@@ -46,7 +46,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
             "hyperopt_tpu_torch.service.overload, hyperopt_tpu_torch.service.spacespec, "
             "hyperopt_tpu_torch.service.compile_plane, hyperopt_tpu_torch.obs.reqtrace, "
             "hyperopt_tpu_torch.obs.slo, hyperopt_tpu_torch.obs.serve, "
-            "hyperopt_tpu_torch.obs.tenant; "
+            "hyperopt_tpu_torch.obs.tenant, hyperopt_tpu_torch.obs.load, "
+            "hyperopt_tpu_torch.obs.quality, hyperopt_tpu_torch.service.fleet; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hyperopt_tpu')]; "
             "assert not bad, bad")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
@@ -89,6 +90,8 @@ def test_default_device_entry_points_raise_without_cuda(tmp_path):
         lambda: ServiceHTTPServer(0),
         lambda: server.main(["--port", "0"]),
         lambda: StudyScheduler(store_root=str(tmp_path)),
+        lambda: FleetReplica(str(tmp_path / "fleet"), lease_ttl=1.0),
+        lambda: server.main(["--port", "0", "--fleet", "--store", str(tmp_path / "fleet")]),
         lambda: convert.cohort_stack_from_numpy(
             {"vals": {}, "active": {}, "losses": np.zeros((1, 16), np.float32),
              "has_loss": np.zeros((1, 16), bool)}),
@@ -96,6 +99,7 @@ def test_default_device_entry_points_raise_without_cuda(tmp_path):
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+    assert not (tmp_path / "fleet").exists()  # the fleet raised before touching its store
     assert port.Trials(device="cpu").device.type == "cpu"
 
 

@@ -28,20 +28,9 @@ ARMING = {
     "HYPEROPT_TPU_OBS_HTTP": "8123",
     "HYPEROPT_TPU_DEVMEM": "5",
     "HYPEROPT_TPU_FLIGHT": "{tmp}/run.flight.jsonl",
-    "HYPEROPT_TPU_QUALITY": "on",
-    "HYPEROPT_TPU_LOAD": "1",
-    "HYPEROPT_TPU_TENANT": "yes",
-    "HYPEROPT_TPU_TENANT_TOP_K": "8",
-    "HYPEROPT_TPU_QUALITY_SLO": "stagnant=5",
-    "HYPEROPT_TPU_LOAD_SLO": "skew=2",
-    "HYPEROPT_TPU_TENANT_SLO": "ask_p99_ms=250",
-    "HYPEROPT_TPU_TENANT_QUOTA": "2",
     "HYPEROPT_TPU_PROBE": "on",
     "HYPEROPT_TPU_PROBE_PERIOD": "5",
     "HYPEROPT_TPU_PROBE_SLO": "match=99",
-    "HYPEROPT_TPU_FLEET_SHARDS": "4",
-    "HYPEROPT_TPU_FLEET_LEASE_TTL": "3",
-    "HYPEROPT_TPU_FLEET_ADDR": "http://127.0.0.1:1",
 }
 
 # values that disarm a refused knob (or that a service knob, now honoured,
@@ -124,6 +113,28 @@ SERVICE = {
     "HYPEROPT_TPU_REQTRACE": ("parse_reqtrace", ["", "off", "1"], None),
     "HYPEROPT_TPU_SERVICE_SLO": ("parse_service_slo",
                                  ["", "off", "avail=99.5,ask_p99_ms=250,shed=2"], "speed=9"),
+}
+
+# the serving planes' and the fleet's knobs, honoured since they were
+# ported: values the port reads as the reference does, and one it refuses
+# (None: every value is read; the reference warns and falls back)
+PLANES = {
+    "HYPEROPT_TPU_QUALITY": ("parse_quality", ["", "0", "off", "1", "on"], None),
+    "HYPEROPT_TPU_LOAD": ("parse_load", ["", "no", "1", "yes"], None),
+    "HYPEROPT_TPU_TENANT": ("parse_tenant", ["", "false", "on"], None),
+    "HYPEROPT_TPU_TENANT_TOP_K": ("parse_tenant_top_k", ["", "1", "8"], "0"),
+    "HYPEROPT_TPU_QUALITY_SLO": ("parse_quality_slo", ["", "on", "off", "stagnant=5"],
+                                 "stagnant=x"),
+    "HYPEROPT_TPU_LOAD_SLO": ("parse_load_slo", ["", "off", "skew=2", "skew=2.5,balanced=5"],
+                              "skew=0.5"),
+    "HYPEROPT_TPU_TENANT_SLO": ("parse_tenant_slo",
+                                ["", "off", "avail=0.95,ask_ms=250", "shed=0.5,ask_p=0.9"],
+                                "ask_p99_ms=250"),
+    "HYPEROPT_TPU_TENANT_QUOTA": ("parse_tenant_quota", ["", "off", "0", "2"], "many"),
+    "HYPEROPT_TPU_FLEET_SHARDS": ("parse_fleet_shards", ["", "4", "16"], "0"),
+    "HYPEROPT_TPU_FLEET_LEASE_TTL": ("parse_fleet_lease_ttl", ["", "3", "0.5"], "-1"),
+    "HYPEROPT_TPU_FLEET_ADDR": ("parse_fleet_addr",
+                                ["", "off", "http://127.0.0.1:1/", "http://h:2"], None),
 }
 
 # the multi-device knobs, each with values the port reads as the reference
@@ -235,6 +246,23 @@ def test_service_knobs_are_honoured(name, no_knobs, tmp_path):
             getattr(_env, reader)()
 
 
+@pytest.mark.parametrize("name", sorted(PLANES))
+def test_plane_and_fleet_knobs_are_honoured(name, no_knobs):
+    from hyperopt_tpu import _env as ref_env
+
+    reader, good, bad = PLANES[name]
+    assert _env.KNOBS[name].treatment == "honoured" and not _env.KNOBS[name].refused_at
+    for raw in good:
+        no_knobs.setenv(name, raw)
+        assert getattr(_env, reader)() == getattr(ref_env, reader)(), raw
+        if raw:
+            ENTRY["ServiceHTTPServer"]()  # the server and its scheduler read it
+    if bad is not None:
+        no_knobs.setenv(name, bad)  # the reference warns and falls back; the port raises
+        with pytest.raises(ValueError, match=name):
+            getattr(_env, reader)()
+
+
 @pytest.mark.parametrize("name", sorted(DISARMING))
 def test_disarming_values_of_refused_knobs_are_accepted(name, no_knobs):
     for raw in DISARMING[name]:
@@ -272,12 +300,11 @@ def test_unset_knobs_change_nothing(no_knobs):
 
 
 def test_not_ported_names_the_knob_and_its_value(no_knobs):
-    no_knobs.setenv("HYPEROPT_TPU_FLEET_SHARDS", "4")
-    with pytest.raises(NotImplementedError,
-                       match=r"HYPEROPT_TPU_FLEET_SHARDS='4' .*item 13b"):
+    no_knobs.setenv("HYPEROPT_TPU_PROBE", "on")
+    with pytest.raises(NotImplementedError, match=r"HYPEROPT_TPU_PROBE='on' .*item 14"):
         ENTRY["ServiceHTTPServer"]()
-    StudyScheduler(device="cpu")  # read by the fleet only: the scheduler is unaffected
-    no_knobs.delenv("HYPEROPT_TPU_FLEET_SHARDS")
+    StudyScheduler(device="cpu")  # read by the server only: the scheduler is unaffected
+    no_knobs.delenv("HYPEROPT_TPU_PROBE")
     no_knobs.setenv("HYPEROPT_TPU_DEVMEM", "5")
     with pytest.raises(NotImplementedError, match="HYPEROPT_TPU_DEVMEM='5' .*item 14"):
         _multihost()

@@ -1,8 +1,9 @@
 """The port's HTTP front end against the JAX package's: the port's server
 (on the CPU) with the port's client, both cross-wirings, the same status
 and JSON keys on every error path, a real SIGKILLed server process
-resumed bit for bit, and the planes that are not ported refusing with
-their ROADMAP item."""
+resumed bit for bit, the serving planes' routes answering as the
+reference's, and the prober, which is not ported, refusing with its
+ROADMAP item."""
 
 import os
 import signal
@@ -229,18 +230,9 @@ def test_sigkilled_server_process_resumes_bit_for_bit(tmp_path):
 
 
 UNPORTED = [
-    ("ServiceHTTPServer(fleet=...)", "13b",
-     lambda d: ServiceHTTPServer(0, scheduler=StudyScheduler(device="cpu"), fleet=object())),
-    ("--fleet", "13b", lambda d: port_server.main(["--port", "0", "--fleet", "--store", d])),
-    ("--fleet-shards", "13b", lambda d: port_server.main(["--port", "0", "--fleet-shards", "4"])),
-    ("--replica-id", "13b", lambda d: port_server.main(["--port", "0", "--replica-id", "r1"])),
-    ("--addr", "13b", lambda d: port_server.main(["--port", "0", "--addr", "http://x:1"])),
-    ("--lease-ttl", "13b", lambda d: port_server.main(["--port", "0", "--lease-ttl", "3"])),
     ("--probe", "14", lambda d: port_server.main(["--port", "0", "--probe", "on"])),
     ("canary", "14", lambda d: StudyScheduler(device="cpu").create_study(
         zoo.ZOO["quadratic1"].space, canary=True)),
-    ("tenant", "14", lambda d: StudyScheduler(device="cpu").create_study(
-        zoo.ZOO["quadratic1"].space, tenant="t1")),
 ]
 
 
@@ -252,13 +244,54 @@ def test_unported_options_name_their_item(i, tmp_path):
     assert not os.listdir(tmp_path)
 
 
-@pytest.mark.parametrize("request_", [("GET", "/tenants", {}, {}), ("GET", "/probes", {}, {}),
-                                      ("GET", "/fleet/load", {}, {}),
-                                      ("POST", "/study", {"zoo": "branin", "canary": True}, {}),
-                                      ("GET", "/studies", {}, {"x-tenant": "team-a"})])
+@pytest.mark.parametrize("request_", [("GET", "/probes", {}, {}),
+                                      ("POST", "/study", {"zoo": "branin", "canary": True}, {})])
 def test_unported_planes_answer_501_over_http(request_):
     method, path, body, headers = request_
     srv = _port_server()
     status, payload = srv.handle(method, path, body, headers=headers)
     assert status == 501 and "item 14" in payload["error"]
     assert srv.handle("GET", "/studies", {}, headers={"x-tenant": "\n"})[0] == 400
+
+
+PLANE_REQUESTS = {
+    "tenants": ("GET", "/tenants", {}, {}),
+    "fleet load": ("GET", "/fleet/load", {}, {}),
+    "x-tenant studies": ("GET", "/studies", {}, {"x-tenant": "team-a"}),
+    "x-tenant study": ("POST", "/study", {"zoo": "branin"}, {"x-tenant": "team-a"}),
+    "body tenant": ("POST", "/study", {"zoo": "branin", "tenant": "team-b"}, {}),
+    "reserved tenant": ("POST", "/study", {"zoo": "branin", "tenant": "other"}, {}),
+    "hostile header": ("GET", "/tenants", {}, {"x-tenant": "a\x7f"}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PLANE_REQUESTS))
+def test_plane_routes_and_the_tenant_header_answer_as_the_reference(name):
+    """The routes of the serving planes and the ``x-tenant`` header answer
+    the reference's status with the reference's keys; a tenant named on a
+    study lands in both tenant tables."""
+    method, path, body, headers = PLANE_REQUESTS[name]
+    got = {}
+    for side, make in (("port", _port_server), ("ref", _ref_server)):
+        srv = make()
+        srv.handle("POST", "/study", {"zoo": "quadratic1", "seed": 3},
+                   headers={"x-tenant": "team-c"})
+        status, payload = srv.handle(method, path, dict(body), headers=headers)
+        table = srv.handle("GET", "/tenants", {})[1].get("table", {})
+        got[side] = (status, sorted(payload), sorted(table),
+                     {t: row["studies"] for t, row in table.items()})
+    assert got["port"] == got["ref"]
+    assert got["port"][0] == (400 if name in ("reserved tenant", "hostile header") else 200)
+
+
+@pytest.mark.parametrize("argv", [["--fleet"], ["--fleet", "--store", "{d}", "--wal", "off"]])
+def test_fleet_cli_refuses_what_the_reference_refuses(argv, tmp_path, capsys):
+    from hyperopt_tpu.service import server as ref_server
+
+    argv = ["--port", "0"] + [a.format(d=tmp_path) for a in argv]
+    for main, extra in ((port_server.main, ["--device", "cpu"]), (ref_server.main, [])):
+        with pytest.raises(SystemExit) as exc:
+            main(argv + extra)
+        assert exc.value.code == 2
+        assert "--fleet" in capsys.readouterr().err
+    assert not os.listdir(tmp_path)
