@@ -129,9 +129,10 @@ Phases, each of which fails the run (non-zero exit) on its own:
 
 14. The service plane: (a) ``ServiceHTTPServer`` in this process on the
     card over ``StudyScheduler(store_root=<tmp>)`` with its WAL, the mix
-    (``make_study_mix(1024)``) admitted over ``POST /study`` and driven to
-    30 trials a study (5 prior, 25 TPE asks) by 128 ``ServiceClient``
-    threads of 8 studies each: client ask p50/p99, tells/s, waves, asks
+    (``make_study_mix(512)``, cut from the mix's 1024, ``SVC_STUDIES``)
+    admitted over ``POST /study`` and driven to 10 trials a study (5
+    prior, 5 TPE asks) by 128 ``ServiceClient`` threads in 8 processes, 4
+    studies each: client ask p50/p99, tells/s, waves, asks
     and kernel launches per wave (each TPE wave launches the kernel of
     every route it asks), WAL bytes and fsyncs per wave, the device's
     idle share over a profiled slice; every answer in its space, every
@@ -159,7 +160,7 @@ Phases, each of which fails the run (non-zero exit) on its own:
     with at most one flip; and a WAL written on the CPU resumes on the
     card to the same ids, seeds and counts, its next 5 asks per study
     agreeing at the card tolerance (flips counted).
-15. The replicated serving fleet: ``make_study_mix(256)`` (cut from the
+15. The replicated serving fleet: ``make_study_mix(128)`` (cut from the
     mix's 1024, ``FLEET_STUDIES``) on 8 shards, each study to 10 trials
     (5 prior, 5 TPE asks) under one of 4 tenants, by 128
     ``ServiceClient`` threads in 8 processes whose seeds
@@ -186,6 +187,31 @@ Phases, each of which fails the run (non-zero exit) on its own:
     replica and the card's idle share over the drive (NVML's
     ``utilization.gpu`` from ``nvidia-smi`` every 0.5 s, every process's
     kernels counted).
+
+16. Run observability on the fmin path (branin, BASELINE config 2, 1000
+    evaluations, 1024 candidates, ``rstate=np.random.default_rng(0)``):
+    (b) the disarmed run, then (a) the same seed armed
+    (``fmin(obs=<tmp>/run.jsonl, obs_http=0, profile=<tmp>/prof)`` with
+    ``HYPEROPT_TPU_DEVMEM=1``) in a thread while this thread scrapes
+    ``/metrics`` (parsed as Prometheus text), ``/snapshot`` (a roofline
+    row for ``suggest.tpe``, device bytes) and ``/profile?sec=1``, which
+    the run's loop records on its own thread: the capture must hold
+    ``ei_diff`` kernels inside ``fmin.tick`` annotations.  The two runs'
+    trials are equal bit for bit, every TPE ask launches ``ei_diff`` once
+    in both, and the disarmed ask launches phase 5's kernels per ask
+    (counted the same way; the armed count beside it).  It reports the
+    median ask armed and disarmed, the tick interval the capture's start
+    and stop opened, and the device-memory peak.  (c) ``fmin(device_loop=
+    True)`` armed and disarmed at 1000 evaluations: bit for bit, equal
+    graph launches, ``chunk.execute_sec`` from CUDA events, the analytic
+    ``chunk`` cost gauges and the ``history`` owner's bytes.  (d) The
+    port's report renders the armed stream with every section,
+    ``--export-trace`` merges the capture and ``scripts/validate_trace.py``
+    lints it clean; ``fmin_multihost(obs=...)`` on two controller
+    processes (``hpob_surrogate``, batch 64, 256 evaluations) writes
+    ``run.p0.jsonl`` and ``run.p1.jsonl``, which ``--merge`` renders.
+    Every ``ei_diff`` shape of the phase is held against the plain
+    version afterwards.
 
 It imports neither JAX nor the JAX package.  Before the last line it
 prints one JSON line describing every kernel and the card's name and power
@@ -346,23 +372,27 @@ def device_ms(fn, fragment, reps=10):
     return graph_ms(fn, reps), "cuda_graph"
 
 
-def ei_bound(P, n, m):
-    """Least time for ``ei_diff`` at (P, n, m): each candidate x component x
-    model term needs at least one exp on the special-function units; the
-    bytes are x and out once plus six component tables."""
-    ops_ms = 2.0 * P * n * m / SFU_PER_S * 1e3
-    bytes_ms = 4.0 * (2 * P * n + 6 * P * m) / HBM_BYTES_PER_S * 1e3
+def _bound(ops, nbytes):
+    ops_ms = ops / SFU_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def ei_bound(P, n, m):
+    """Least time for ``ei_diff`` at (P, n, m): ``megakernel.ei_cost``'s
+    exponentials on the special-function units, or its bytes over HBM."""
+    from hyperopt_tpu_torch import megakernel
+
+    return _bound(*megakernel.ei_cost(P, n, m))
 
 
 def fused_bound(P, N, m):
-    """Least time for ``fused_sample_ei`` at (P, N, m): two exp per
-    candidate x component (one per model) plus one ``ndtri`` per candidate
-    on the special-function units; the bytes are the two uniforms and two
-    outputs once, nine tables and the two bounds."""
-    ops_ms = (2.0 * P * N * m + P * N) / SFU_PER_S * 1e3
-    bytes_ms = (16.0 * P * N + 36.0 * P * m + 8.0 * P) / HBM_BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    """Least time for ``fused_sample_ei`` at (P, N, m):
+    ``megakernel.fused_cost``'s exponentials and ``ndtri`` on the
+    special-function units, or its bytes over HBM."""
+    from hyperopt_tpu_torch import megakernel
+
+    return _bound(*megakernel.fused_cost(P, N, m))
 
 
 def fused_inputs(P, N, m, seed, dead=0, bounded=True):
@@ -2312,14 +2342,10 @@ def _md_instrument(driver, per_gen, profile_call):
         return timed
 
     driver.tpe.build_propose = build
-    real_obs = driver._DriverObs
-
-    class Obs(real_obs):
-        def __init__(self, *a, **k):
-            super().__init__(*a, **k)
-            rec["spans"] = self.tracer.totals
-
-    driver._DriverObs = Obs
+    # a built bundle with no stream: fmin_multihost uses it as it is, and its
+    # phase totals stay readable after the run
+    obs = driver.RunObs(driver.ObsConfig())
+    rec["spans"] = obs.tracer.totals
     dom = zoo.ZOO["hpob_surrogate"]
     calls = [0]
 
@@ -2334,27 +2360,29 @@ def _md_instrument(driver, per_gen, profile_call):
 
     def restore():
         driver.tpe.build_propose = real_build
-        driver._DriverObs = real_obs
 
-    return rec, objective, restore
+    return rec, objective, restore, obs
 
 
-def _md_run(max_evals, fleet_dir=None, single=True, per_gen=MD_BATCH, profile_call=None):
+def _md_run(max_evals, fleet_dir=None, single=True, per_gen=MD_BATCH, profile_call=None,
+            obs_path=None):
     """One fmin_multihost run at phase 13's parameters, instrumented:
     ``{"checksum", "wall_sec", "propose", "evaluate_ms", "spans", ...}``
-    (a profiled run's wall includes the profiler's start and stop)."""
+    (a profiled run's wall includes the profiler's start and stop);
+    ``obs_path`` arms the run's stream instead (no phase totals then)."""
     import torch
 
     from hyperopt_tpu_torch import megakernel, zoo
     from hyperopt_tpu_torch.parallel import driver
 
-    rec, objective, restore = _md_instrument(driver, per_gen, profile_call)
+    rec, objective, restore, obs = _md_instrument(driver, per_gen, profile_call)
     megakernel.ei_diff.launches = 0
     try:
         t0 = time.perf_counter()
         res = driver.fmin_multihost(objective, zoo.ZOO["hpob_surrogate"].space, max_evals,
                                     batch=MD_BATCH, seed=MD_SEED, _force_single=single,
-                                    fleet_dir=fleet_dir, device=DEVICE)
+                                    fleet_dir=fleet_dir, device=DEVICE,
+                                    obs=obs_path or obs)
         if DEVICE == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -2367,18 +2395,20 @@ def _md_run(max_evals, fleet_dir=None, single=True, per_gen=MD_BATCH, profile_ca
 
 
 def md_controller(argv):
-    """A controller process of phase 13 (``chip_smoke.py --md-controller
-    collective|fleet RANK PORT|DIR OUT DEVICE MAX_EVALS BATCH``): one rank
-    of the two-controller gloo run on the card, or one fleet controller."""
+    """A controller process of phase 13 or 16 (``chip_smoke.py
+    --md-controller collective|obs|fleet RANK PORT|DIR OUT DEVICE MAX_EVALS
+    BATCH``): one rank of the two-controller gloo run on the card (``obs``:
+    armed, its stream ``OUT.p<rank>.jsonl``), or one fleet controller."""
     global DEVICE, MD_BATCH
     mode, rank, where, out, DEVICE, max_evals, batch = argv[:7]
     rank, max_evals, MD_BATCH = int(rank), int(max_evals), int(batch)
     from hyperopt_tpu_torch.parallel import multihost
 
-    if mode == "collective":
+    if mode in ("collective", "obs"):
         kw = {"device": "cpu"} if DEVICE == "cpu" else {"local_device_ids": [0]}
         multihost.initialize(f"127.0.0.1:{where}", 2, rank, timeout=MD_CONTROLLER_SEC, **kw)
-        res = _md_run(max_evals, single=False, per_gen=MD_BATCH // 2)
+        res = _md_run(max_evals, single=False, per_gen=MD_BATCH // 2,
+                      obs_path=f"{out}.jsonl" if mode == "obs" else None)
     else:
         res = _md_run(max_evals, fleet_dir=where, per_gen=None)
     with open(f"{out}.{rank}", "w") as f:
@@ -2563,10 +2593,11 @@ def phase_multi_device(report):
 # phase 14: the service plane
 # ---------------------------------------------------------------------------
 
-# (a) the standing mix over HTTP: 1024 studies, 128 client threads of 8
+# (a) the standing mix over HTTP: 512 studies, 128 client threads of 4
 # studies each, every study to 10 trials (5 prior, 5 TPE asks: cut from
-# phase 7's 25, PERF.md §4)
-SVC_STUDIES, SVC_CLIENTS, SVC_TRIALS, SVC_STARTUP = 1024, 128, 10, 5
+# phase 7's 25, and from the mix's 1024 studies so that phase 16 fits the
+# script's time, PERF.md §4)
+SVC_STUDIES, SVC_CLIENTS, SVC_TRIALS, SVC_STARTUP = 512, 128, 10, 5
 SVC_CLIENT_PROCS = 8  # processes the client threads run in, 16 each
 SVC_WINDOW = 0.005  # the server's gather window (seconds)
 # waves profiled from the half-way point, each in a session on the thread
@@ -3309,12 +3340,12 @@ def phase_service_plane(report):
 # SIGKILLed at its tell site near a third of the acknowledged tells, r2
 # started at two thirds), each study to 10 trials (5 prior, 5 TPE asks:
 # phase 14 (a)'s cut) by 128 client threads in 8 processes, each study's
-# asks under one of 4 tenants.  Cut from the mix's 1024 studies to 256
+# asks under one of 4 tenants.  Cut from the mix's 1024 studies to 128
 # (PERF.md §4): a replica serves each shard through its own scheduler,
 # so its waves hold ~4 asks where phase 14 (a)'s hold ~41, and the
-# fleet acknowledged ~15 tells/s on the card; 1024 studies would take
-# ~700 s
-FLEET_STUDIES, FLEET_TRIALS, FLEET_SHARDS, FLEET_TENANTS = 256, 10, 8, 4
+# fleet acknowledged 11–16 tells/s on the card; 1024 studies would take
+# ~700 s, and 256 took 160–235 s, too long beside phase 16
+FLEET_STUDIES, FLEET_TRIALS, FLEET_SHARDS, FLEET_TENANTS = 128, 10, 8, 4
 FLEET_CLIENTS, FLEET_CLIENT_PROCS = 128, 8
 # the shard-lease TTL: each replica ticks both kernels before it joins,
 # so the TTL covers no cold start; the steward and the heartbeat beat
@@ -3903,6 +3934,410 @@ def phase_fleet(report):
     return launches, sorted(shapes), sorted(fused_shapes)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: run observability on the fmin path
+# ---------------------------------------------------------------------------
+
+OBS_CAPTURE_SEC = 1  # GET /profile?sec=1
+OBS_PROFILED_ASKS = 5  # asks per launch count on a finished history (phase 5's way)
+OBS_MH_EVALS, OBS_MH_BATCH = 256, 64  # the two-controller merge (phase 13's run, smaller)
+OBS_SECTIONS = ("== phase-time breakdown", "== trial-state waterfall", "== search health",
+                "== kernel roofline", "== device memory", "== device captures")
+
+
+def _obs_counted(tuned, asks):
+    """``tuned`` counting its TPE asks (past the 20 startup draws): each
+    appends ``(start, end)`` wall-clock epochs, ms and its ``ei_diff``
+    launches to ``asks``."""
+    from hyperopt_tpu_torch import megakernel
+
+    def algo(new_ids, domain, trials, seed):
+        tpe_ask = len(trials.trials) >= 20
+        before = megakernel.ei_diff.launches
+        t0, p0 = time.time(), time.perf_counter()
+        docs = tuned(new_ids, domain, trials, seed)
+        if tpe_ask:
+            asks.append((t0, time.time(), 1e3 * (time.perf_counter() - p0),
+                         megakernel.ei_diff.launches - before))
+        return docs
+    return algo
+
+
+def _obs_launches_per_ask(tuned, trials, health=None, asks=OBS_PROFILED_ASKS):
+    """CUDA kernel launches per TPE ask on a finished history, counted as
+    phase 5 counts them (one id, a warm ask first, torch.profiler over
+    ``asks`` more); ``health`` arms the asks (``trials.obs_health``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperopt_tpu_torch import zoo
+    from hyperopt_tpu_torch.base import Domain
+
+    dom = zoo.ZOO["branin"]
+    domain = Domain(dom.objective, dom.space)
+    ids = [len(trials.trials)]
+    saved = getattr(trials, "obs_health", None)
+    trials.obs_health = health
+    try:
+        tuned(ids, domain, trials, 0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for seed in range(asks):
+                tuned(ids, domain, trials, seed + 1)
+            torch.cuda.synchronize()
+    finally:
+        trials.obs_health = saved
+    kernels = [a for a in prof.key_averages() if a.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(a.count for a in kernels) / asks
+
+
+def _obs_trace_check(path):
+    """``(ticks, ei_diff kernels, kernels inside an fmin.tick)`` of a
+    capture's chrome trace."""
+    import bisect
+    import gzip
+
+    with gzip.open(path, "rt") as f:
+        events = json.load(f)["traceEvents"]
+    ticks = sorted((e["ts"], e["ts"] + e.get("dur", 0.0)) for e in events
+                   if e.get("ph") == "X" and str(e.get("name", "")).startswith("fmin.tick#"))
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "ei_diff_kernel" in str(e.get("name", ""))]
+    starts = [a for a, _ in ticks]
+    inside = 0
+    for k in kernels:
+        i = bisect.bisect_right(starts, k["ts"]) - 1
+        if i >= 0 and k["ts"] + k.get("dur", 0.0) <= ticks[i][1]:
+            inside += 1
+    return len(ticks), len(kernels), inside
+
+
+def _obs_get(url, path, timeout=120):
+    import urllib.request
+
+    with urllib.request.urlopen(url + path, timeout=timeout) as r:
+        return r.read().decode()
+
+
+def _obs_prometheus(text):
+    """Every sample line of a Prometheus text exposition as (name, value);
+    raises on a line that does not parse."""
+    samples = []
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, value = line.rsplit(" ", 1)
+        samples.append((name.split("{", 1)[0], float(value)))
+    return samples
+
+
+def _obs_tick_gap(asks, t):
+    """The interval between TPE ask starts that holds epoch ``t``, ms."""
+    starts = [a[0] for a in asks]
+    for a, b in zip(starts, starts[1:]):
+        if a <= t < b:
+            return 1e3 * (b - a)
+    return None
+
+
+def _obs_armed_fmin(dom, tuned, tmp, out):
+    """(a) The armed branin fmin in a thread; the main thread scrapes it,
+    captures through ``/profile?sec=1`` and reads the stream."""
+    import threading
+
+    import numpy as np
+
+    import hyperopt_tpu_torch as port
+
+    asks = []
+    trials = port.Trials()
+    box = {}
+
+    def run():
+        try:
+            port.fmin(dom.objective, dom.space, algo=_obs_counted(tuned, asks),
+                      max_evals=MAIN_EVALS, trials=trials, rstate=np.random.default_rng(0),
+                      show_progressbar=False, obs=os.path.join(tmp, "run.jsonl"), obs_http=0,
+                      profile=os.path.join(tmp, "prof"))
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            box["error"] = e
+
+    os.environ["HYPEROPT_TPU_DEVMEM"] = "1"
+    th = threading.Thread(target=run, name="armed-fmin")
+    t0 = time.perf_counter()
+    th.start()
+    try:
+        deadline = time.monotonic() + 300
+        while len(asks) < 30 and th.is_alive() and time.monotonic() < deadline:
+            time.sleep(0.05)
+        url = trials.obs_http_url
+        if not url or not th.is_alive():
+            raise AssertionError(f"the armed run serves no scrape server: {url}, {box}")
+        samples = _obs_prometheus(_obs_get(url, "/metrics"))
+        snap = json.loads(_obs_get(url, "/snapshot"))
+        cap = json.loads(_obs_get(url, f"/profile?sec={OBS_CAPTURE_SEC}"))
+        asks_at_capture_end = len(asks)
+    finally:
+        th.join(timeout=600)
+        os.environ.pop("HYPEROPT_TPU_DEVMEM", None)
+    wall = time.perf_counter() - t0
+    if "error" in box:
+        raise box["error"]
+    if th.is_alive():
+        raise AssertionError("the armed fmin did not finish in 600 s")
+    names = {n for n, _ in samples}
+    dm = snap.get("devmem") or {}
+    dev_bytes = [d.get("bytes_in_use") for d in dm.get("devices", [])]
+    out["scrape"] = {"metric_samples": len(samples),
+                     "has_suggest_calls": "hyperopt_tpu_suggest_calls_total" in names,
+                     "roofline": snap.get("sections", {}).get("roofline"),
+                     "devmem_devices": dm.get("devices"), "devmem_census": dm.get("census")}
+    if not samples or "hyperopt_tpu_suggest_calls_total" not in names:
+        raise AssertionError(f"/metrics lacks the run's counters: {sorted(names)[:20]}")
+    if "suggest.tpe" not in (snap.get("sections", {}).get("roofline") or {}):
+        raise AssertionError(f"/snapshot has no roofline row for suggest.tpe: {snap.get('sections')}")
+    if not dev_bytes or any(b is None for b in dev_bytes):
+        raise AssertionError(f"/snapshot has no device bytes: {dm}")
+    if not cap.get("ok") or cap.get("thread") != "loop":
+        raise AssertionError(f"/profile?sec={OBS_CAPTURE_SEC} failed: {cap}")
+    n_ticks, n_kernels, inside = _obs_trace_check(cap["trace_json"])
+    out["capture"] = {**{k: cap.get(k) for k in ("sec", "wall_sec", "start_sec", "stop_sec",
+                                                 "write_sec", "thread", "trace_json")},
+                      "trace_bytes": os.path.getsize(cap["trace_json"]),
+                      "fmin_tick_annotations": n_ticks, "ei_diff_kernels": n_kernels,
+                      "ei_diff_kernels_inside_fmin_tick": inside,
+                      "tpe_asks_before_capture_returned": asks_at_capture_end}
+    if not (n_ticks and n_kernels and inside):
+        raise AssertionError(f"the capture shows no ei_diff kernel inside fmin.tick: "
+                             f"{out['capture']}")
+    intervals = sorted(1e3 * (b[0] - a[0]) for a, b in zip(asks, asks[1:]))
+    out["tick_gap_ms"] = {"median_interval": intervals[len(intervals) // 2],
+                          "at_capture_start": _obs_tick_gap(asks, cap["t0"]),
+                          "at_capture_stop": _obs_tick_gap(asks, cap["t1"]),
+                          "max_interval": intervals[-1]}
+    out["armed_wall_sec"] = wall
+    return trials, asks, cap
+
+
+def _obs_check_stream(tmp, cap, out):
+    """(d) The port's report renders the armed stream with every section,
+    ``--export-trace`` merges the capture, and ``scripts/validate_trace.py``
+    lints the merged trace clean."""
+    from hyperopt_tpu_torch.obs import read_jsonl, report as obs_report
+
+    path = os.path.join(tmp, "run.jsonl")
+    recs = read_jsonl(path)
+    text = obs_report.render(recs)
+    missing = [s for s in OBS_SECTIONS if s not in text]
+    merged = os.path.join(tmp, "merged.json")
+    t0 = time.perf_counter()
+    rc = obs_report.main(["--export-trace", merged, path])
+    export_sec = time.perf_counter() - t0
+    root = os.path.dirname(os.path.abspath(__file__))
+    lint = subprocess.run([sys.executable, os.path.join(root, "scripts", "validate_trace.py"),
+                           merged], capture_output=True, text=True, timeout=600)
+    with open(merged) as f:
+        events = json.load(f)["traceEvents"]
+    device_pids = {e["pid"] for e in events if e.get("ph") != "M" and e["pid"] >= 1000}
+    out["report"] = {"records": len(recs), "kinds": sorted({r.get("kind") for r in recs}),
+                     "missing_sections": missing, "export_rc": rc, "export_sec": export_sec,
+                     "merged_events": len(events), "device_track_groups": len(device_pids),
+                     "lint_rc": lint.returncode, "lint": lint.stdout[-400:]}
+    with open(os.path.join("chiprun_out", "obs_report.txt"), "w") as f:
+        f.write(text)
+    if missing or rc != 0 or lint.returncode != 0 or not device_pids:
+        raise AssertionError(f"the armed stream's artifacts fail: {out['report']}")
+    health = [r for r in recs if r.get("kind") == "health"]
+    if len(health) != MAIN_EVALS - 20:
+        raise AssertionError(f"{len(health)} health records for {MAIN_EVALS - 20} TPE asks")
+    dm = [r for r in recs if r.get("kind") == "devmem"]
+    out["devmem_peak_bytes"] = max((d.get("peak_bytes_in_use") or 0)
+                                   for r in dm for d in r["devices"])
+    out["devmem_history_bytes"] = max(r["census"].get("history", {}).get("bytes", 0)
+                                      for r in dm)
+
+
+def _obs_device_loop(dom, tuned, tmp, out):
+    """(c) ``fmin(device_loop=True)`` armed and disarmed: bit for bit,
+    ``chunk.execute_sec`` from CUDA events, the analytic cost gauges, the
+    ``history`` owner in the census."""
+    import numpy as np
+
+    import hyperopt_tpu_torch as port
+    from hyperopt_tpu_torch import megakernel
+    from hyperopt_tpu_torch.obs import get_metrics, read_jsonl
+
+    runs = {}
+    dev = get_metrics("device")
+    for mode in ("disarmed", "armed"):
+        kw = {}
+        if mode == "armed":
+            kw = {"obs": os.path.join(tmp, "loop.jsonl")}
+            os.environ["HYPEROPT_TPU_DEVMEM"] = "1"
+        before = dev.snapshot()["metrics"].get("chunk.execute_sec", {"count": 0, "sum": 0.0})
+        megakernel.ei_diff.launches = megakernel.ei_diff.graph_launches = 0
+        megakernel.ei_diff.captures = 0
+        trials = port.Trials()
+        t0 = time.perf_counter()
+        try:
+            port.fmin(dom.traceable, dom.space, algo=tuned, max_evals=MAIN_EVALS, trials=trials,
+                      rstate=np.random.default_rng(0), show_progressbar=False,
+                      device_loop=True, **kw)
+        finally:
+            os.environ.pop("HYPEROPT_TPU_DEVMEM", None)
+        wall = time.perf_counter() - t0
+        after = dev.snapshot()["metrics"]
+        ex = after.get("chunk.execute_sec", {"count": 0, "sum": 0.0})
+        # a TPE step launches ei_diff once: eagerly in a branch's warm-up
+        # (a run that captures it), else inside a graph replay
+        runs[mode] = {"trials": trials, "wall_sec": wall,
+                      "ei_diff_launches": (megakernel.ei_diff.launches
+                                           + megakernel.ei_diff.graph_launches),
+                      "graph_launches": megakernel.ei_diff.graph_launches,
+                      "chunks": ex["count"] - before["count"],
+                      "execute_sec": ex["sum"] - before["sum"],
+                      "chunk_flops": after.get("chunk.flops"),
+                      "chunk_bytes": after.get("chunk.bytes")}
+    a, d = runs["armed"], runs["disarmed"]
+    same = ([t["misc"]["vals"] for t in a["trials"].trials]
+            == [t["misc"]["vals"] for t in d["trials"].trials]
+            and a["trials"].losses() == d["trials"].losses())
+    recs = read_jsonl(os.path.join(tmp, "loop.jsonl"))
+    hist = max((r["census"].get("history", {}).get("bytes", 0) for r in recs
+                if r.get("kind") == "devmem"), default=0)
+    out["device_loop"] = {
+        "bitwise": same, "history_bytes": hist,
+        **{f"{m}_{k}": v for m, r in runs.items() for k, v in r.items() if k != "trials"},
+        "armed_chunk_ms": 1e3 * a["execute_sec"] / max(a["chunks"], 1)}
+    log(f"phase 16 (c): {out['device_loop']}")
+    if not same:
+        raise AssertionError("the armed device loop left the disarmed loop's stream")
+    steps = MAIN_EVALS - LOOP_STARTUP
+    if (a["ei_diff_launches"] != steps or d["ei_diff_launches"] != steps
+            or a["chunks"] != MAIN_EVALS // 10):
+        raise AssertionError(f"armed device loop: {out['device_loop']}")
+    if not a["chunk_flops"] or not hist:
+        raise AssertionError(f"no cost gauges or history bytes: {out['device_loop']}")
+    return a["ei_diff_launches"]
+
+
+def _obs_multihost(out):
+    """(d) ``fmin_multihost(obs=run.jsonl)`` on two controller processes
+    sharing the card over gloo: each writes ``run.p<i>.jsonl``, and the
+    port's ``obs.report --merge`` renders them.  Returns the controllers'
+    ``ei_diff`` shapes."""
+    import tempfile
+
+    from hyperopt_tpu_torch.obs import read_jsonl, report as obs_report
+
+    _md_release()
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "c")
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = {**os.environ,
+               "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               "HYPEROPT_TPU_WATCHDOG": "0",
+               "HYPEROPT_TPU_ALLGATHER_TIMEOUT": str(MD_CONTROLLER_SEC // 2)}
+        port_ = _md_free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--md-controller",
+                                   "obs", str(r), str(port_), base, DEVICE, str(OBS_MH_EVALS),
+                                   str(OBS_MH_BATCH)], env=env, cwd=root,
+                                  stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+                 for r in range(2)]
+        ctl = _md_wait(procs, base, "two armed controllers")
+        wall = time.perf_counter() - t0
+        streams = [(f"run.p{r}.jsonl", read_jsonl(f"{base}.p{r}.jsonl")) for r in range(2)]
+        text = obs_report.render_merged(streams)
+        rc = obs_report.main(["--merge", f"{base}.p0.jsonl", f"{base}.p1.jsonl"])
+    shapes = set()
+    for c in ctl:
+        for row in c["propose"]:
+            shapes.update(tuple(s[1:]) for s in row["shapes"] if s[0] == "ei_diff")
+    out["multihost"] = {"wall_sec": wall, "checksums": [c["checksum"] for c in ctl],
+                        "records": [len(r) for _, r in streams], "merge_rc": rc,
+                        "shapes": sorted(shapes)}
+    log(f"phase 16 (d) merge: {out['multihost']}")
+    if rc != 0 or "run.p1.jsonl" not in text or ctl[0]["checksum"] != ctl[1]["checksum"]:
+        raise AssertionError(f"the two armed controllers' merge fails: {out['multihost']}")
+    return shapes
+
+
+def phase_obs(report):
+    """Phase 16: the run plane on the fmin path (armed vs disarmed host
+    loop, the scrape server and a capture mid-run, the armed device loop,
+    the report, the merged trace and the two-controller merge)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import hyperopt_tpu_torch as port
+    from hyperopt_tpu_torch import megakernel, zoo
+    from hyperopt_tpu_torch.obs import ObsConfig, RunObs
+
+    out = report["obs"] = {}
+    t_phase = time.perf_counter()
+    if DEVICE == "cuda":  # the devmem peak is this phase's
+        torch.cuda.reset_peak_memory_stats()
+    dom = zoo.ZOO["branin"]
+    tuned = functools.partial(port.tpe.suggest, n_EI_candidates=MAIN_CANDIDATES)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp, LaunchLog() as shapes_log:
+        # (b) the disarmed run, then (a) the armed one at the same seed
+        megakernel.ei_diff.launches = 0
+        plain_asks = []
+        plain = port.Trials()
+        port.fmin(dom.objective, dom.space, algo=_obs_counted(tuned, plain_asks),
+                  max_evals=MAIN_EVALS, trials=plain, rstate=np.random.default_rng(0),
+                  show_progressbar=False)
+        launches["obs_fmin_disarmed"] = megakernel.ei_diff.launches
+        megakernel.ei_diff.launches = 0
+        armed, armed_asks, cap = _obs_armed_fmin(dom, tuned, tmp, out)
+        launches["obs_fmin_armed"] = megakernel.ei_diff.launches
+        same = ([t["misc"]["vals"] for t in armed.trials]
+                == [t["misc"]["vals"] for t in plain.trials]
+                and armed.losses() == plain.losses())
+        side = RunObs(ObsConfig(level="trace", jsonl_path=os.path.join(tmp, "side.jsonl")))
+        try:
+            per_ask = {"disarmed": _obs_launches_per_ask(tuned, plain),
+                       "armed": _obs_launches_per_ask(tuned, armed, health=side)}
+        finally:
+            side.finish()
+        out["fmin"] = {
+            "bitwise": same, "tpe_asks": {"disarmed": len(plain_asks), "armed": len(armed_asks)},
+            "ei_diff_launches": {"disarmed": launches["obs_fmin_disarmed"],
+                                 "armed": launches["obs_fmin_armed"]},
+            "median_tpe_ask_ms": {"disarmed": statistics.median(a[2] for a in plain_asks),
+                                  "armed": statistics.median(a[2] for a in armed_asks)},
+            "kernel_launches_per_ask": per_ask,
+            "phase5_kernel_launches_per_ask":
+                report.get("profile_branin_ask", {}).get("kernel_launches_per_ask")}
+        log(f"phase 16 (a)/(b): {out['fmin']}; capture {out['capture']}; "
+            f"tick gap {out['tick_gap_ms']}")
+        if not same:
+            raise AssertionError("the armed fmin left the disarmed run's stream")
+        for mode, asks in (("disarmed", plain_asks), ("armed", armed_asks)):
+            if len(asks) != MAIN_EVALS - 20 or any(k != 1 for *_, k in asks):
+                raise AssertionError(f"{mode}: ei_diff launches per TPE ask "
+                                     f"{sorted({k for *_, k in asks})} over {len(asks)} asks")
+            if launches[f"obs_fmin_{mode}"] != len(asks):
+                raise AssertionError(f"{mode}: {launches[f'obs_fmin_{mode}']} ei_diff launches "
+                                     f"for {len(asks)} TPE asks")
+        want = out["fmin"]["phase5_kernel_launches_per_ask"]
+        if want is not None and per_ask["disarmed"] != want:
+            raise AssertionError(f"the disarmed ask launches {per_ask['disarmed']} kernels, "
+                                 f"phase 5's {want}")
+        _obs_check_stream(tmp, cap, out)
+        launches["obs_device_loop_armed"] = _obs_device_loop(dom, tuned, tmp, out)
+        shapes = {tuple(s[1:]) for s in shapes_log.take() if s[0] == "ei_diff"}
+    shapes |= _obs_multihost(out)
+    out["ei_diff_shapes"] = sorted(shapes)
+    out["phase_sec"] = time.perf_counter() - t_phase
+    log(f"phase 16: {out['phase_sec']:.1f} s; devmem peak {out.get('devmem_peak_bytes')} B")
+    return launches, shapes
+
+
 def main():
     if sys.argv[1:2] == ["--md-controller"]:
         return md_controller(sys.argv[2:])
@@ -3952,13 +4387,14 @@ def main():
     md_launches, md_shapes, md_fused_shapes = phase_multi_device(report)
     svc_launches, svc_shapes, svc_fused_shapes = phase_service_plane(report)
     fleet_launches, fleet_shapes, fleet_fused_shapes = phase_fleet(report)
-    # every shape the widened wave and phases 12-15 gave ei_diff is held
+    obs_launches, obs_shapes = phase_obs(report)
+    # every shape the widened wave and phases 12-16 gave ei_diff is held
     # against the plain version on every candidate: phase 1 planned them,
     # and any it missed is checked here
     planned = {tuple(r["shape"]) for r in rows}
     extra = [check_ei(P, n, m, 0, plain_cmp(P, n, m), False, report["ptxas"])
              for P, n, m in sorted(set(widened_shapes) | set(ml_shapes) | set(md_shapes)
-                                   | set(svc_shapes) | set(fleet_shapes))
+                                   | set(svc_shapes) | set(fleet_shapes) | set(obs_shapes))
              if (P, n, m) not in planned]
     report["ei_diff_shapes_unplanned"] = [r["shape"] for r in extra]
     rows += extra
@@ -3990,7 +4426,8 @@ def main():
                                 if k not in ("sharded_cohort_fused",
                                              "sharded_scheduler_fused")},
                              **{k: v["ei_diff"] for k, v in svc_launches.items()},
-                             **{k: v["ei_diff"] for k, v in fleet_launches.items()}},
+                             **{k: v["ei_diff"] for k, v in fleet_launches.items()},
+                             **obs_launches},
         "shape": tick["shape"], "max_abs_err": tick["max_abs_err"],
         "max_err": max(r["max_abs_err"] for r in rows),
         "ms": tick["ms"], "device_ms": tick["device_ms"], "plain_ms": tick["plain_ms"],

@@ -4,9 +4,12 @@ Every ``*.cu`` source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface, named
 by a hash of what the build reads: the source, every ``csrc/*.cuh``
 header it may include, and the ``nvcc`` flags
-(``build/hyperopt_tpu_torch/lib<stem>_<sha>.so`` beside the package).  A
+(``build/hyperopt_tpu_torch/lib<stem>_<sha>.so`` beside the package, or
+under the directory :func:`set_build_dir` / ``HYPEROPT_TPU_COMPILE_CACHE``
+names: ``fmin(compile_cache=<dir>)``'s persistent compile cache).  A
 library that is already there is loaded as it is, so a source is
-compiled once per change of any of them.  The flags carry ``-Xptxas -v``,
+compiled once per change of any of them, and a later process that names
+the same directory pays no compile.  The flags carry ``-Xptxas -v``,
 so a build's output lists each kernel's registers and shared memory; it is
 kept beside the library (``lib<stem>_<sha>.log``).
 Nothing here runs at import: the first launch builds, and
@@ -24,7 +27,7 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["library", "build_all", "NVCC_FLAGS"]
+__all__ = ["library", "build_all", "build_dir", "set_build_dir", "NVCC_FLAGS"]
 
 _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -40,6 +43,27 @@ _SIGNATURES = {
     "fused_sample_ei": {"fused_sample_ei_f32": ([_P] * 15 + [_I] * 4 + [_P], ctypes.c_int),
                         "fused_sample_ei_plan": ([_I, _I, _I, _P], ctypes.c_int)},
 }
+
+
+_explicit_dir = None  # set_build_dir's directory, for this process
+
+
+def set_build_dir(path):
+    """Build and load the kernel libraries under ``path`` from now on in
+    this process (``None``: back to ``HYPEROPT_TPU_COMPILE_CACHE`` or the
+    default).  A library already loaded stays loaded."""
+    global _explicit_dir
+    _explicit_dir = (pathlib.Path(os.path.expanduser(str(path))).resolve()
+                     if path else None)
+
+
+def build_dir():
+    """Where the libraries are built: :func:`set_build_dir`'s directory,
+    else ``HYPEROPT_TPU_COMPILE_CACHE``, else :data:`BUILD_DIR`."""
+    if _explicit_dir is not None:
+        return _explicit_dir
+    env = os.environ.get("HYPEROPT_TPU_COMPILE_CACHE", "").strip()
+    return pathlib.Path(os.path.expanduser(env)).resolve() if env else BUILD_DIR
 
 
 def _nvcc():
@@ -62,7 +86,7 @@ def _target(stem):
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update("\0".join(NVCC_FLAGS).encode())
-    return src, BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
+    return src, build_dir() / f"lib{stem}_{h.hexdigest()[:16]}.so"
 
 
 def _start(stem):
@@ -70,8 +94,8 @@ def _start(stem):
     src, so = _target(stem)
     if so.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    so.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

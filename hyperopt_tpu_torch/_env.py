@@ -11,17 +11,19 @@ one of three treatments:
   item)`` when the knob is set to a value that arms it
   (:func:`refuse_armed_knobs`), or the entry point that reads it is not
   in the port yet;
-* ``none`` — it tunes XLA only (compile cache, buffer donation, the
-  deprecated Pallas alias) and changes no result and no file: it is
-  accepted and has no effect.
+* ``none`` — it tunes XLA only (disabling the compilation cache,
+  buffer donation, the deprecated Pallas alias) and changes no result and
+  no file: it is accepted and has no effect.
 
 Where the JAX package warns about a malformed service, plane or fleet
 value and falls back, the port raises ``ValueError`` naming the knob, as
-for its other knobs.
+for its other knobs.  The observability knobs (``HYPEROPT_TPU_OBS_HTTP``,
+``HYPEROPT_TPU_DEVMEM``) warn once and disable, as the reference's do.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import Callable, NamedTuple
 
@@ -37,7 +39,12 @@ __all__ = ["resolve_device", "parse_hist_dtype", "parse_megakernel", "parse_comp
            "parse_store_watermark", "parse_store_gc", "parse_quality", "parse_quality_slo",
            "parse_load", "parse_load_slo", "parse_fleet_shards", "parse_fleet_lease_ttl",
            "parse_fleet_addr", "parse_tenant", "parse_tenant_top_k", "parse_tenant_quota",
-           "parse_tenant_slo", "not_ported", "Knob", "KNOBS", "refuse_armed_knobs"]
+           "parse_tenant_slo", "parse_obs_http", "parse_devmem_period",
+           "DEFAULT_DEVMEM_PERIOD_SEC", "not_ported", "Knob", "KNOBS",
+           "refuse_armed_knobs"]
+
+
+logger = logging.getLogger(__name__)
 
 
 def resolve_device(device=None):
@@ -563,6 +570,65 @@ def parse_tenant_slo():
     return _slo_tokens("HYPEROPT_TPU_TENANT_SLO", targets, apply)
 
 
+# the observability knobs warn once and disable on a malformed value, as
+# the JAX package's do: a telemetry setting never takes down the run
+_warned_envs = set()
+
+
+def _warn_once(var, raw, why):
+    if var not in _warned_envs:
+        _warned_envs.add(var)
+        logger.warning("%s=%r is not %s; disabling (observability env "
+                       "values warn-and-disable, never raise)", var, raw, why)
+
+
+def parse_obs_http(env=None):
+    """``HYPEROPT_TPU_OBS_HTTP=<port>`` (or ``<host>:<port>``) → the value
+    for ``ObsConfig.http_port``, or None when unset, disabled or invalid.
+    ``0`` in the environment means off (the ``obs_http=0`` argument binds
+    an ephemeral port)."""
+    env = os.environ if env is None else env
+    raw = env.get("HYPEROPT_TPU_OBS_HTTP", "").strip()
+    if raw.lower() in ("", "0", "off", "false", "no"):
+        return None
+    host, _, port_s = raw.rpartition(":")
+    try:
+        port = int(port_s)
+    except ValueError:
+        _warn_once("HYPEROPT_TPU_OBS_HTTP", raw, "an integer port (or host:port)")
+        return None
+    if not 1 <= port <= 65535:
+        _warn_once("HYPEROPT_TPU_OBS_HTTP", raw, "a port in [1, 65535]")
+        return None
+    return raw if host else port
+
+
+#: the device-memory sampler's period when ``HYPEROPT_TPU_DEVMEM`` is
+#: ``1``/``on``
+DEFAULT_DEVMEM_PERIOD_SEC = 10.0
+
+
+def parse_devmem_period(env=None):
+    """``HYPEROPT_TPU_DEVMEM=<seconds>`` → the device-memory sampler's
+    period, or None when unset, disabled or invalid; ``1``/``on`` selects
+    :data:`DEFAULT_DEVMEM_PERIOD_SEC`."""
+    env = os.environ if env is None else env
+    raw = env.get("HYPEROPT_TPU_DEVMEM", "").strip()
+    if raw.lower() in ("", "0", "off", "false", "no"):
+        return None
+    if raw.lower() in ("1", "on", "true", "yes"):
+        return DEFAULT_DEVMEM_PERIOD_SEC
+    try:
+        period = float(raw)
+    except ValueError:
+        _warn_once("HYPEROPT_TPU_DEVMEM", raw, "a sample period in seconds")
+        return None
+    if not period > 0:
+        _warn_once("HYPEROPT_TPU_DEVMEM", raw, "a positive sample period")
+        return None
+    return period
+
+
 def not_ported(what, item):
     """The error a not-yet-ported option raises, naming its ROADMAP item."""
     return NotImplementedError(
@@ -598,7 +664,6 @@ class Knob(NamedTuple):
     under: str | None = None
 
 
-_FMIN = ("fmin", "fmin_multihost")
 _SCHED = ("StudyScheduler",)
 _SERVER = ("ServiceHTTPServer",)
 
@@ -624,21 +689,24 @@ KNOBS = {
                                            "(parse_allgather_timeout)"),
     "HYPEROPT_TPU_PAYLOAD": Knob("honoured", None, "parallel/payload (wire_format)"),
     "HYPEROPT_TPU_WATCHDOG": Knob("honoured", None, "obs/watchdog (the executor and the "
-                                  "worker beat it; fmin's own beats come with item 14)"),
-    # refused where the port has the entry point that reads them
-    "HYPEROPT_TPU_OBS": Knob("refused", 14, "fmin via obs.ObsConfig (a path streams "
-                             "JSONL)", _FMIN,
-                             lambda r: r != "" and r.lower() not in ("1", "basic", "0", "off")),
-    "HYPEROPT_TPU_PROFILE": Knob("refused", 14, "fmin via obs.ObsConfig (device "
-                                 "captures)", _FMIN, _set),
-    "HYPEROPT_TPU_OBS_HTTP": Knob("refused", 14, "fmin via obs.ObsConfig (scrape "
-                                  "server)", _FMIN, _set_not_off),
-    "HYPEROPT_TPU_DEVMEM": Knob("refused", 14, "fmin via obs.ObsConfig (device-memory "
-                                "sampler)", _FMIN, _set_not_off),
-    "HYPEROPT_TPU_FLIGHT": Knob("refused", 14, "fmin via obs.ObsConfig (a dump path; "
-                                "0/off, which disables the recorder, is honoured "
-                                "by obs/flight)", _FMIN,
-                                lambda r: r not in ("", "0", "1", "off")),
+                                  "worker beat it, and so does fmin's loop)"),
+    # the run's observability planes (obs.ObsConfig.from_env)
+    "HYPEROPT_TPU_OBS": Knob("honoured", None, "fmin, fmin_multihost via "
+                             "obs.ObsConfig (a path streams JSONL)"),
+    "HYPEROPT_TPU_PROFILE": Knob("honoured", None, "fmin, fmin_multihost via "
+                                 "obs.ObsConfig (torch.profiler captures; "
+                                 "full:<dir> traces the whole run)"),
+    "HYPEROPT_TPU_OBS_HTTP": Knob("honoured", None, "fmin, fmin_multihost via "
+                                  "obs.ObsConfig (the scrape server)"),
+    "HYPEROPT_TPU_DEVMEM": Knob("honoured", None, "fmin, fmin_multihost via "
+                                "obs.ObsConfig (the device-memory sampler)"),
+    "HYPEROPT_TPU_FLIGHT": Knob("honoured", None, "obs/flight and obs.ObsConfig "
+                                "(0/off disables the recorder, a path pins "
+                                "its dump file)"),
+    # the kernel libraries: the port's only compiled artifacts
+    "HYPEROPT_TPU_COMPILE_CACHE": Knob("honoured", None, "_build (where the nvcc "
+                                       "libraries are built and loaded; fmin's "
+                                       "compile_cache= sets it per process)"),
     "HYPEROPT_TPU_SERVICE": Knob("honoured", None, "service/server (parse_service)"),
     "HYPEROPT_TPU_SERVICE_WAL": Knob("honoured", None, "service/scheduler (parse_service_wal)"),
     "HYPEROPT_TPU_SERVICE_DEGRADE": Knob("honoured", None, "service/scheduler (the degrade "
@@ -675,15 +743,15 @@ KNOBS = {
     "HYPEROPT_TPU_FLEET_ADDR": Knob("honoured", None, "service/server (parse_fleet_addr, "
                                     "for --fleet)"),
     # refused at the server: the blackbox prober
-    "HYPEROPT_TPU_PROBE": Knob("refused", 14, "service/server (the blackbox prober)",
+    "HYPEROPT_TPU_PROBE": Knob("refused", "14b", "service/server (the blackbox prober)",
                                _SERVER, lambda r: r.lower() in ("1", "on", "true", "yes")),
-    "HYPEROPT_TPU_PROBE_PERIOD": Knob("refused", 14, "obs/prober",
+    "HYPEROPT_TPU_PROBE_PERIOD": Knob("refused", "14b", "obs/prober",
                                       under="HYPEROPT_TPU_PROBE"),
-    "HYPEROPT_TPU_PROBE_SLO": Knob("refused", 14, "service/server (with the prober)",
+    "HYPEROPT_TPU_PROBE_SLO": Knob("refused", "14b", "service/server (with the prober)",
                                    under="HYPEROPT_TPU_PROBE"),
-    # no counterpart: they tune XLA only
+    # no counterpart: they tune XLA only (the port has no compilation
+    # cache to disable: a kernel library is built once per source hash)
     "HYPEROPT_TPU_NO_CACHE": Knob("none", None, "fmin (the XLA compilation cache)"),
-    "HYPEROPT_TPU_COMPILE_CACHE": Knob("none", None, "fmin (the XLA compilation cache)"),
     "HYPEROPT_TPU_NO_DONATION": Knob("none", None, "algos/tpe (XLA buffer donation)"),
     "HYPEROPT_TPU_PALLAS": Knob("none", None, "megakernel, algos/tpe (a deprecated "
                                 "alias routing EI through the Pallas kernel; the port's "
@@ -693,8 +761,8 @@ KNOBS = {
 
 def refuse_armed_knobs(entry):
     """Raise ``not_ported(knob, item)`` for the first refused knob that
-    ``entry`` (``"fmin"``, ``"fmin_multihost"``, ``"StudyScheduler"``,
-    ``"ServiceHTTPServer"``) reads and that is set to a value arming it."""
+    ``entry`` (``"StudyScheduler"``, ``"ServiceHTTPServer"``) reads and
+    that is set to a value arming it."""
     for name, knob in KNOBS.items():
         if entry in knob.refused_at:
             raw = os.environ.get(name, "").strip()

@@ -10,11 +10,10 @@ history-only step (a sort, a count) runs once and every id shares it.
 The base class owns the runtime plumbing: the startup delegation to
 random search, the history read (int8/fp8 codes decoded to float32),
 per-id keys, a cache of built steps and reference-shaped trial docs.
-
-The JAX package's armed-obs branch (proposal health and a cost capture
-when the trials carry ``obs_health``) belongs to the observability
-plane, which is not ported yet (ROADMAP.md, queue 1, item 14): the port's
-``Trials`` has no ``obs_health``, and nothing here reads it.
+An armed obs run (``trials.obs_health``) records the cheap proposal
+health (duplicate rate and spread across the batch) from the values the
+ask reads back anyway; the JAX package's cost capture of the compiled
+program has no torch counterpart (no kernel of the port runs here).
 """
 
 from __future__ import annotations
@@ -34,6 +33,9 @@ class SuggestAlgo:
 
     #: observed trials below which the ask is delegated to ``rand.suggest``
     n_startup_jobs = 0
+
+    #: the algo name health records carry (default: the class name)
+    obs_name = None
 
     def __init__(self, **cfg):
         self.cfg = cfg
@@ -79,4 +81,10 @@ class SuggestAlgo:
         keys = prng.fold_in(rand.seed_to_key(int(seed), dev), ids)
         mat = rand.pack_labels(cs, propose(history, keys))
         flats = rand.unpack_flats(cs, mat, len(new_ids))
+        health = getattr(trials, "obs_health", None)
+        if health is not None and len(flats) >= 2:
+            from ..obs.health import record_proposal_health
+
+            record_proposal_health(health, self.obs_name or type(self).__name__.lower(),
+                                   cs.labels, flats)
         return rand.flat_to_new_trial_docs(domain, trials, new_ids, flats)

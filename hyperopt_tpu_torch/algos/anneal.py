@@ -128,6 +128,8 @@ def _propose_numeric(keys, dist, vals, obs_mask, losses, cfg):
 class AnnealSuggest(SuggestAlgo):
     """hyperopt/anneal.py sym: AnnealSuggest."""
 
+    obs_name = "anneal"
+
     def __init__(self, avg_best_idx=_default_avg_best_idx,
                  shrink_coef=_default_shrink_coef):
         super().__init__(avg_best_idx=float(avg_best_idx), shrink_coef=float(shrink_coef))

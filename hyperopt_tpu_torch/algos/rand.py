@@ -151,6 +151,13 @@ def suggest_async(new_ids, domain, trials, seed):
 
     def finish():
         flats = unpack_flats(domain.cs, mat, len(new_ids))
+        # an armed run: the cheap health subset (duplicate rate, spread)
+        # from the values just read back; nothing at all when disarmed
+        health = getattr(trials, "obs_health", None)
+        if health is not None and len(flats) >= 2:
+            from ..obs.health import record_proposal_health
+
+            record_proposal_health(health, "rand", domain.cs.labels, flats)
         return flat_to_new_trial_docs(domain, trials, new_ids, flats)
 
     return AskHandle(new_ids, finish)

@@ -722,14 +722,61 @@ def _mix_prior(keys, cfg, val, ei_sel, draw, score):
     by a fresh prior draw scored under the same models:
     ``fold_in(key, 0x9B10B)`` feeds the draw and ``fold_in(key, 0xE9510)``
     the take-gate, for the grouped and per-label paths alike.
-    ``draw(keys) -> [...]``; ``score(x[..., 1]) -> [..., 1]``."""
+    ``draw(keys) -> [...]``; ``score(x[..., 1]) -> [..., 1]``.  Returns
+    ``(value, ei, take)``: the bool take flags feed the health stats
+    (None when ``prior_eps`` is 0: nothing is drawn)."""
     eps = float(cfg.get("prior_eps", 0.0))
     if eps <= 0.0:
-        return val, ei_sel
+        return val, ei_sel, None
     xp = draw(prng.fold_in(keys, 0x9B10B))
     ei_p = score(xp[..., None])[..., 0]
     take = prng.uniform(prng.fold_in(keys, 0xE9510), ()) < eps
-    return torch.where(take, xp.to(val.dtype), val), torch.where(take, ei_p, ei_sel)
+    return (torch.where(take, xp.to(val.dtype), val), torch.where(take, ei_p, ei_sel),
+            take)
+
+
+def _diag_stats(samples, ei, ei_sel, wb, below_mask, prior_mass, LF, take,
+                discrete=False):
+    """The per-label :data:`~hyperopt_tpu_torch.obs.health.HEALTH_STATS`
+    vectors ``[..., B, 9]`` of one tick: EI quantiles, the selected
+    candidate's EI rank, the duplicate-candidate rate, the below model's
+    effective component count and prior-mass fraction, the ε-prior take
+    flag.  ``samples``/``ei`` ``[..., B, n]``, ``ei_sel``/``take`` ``[...,
+    B]`` (``take`` None: no ε-prior), ``wb`` ``[..., m]`` (the below
+    model's normalized weights, or the discrete posterior) and
+    ``below_mask`` ``[..., cap]``.  Pure post-processing of the
+    proposal's arrays: no draw, the proposals stay bit for bit the
+    disarmed ones."""
+    n = ei.shape[-1]
+    s = torch.sort(ei, dim=-1).values
+    q = [s[..., min(n - 1, int(round(p * (n - 1))))] for p in (0.10, 0.50, 0.90)]
+    sel_rank = (ei > ei_sel[..., None]).sum(-1).to(torch.float32)
+    if n > 1:
+        sv = torch.sort(samples.to(torch.float32), dim=-1).values
+        gaps = sv[..., 1:] - sv[..., :-1]
+        if discrete:
+            dups = (gaps == 0.0).sum(-1)
+        else:
+            scale = torch.clamp(sv[..., -1] - sv[..., 0], min=EPS)
+            dups = (gaps <= 1e-6 * scale[..., None]).sum(-1)
+        # XLA turns the division by the constant n-1 into a product with
+        # its float32 reciprocal: so does the port, bit for bit
+        dup = dups.to(torch.float32) * float(np.float32(1) / np.float32(n - 1))
+    else:
+        dup = torch.zeros_like(sel_rank)
+    eff = 1.0 / torch.clamp((wb * wb).sum(-1), min=EPS)
+    obs_mass = linear_forgetting_weights(below_mask, LF).sum(-1)
+    # the float32 prior mass, filled on the device (no copy from the host,
+    # which would wait for the tick's queued work) and divided, not
+    # multiplied by a reciprocal
+    pm = float(np.float32(prior_mass))
+    prior_frac = torch.full_like(obs_mass, pm) / torch.clamp(obs_mass + pm, min=EPS)
+    per_label = torch.stack([eff, prior_frac], dim=-1)
+    per_label = per_label[..., None, :].expand(sel_rank.shape + (2,))
+    took = (take.to(torch.float32) if take is not None
+            else torch.zeros_like(sel_rank))
+    return torch.cat([torch.stack(q + [s[..., -1], sel_rank, dup], dim=-1), per_label,
+                      took[..., None]], dim=-1)
 
 
 def _prior_draw_numeric(keys, prior_mu, prior_sigma, low, high, q, log_space):
@@ -754,11 +801,13 @@ def _fit_pair(obs, below, above, cfg, prior_mu, prior_sigma):
     return fit(below), fit(above)
 
 
-def _propose_numeric(keys, dist, vals, below_mask, above_mask, cfg, raw=False):
+def _propose_numeric(keys, dist, vals, below_mask, above_mask, cfg, raw=False,
+                     diag=False):
     """One numeric label for keys ``[B, 2]``: fit both mixtures, draw
     ``n_EI_candidates`` from the below one, score EI, select; returns
-    ``(value[B], ei[B])``, or with ``raw=True`` the candidate pool
-    ``(samples[B, n], ei[B, n])``."""
+    ``(value[B], ei[B])``, with ``diag=True`` also its health stats
+    ``[B, 9]`` (:func:`_diag_stats`), or with ``raw=True`` the candidate
+    pool ``(samples[B, n], ei[B, n])``."""
     prior_mu, prior_sigma, low, high, q, log_space = _parzen_from(dist)
     obs = torch.log(torch.clamp(vals, min=EPS)) if log_space else vals
     tb, ta = _fit_pair(obs[None], below_mask[None], above_mask[None], cfg,
@@ -786,18 +835,23 @@ def _propose_numeric(keys, dist, vals, below_mask, above_mask, cfg, raw=False):
     if raw:
         return samples, ei
     val, ei_sel = _select_candidate(keys, samples, ei, cfg)
-    return _mix_prior(
+    out, ei_out, take = _mix_prior(
         keys, cfg, val, ei_sel,
         lambda kp: _prior_draw_numeric(kp, prior_mu, prior_sigma, low, high,
                                        q, log_space),
         score)
+    if not diag:
+        return out, ei_out
+    return out, ei_out, _diag_stats(samples, ei, ei_sel, wb, below_mask,
+                                    cfg["prior_weight"], cfg["LF"], take)
 
 
 def _propose_numeric_group(keys, obs, below, above, statics, cfg,
-                           quantized, bounded, has_log=True, fused=False):
+                           quantized, bounded, has_log=True, fused=False, diag=False):
     """The numeric pipeline for a GROUP of labels sharing a (quantized?,
     bounded?) shape: keys ``[G, B, 2]``, history ``[G, cap]``, statics
-    ``[G]``; returns ``(value[G, B], ei[G, B])``.  Per label it is the math
+    ``[G]``; returns ``(value[G, B], ei[G, B])`` (with ``diag=True`` also
+    the health stats ``[G, B, 9]``).  Per label it is the math
     of :func:`_propose_numeric`, run in z-space (log space for log labels;
     the log-density's Jacobian cancels inside EI), with quantization in
     value space.  ``fused=True`` (un-quantized groups) draws and scores the
@@ -864,10 +918,13 @@ def _propose_numeric_group(keys, obs, below, above, statics, cfg,
             return torch.round(to_value(zp) / q[:, None]) * q[:, None]
         return zp
 
-    val, ei_out = _mix_prior(keys, cfg, val, ei_sel, draw, score)
+    val, ei_out, take = _mix_prior(keys, cfg, val, ei_sel, draw, score)
     if not quantized:
         val = to_value(val)
-    return val, ei_out
+    if not diag:
+        return val, ei_out
+    return val, ei_out, _diag_stats(sel, ei, ei_sel, tb[0], below,
+                                    cfg["prior_weight"], cfg["LF"], take)
 
 
 def _prior_draw_discrete(keys, prior_p):
@@ -876,10 +933,12 @@ def _prior_draw_discrete(keys, prior_p):
     return _pick(_cdf(prior_p), prng.uniform(keys, ()))
 
 
-def _propose_discrete_group(keys, obs, below, above, prior_ps, offsets, cfg, raw=False):
+def _propose_discrete_group(keys, obs, below, above, prior_ps, offsets, cfg, raw=False,
+                            diag=False):
     """The discrete pipeline for a GROUP of labels sharing one bucket count
     ``K``: keys ``[G, B, 2]``, history ``[G, cap]``, priors ``[G, K]``,
-    randint offsets ``[G]``; returns ``(value[G, B], ei[G, B])``, or with
+    randint offsets ``[G]``; returns ``(value[G, B], ei[G, B])`` (with
+    ``diag=True`` also the health stats ``[G, B, 9]``), or with
     ``raw=True`` the candidate pools ``[G, B, n]``."""
     obs_i = obs.to(torch.int64) - offsets[:, None]
     pb = categorical_posterior(obs_i, below, prior_ps, cfg["prior_weight"], cfg["LF"])
@@ -893,23 +952,29 @@ def _propose_discrete_group(keys, obs, below, above, prior_ps, offsets, cfg, raw
         return samples + _lead(offsets, 3), ei
     val, ei_sel = _select_candidate(keys, samples, ei, cfg)
     diff = lpb - lpa
-    val, ei_out = _mix_prior(
+    val, ei_out, take = _mix_prior(
         keys, cfg, val, ei_sel,
         lambda kp: _prior_draw_discrete(kp, prior_ps),
         lambda xs: _take(diff, xs))
-    return val + offsets[:, None], ei_out
+    if not diag:
+        return val + offsets[:, None], ei_out
+    return val + offsets[:, None], ei_out, _diag_stats(
+        samples, ei, ei_sel, pb, below, prior_ps.shape[-1] * cfg["prior_weight"],
+        cfg["LF"], take, discrete=True)
 
 
-def _propose_discrete(keys, dist, vals, below_mask, above_mask, cfg, raw=False):
+def _propose_discrete(keys, dist, vals, below_mask, above_mask, cfg, raw=False,
+                      diag=False):
     """One categorical/randint label for keys ``[B, 2]``: the group
-    pipeline at width one.  Returns ``(value[B], ei[B])``, or with
-    ``raw=True`` the candidate pool ``(samples[B, n], ei[B, n])``."""
+    pipeline at width one.  Returns ``(value[B], ei[B])`` (with
+    ``diag=True`` also the health stats ``[B, 9]``), or with ``raw=True``
+    the candidate pool ``(samples[B, n], ei[B, n])``."""
     prior_p = device_constant([_prior_probs(dist).tolist()], torch.float32, vals.device)
     offset = int(dist.params[0]) if dist.family == "randint" else 0
     offsets = device_constant([offset], torch.int64, vals.device)
-    val, ei = _propose_discrete_group(keys[None], vals[None], below_mask[None],
-                                      above_mask[None], prior_p, offsets, cfg, raw=raw)
-    return val[0], ei[0]
+    res = _propose_discrete_group(keys[None], vals[None], below_mask[None],
+                                  above_mask[None], prior_p, offsets, cfg, raw=raw, diag=diag)
+    return tuple(r[0] for r in res)
 
 
 def _read_vals(history, label, qparams=None):
@@ -941,7 +1006,8 @@ def _tile(v, S):
     return v.repeat((S,) + (1,) * (v.dim() - 1))
 
 
-def build_propose_with_scores(cs, cfg, group=True, qparams=None, fused=False):
+def build_propose_with_scores(cs, cfg, group=True, qparams=None, fused=False,
+                              diagnostics=False):
     """One proposal step ``propose(history, keys) -> {label: (value, ei)}``
     for a compiled space.
 
@@ -956,7 +1022,18 @@ def build_propose_with_scores(cs, cfg, group=True, qparams=None, fused=False):
     ``[S·G, m]``.  ``group=False`` runs every label on its own.  Same math
     and same per-label keys in every layout.  ``qparams`` decodes int8/fp8
     history at the read boundary; ``fused`` draws and scores un-quantized
-    numeric groups in ``megakernel.fused_sample_ei``."""
+    numeric groups in ``megakernel.fused_sample_ei``.
+
+    ``diagnostics=True`` builds the health-instrumented step (an armed
+    obs run): ``propose(history, keys) -> (out, diag)`` where ``diag`` is
+    ``{"stats": {label: [*S, B, 9]}, "n_below": [*S], "n_above": [*S]}``
+    (:func:`_diag_stats`).  Its proposals are bit for bit the plain
+    step's: the stats only read what the proposal computed.
+
+    ``propose.ei_shapes(B, cap)`` lists the ``(P, n, m)`` of every
+    ``ei_diff`` launch one unfused step makes for ``B`` keys over a
+    history of capacity ``cap`` (one study): what ``obs/health.py``
+    counts the tick's kernel cost from."""
     by_gkey = {}
     if group:
         for l in cs.labels:
@@ -1019,18 +1096,25 @@ def build_propose_with_scores(cs, cfg, group=True, qparams=None, fused=False):
                     (below[..., None, :] & act).reshape(-1, cap),
                     (above[..., None, :] & act).reshape(-1, cap))
 
-        def unstack(ls, val, ei):
-            val = val.reshape(lead + (len(ls), B))
-            ei = ei.reshape(lead + (len(ls), B))
+        stats = {}
+
+        def unstack(ls, res):
+            val = res[0].reshape(lead + (len(ls), B))
+            ei = res[1].reshape(lead + (len(ls), B))
             for i, l in enumerate(ls):
                 out[l] = (val[..., i, :], ei[..., i, :])
+            if diagnostics:
+                st = res[2].reshape(lead + (len(ls), B, res[2].shape[-1]))
+                for i, l in enumerate(ls):
+                    stats[l] = st[..., i, :, :]
 
         for (ls, quantized, bounded, has_log, _), statics in zip(numeric_groups, c["num"]):
-            unstack(ls, *_propose_numeric_group(
+            unstack(ls, _propose_numeric_group(
                 *stacked(ls), statics, cfg, quantized, bounded, has_log,
-                fused=fused and not quantized))
+                fused=fused and not quantized, diag=diagnostics))
         for (ls, _, _), (prior_ps, offsets) in zip(disc_groups, c["disc"]):
-            unstack(ls, *_propose_discrete_group(*stacked(ls), prior_ps, offsets, cfg))
+            unstack(ls, _propose_discrete_group(*stacked(ls), prior_ps, offsets, cfg,
+                                                diag=diagnostics))
         for label in cs.labels:
             if label in grouped:
                 continue
@@ -1041,10 +1125,29 @@ def build_propose_with_scores(cs, cfg, group=True, qparams=None, fused=False):
             k = prng.fold_in(keys, hashes[label])
             fn = (_propose_discrete if dist.family in ("categorical", "randint")
                   else _propose_numeric)
-            out[label] = fn(k, dist, _read_vals(history, label, qparams),
-                            below & active, above & active, cfg)
+            res = fn(k, dist, _read_vals(history, label, qparams),
+                     below & active, above & active, cfg, diag=diagnostics)
+            out[label] = res[:2]
+            if diagnostics:
+                stats[label] = res[2]
+        if diagnostics:
+            return out, {"stats": stats, "n_below": below.sum(-1), "n_above": above.sum(-1)}
         return out
 
+    eps = float(cfg.get("prior_eps", 0.0)) > 0.0
+    numeric_ei = ([len(ls) for ls, quantized, *_ in numeric_groups if not quantized]
+                  + [1 for l in cs.labels if l not in grouped
+                     and cs.params[l].dist.family not in ("categorical", "randint")
+                     and _parzen_from(cs.params[l].dist)[4] is None])
+
+    def ei_shapes(B, cap):
+        n = B * int(cfg["n_EI_candidates"])
+        shapes = [(G, n, cap + 1) for G in numeric_ei]
+        if eps:
+            shapes += [(G, B, cap + 1) for G in numeric_ei]
+        return shapes
+
+    propose.ei_shapes = ei_shapes
     return propose
 
 
@@ -1056,6 +1159,7 @@ def build_propose(cs, cfg, group=True, qparams=None, fused=False):
     def propose(history, keys):
         return {l: v for l, (v, _) in scored(history, keys).items()}
 
+    propose.ei_shapes = scored.ei_shapes
     return propose
 
 
@@ -1109,13 +1213,36 @@ def _apply_rows(labels, history, rows, qparams=None, study=None):
     return history
 
 
-def _tick(cs, propose, history, rows, seed, ids, qparams=None):
+def _tick(cs, propose, history, rows, seed, ids, qparams=None, diag=False):
     """One ask→tell tick on the history's device: fold ``rows`` in place,
     derive ``fold_in(fold_in(PRNGKey(lo), hi), id)`` per id, propose, and
-    pack ``[B, L]``."""
+    pack ``[B, L]``; with ``diag`` (the health-instrumented step) the
+    ``[B, 10L+2]`` buffer of :func:`_pack_health`."""
     _apply_rows(cs.labels, history, rows, qparams)
     keys = prng.fold_in(rand.seed_to_key(seed, ids.device), ids)
+    if diag:
+        return _pack_health(cs, *propose(history, keys))
     return rand.pack_labels(cs, propose(history, keys))
+
+
+def _pack_health(cs, out, diag):
+    """One ``[B, L + 9L + 2]`` float32 buffer of an armed step: the
+    proposals in ``rand.pack_labels`` order, the per-label health stats
+    ``[B, L, 9]`` flattened, and the below/above split sizes; read back
+    in one transfer (:func:`_unpack_health`)."""
+    mat = rand.pack_labels(cs, {l: v for l, (v, _) in out.items()})
+    B = mat.shape[0]
+    stats = torch.stack([diag["stats"][l] for l in cs.labels], dim=-2)
+    split = torch.stack([diag["n_below"], diag["n_above"]]).to(torch.float32)
+    return torch.cat([mat, stats.reshape(B, -1), split.expand(B, 2)], dim=-1)
+
+
+def _unpack_health(cs, host, n):
+    """Host ``[B, 10L+2]`` → ``(proposals [n, L], stats [n, L, 9],
+    splits [n, 2])``."""
+    L = len(cs.labels)
+    return (host[:n, :L], host[:n, L:L + 9 * L].reshape(n, L, 9),
+            host[:n, L + 9 * L:])
 
 
 # (space signature, cfg, storage) -> proposal step; its host-side group
@@ -1123,14 +1250,17 @@ def _tick(cs, propose, history, rows, seed, ids, qparams=None):
 _propose_cache = LRUCache(32)
 
 
-def _get_propose(cs, cfg, qparams=None, hist_dtype=None):
+def _get_propose(cs, cfg, qparams=None, hist_dtype=None, diag=False):
     key = (cs.signature(), tuple(sorted(cfg.items())))
     if qparams is not None:
         # qparams are a pure function of (space, name): the name keys them
         key = key + ("quant", str(hist_dtype))
+    if diag:
+        key = key + ("health",)
     fn = _propose_cache.get(key)
     if fn is None:
-        fn = build_propose(cs, cfg, qparams=qparams)
+        fn = (build_propose_with_scores(cs, cfg, qparams=qparams, diagnostics=True)
+              if diag else build_propose(cs, cfg, qparams=qparams))
         _propose_cache.put(key, fn)
     return fn
 
@@ -1160,7 +1290,13 @@ def suggest_async(
     a multiple of the mesh, the history is placed by the partition-rule
     table (split along its capacity axis past
     ``HYPEROPT_TPU_HIST_SHARD_MIN``), and every entry proposes its slice.
-    Unset, the tick is the one-device tick."""
+    Unset, the tick is the one-device tick.
+
+    An armed obs run (``trials.obs_health``, set by ``fmin`` when its
+    stream is live) runs the health-instrumented step instead: the same
+    proposals, plus the per-label health stats packed into the same one
+    readback, recorded by ``obs.health.record_tpe_health``; the tick's
+    analytic ``ei_diff`` cost goes to the ``suggest.tpe`` gauges."""
     if not len(new_ids):
         return rand.AskHandle([], lambda: [])
     if len(trials.trials) < n_startup_jobs:
@@ -1181,23 +1317,43 @@ def suggest_async(
     # no-op unless HYPEROPT_TPU_HIST_DTYPE names a code
     ph.ensure_qparams(cs)
     n_shard = parse_shard()
+    health = getattr(trials, "obs_health", None)
+    diag = health is not None
     ids = rand.pad_ids_sticky(domain, new_ids)
     dev, rows = ph.device_state()
+    propose = _get_propose(cs, cfg, ph.qparams, ph.hist_dtype, diag=diag)
     try:
         if n_shard is None:
-            propose = _get_propose(cs, cfg, ph.qparams, ph.hist_dtype)
             mat = _tick(cs, propose, dev, rows, seed, torch.from_numpy(ids).to(ph.device),
-                        ph.qparams)
+                        ph.qparams, diag=diag)
         else:
-            mat = _sharded_tick(cs, cfg, ph, dev, rows, seed, ids, n_shard)
+            mat = _sharded_tick(cs, cfg, ph, dev, rows, seed, ids, n_shard, diag=diag)
     except BaseException:
         # a half-applied in-place fold: rebuild the mirror from host next time
         ph.abandon_device()
         raise
     ph.commit_device()
 
+    if not diag:
+        def finish():
+            flats = rand.unpack_flats(cs, mat, len(new_ids))
+            return rand.flat_to_new_trial_docs(domain, trials, new_ids, flats)
+
+        return rand.AskHandle(new_ids, finish)
+
+    from ..obs import health as _health
+    from ..obs.devmem import register_owner
+
+    # the packed proposals + stats readback buffer, for the devmem census
+    register_owner("candidates", mat)
+    _health.record_program_cost(
+        "suggest.tpe", *_health.ei_launch_cost(propose.ei_shapes(len(ids), ph.cap)))
+
     def finish():
-        flats = rand.unpack_flats(cs, mat, len(new_ids))
+        host = mat.cpu().numpy()  # the one readback: proposals and stats
+        vals, stats, splits = _unpack_health(cs, host, len(new_ids))
+        _health.record_tpe_health(health, cs.labels, stats, splits)
+        flats = rand.unpack_flats(cs, vals, len(new_ids))
         return rand.flat_to_new_trial_docs(domain, trials, new_ids, flats)
 
     return rand.AskHandle(new_ids, finish)
@@ -1222,10 +1378,11 @@ def _sharded_step(kind, cs, cfg, mesh, qparams, hist_dtype, **kw):
     return fn
 
 
-def _sharded_tick(cs, cfg, ph, dev, rows, seed, ids, n_shard):
+def _sharded_tick(cs, cfg, ph, dev, rows, seed, ids, n_shard, diag=False):
     """The tick under ``HYPEROPT_TPU_SHARD``: fold the rows into the
     mirror, place it on the suggest mesh by the rule table and propose
-    every entry's slice of the ids (padded to a multiple of the mesh)."""
+    every entry's slice of the ids (padded to a multiple of the mesh);
+    ``diag`` packs the health stats as :func:`_tick` does."""
     from ..parallel import sharding as _sh
 
     mesh = _sh.suggest_mesh(n_shard, device=ph.device)
@@ -1234,7 +1391,7 @@ def _sharded_tick(cs, cfg, ph, dev, rows, seed, ids, n_shard):
     ids = rand.pad_ids_to_multiple(ids, mesh.size)
     keys = prng.fold_in(rand.seed_to_key(seed, ph.device), torch.from_numpy(ids).to(ph.device))
     step = _sharded_step("batch", cs, cfg, mesh, ph.qparams, ph.hist_dtype,
-                         shard_history=shard_hist)
+                         shard_history=shard_hist, diag=bool(diag))
     return step(_sh.place_history(dev, mesh, shard_history=shard_hist), keys)
 
 

@@ -31,6 +31,7 @@ from .exceptions import (
     StaleHistoryError,
 )
 from .spaces import CompiledSpace, as_expr, compile_space
+from .obs.devmem import register_owner
 from .utils import coarse_utcnow, evaluation_device
 
 __all__ = [
@@ -321,6 +322,10 @@ class PaddedHistory:
             "has_loss": torch.tensor(self._has_loss, device=dev),
         }
         self._dev_synced = self.n
+        # the cap-sized mirror, for the device-memory census (obs/devmem.py);
+        # uploads are rare (first view, growth), so this is off the tick
+        register_owner("history", *vals.values(), *self._dev["active"].values(),
+                       self._dev["losses"], self._dev["has_loss"])
 
     def device_state(self):
         """``(dev, rows)`` for one tick: the device mirror as of the last
@@ -615,14 +620,18 @@ class Trials:
 
         return _fmin(fn, space, trials=self, **kwargs)
 
-    # pickle: drop the history (rebuilt lazily) and the live Domain
-    # attachment, which closes over the user objective; an asynchronous
-    # backend's pickled Domain blob is kept
+    # pickle: drop the history (rebuilt lazily), the live obs handles fmin
+    # installs (the run's bundle and its capture plane: per-run, with
+    # locks and an open sink; fmin re-installs them on resume) and the live
+    # Domain attachment, which closes over the user objective; an
+    # asynchronous backend's pickled Domain blob is kept
     def __getstate__(self):
         state = self.__dict__.copy()
         state["_history"] = None
         state["_history_synced"] = 0
         state["_history_pending"] = []
+        state.pop("obs_health", None)
+        state.pop("obs_profiler", None)
         attachments = dict(state.get("attachments", {}))
         dom = attachments.get("FMinIter_Domain")
         if dom is not None and not isinstance(dom, (bytes, bytearray)):

@@ -23,6 +23,17 @@ runs eagerly.
 ``fmin_device`` runs a whole run (the JAX package's one ``lax.scan``);
 ``DeviceLoopRunner`` runs chunks of ``CHUNK`` steps with one readback
 each, behind ``fmin(device_loop=True | "auto")``.
+
+Telemetry (the JAX package's compile/execute split): a branch's warm-up
+and capture is the counterpart of XLA's compile, recorded as
+``chunk.compile_sec`` (and a ``device.compile`` event in the run's
+stream when the runner has a run bundle); a chunk's
+``chunk.execute_sec`` is the device time of its replayed steps, from
+CUDA events around each replay (the wall time on the CPU);
+``chunk.flops`` / ``chunk.bytes`` are the analytic ``ei_diff`` cost of a
+chunk of TPE steps (``obs/health.py``).  All in the process-global
+``"device"`` metrics namespace, beside watchdog beats and, under an
+armed capture plane, a ``device.chunk`` timeline annotation.
 """
 
 from __future__ import annotations
@@ -39,6 +50,9 @@ from . import megakernel, prng, quant
 from ._env import not_ported, parse_hist_dtype, parse_shard, resolve_device
 from .algos import tpe
 from .base import trials_from_flat_history
+from .obs import get_metrics
+from .obs.devmem import register_owner
+from .obs.watchdog import beat as _wd_beat
 from .spaces import compile_space, draw_dist, label_hash
 from .utils import LRUCache
 
@@ -48,6 +62,10 @@ __all__ = ["fmin_device", "DeviceLoopRunner", "objective_is_traceable", "loop_st
 # -> a _Loop: its step, and on a card its captured graphs.  Expression
 # trees are frozen dataclasses (hashable); objectives hash by identity.
 _RUN_CACHE = LRUCache(16)
+
+# the capture/execute split and the loop's kernel costs, process-global
+# like the loop programs they describe
+_METRICS = get_metrics("device")
 
 
 def _int_labels(cs):
@@ -132,12 +150,15 @@ class _Loop:
 
     def new_state(self):
         """A fresh loop state ``(vals, active, losses, has_loss)`` on the
-        loop's device: no trial, every loss +inf."""
+        loop's device: no trial, every loss +inf.  Its tensors count as
+        ``history`` in the device-memory census."""
         cap, dev = self.cap, self.device
-        return ({l: torch.zeros(cap, dtype=self.dtype, device=dev) for l in self.cs.labels},
-                {l: torch.zeros(cap, dtype=torch.bool, device=dev) for l in self.cs.labels},
-                torch.full((cap,), math.inf, dtype=self.dtype, device=dev),
-                torch.zeros(cap, dtype=torch.bool, device=dev))
+        state = ({l: torch.zeros(cap, dtype=self.dtype, device=dev) for l in self.cs.labels},
+                 {l: torch.zeros(cap, dtype=torch.bool, device=dev) for l in self.cs.labels},
+                 torch.full((cap,), math.inf, dtype=self.dtype, device=dev),
+                 torch.zeros(cap, dtype=torch.bool, device=dev))
+        register_owner("history", *state[0].values(), *state[1].values(), *state[2:])
+        return state
 
     def _buffers(self, state):
         """``(state, rows[cap, 2L+1], counter[1], key[2])`` for steps on
@@ -208,25 +229,35 @@ class _Loop:
         torch.cuda.synchronize(self.device)
         self.capture_sec[branch] = time.perf_counter() - t0
 
-    def _replay(self, branch):
-        self.graphs[branch].replay()
+    def _replay(self, branch, events=None):
+        if events is None:
+            self.graphs[branch].replay()
+        else:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            self.graphs[branch].replay()
+            t1.record()
+            events.append((t0, t1))
         self.replays[branch] += 1
         megakernel.ei_diff.graph_launches += self.kernel_nodes[branch]
 
-    def run(self, state, key, start, limit, capture=True):
+    def run(self, state, key, start, limit, capture=True, events=None):
         """Steps ``start .. limit-1`` on ``state`` (updated in place) from
         the ``[2]`` key ``key`` (the base key, or the first key of a chain;
         it is read, not written); returns the ``[limit-start, 2L+1]`` rows
         as one host array.  On a card with ``capture`` the
         steps are graph replays on the loop's static buffers, between
         which ``state`` is copied in and out; ``capture=False`` runs the
-        step eagerly (the reference the replays are held to)."""
+        step eagerly (the reference the replays are held to).  ``events``
+        (a list) collects a pair of CUDA events around each replay."""
         graphs = capture and self.device.type == "cuda"
         with self._lock, (torch.cuda.device(self.device) if graphs
                           else contextlib.nullcontext()):
             if graphs:
                 if self._static is None:
                     self._static = self._buffers(self.new_state())
+                    register_owner("history", self._static[1])
                 bufs = self._static
                 _copy_state(bufs[0], state)
             else:
@@ -238,7 +269,7 @@ class _Loop:
                 if not graphs:
                     self.step(bufs, branch)
                 elif branch in self.graphs:
-                    self._replay(branch)
+                    self._replay(branch, events)
                 else:
                     self._capture(branch, bufs)
             if graphs:
@@ -298,8 +329,9 @@ class DeviceLoopRunner:
 
     CHUNK = 10
 
-    def __init__(self, domain, cfg, n_startup, cap, device=None, capture=True):
+    def __init__(self, domain, cfg, n_startup, cap, device=None, capture=True, obs=None):
         cs = domain.cs
+        self._obs = obs
         self.cs = cs
         self.cap = int(cap)
         self.labels = cs.labels
@@ -316,6 +348,8 @@ class DeviceLoopRunner:
         # the same (space, objective, cap, cfg) does not recapture
         self._loop = _get_loop("chunk", cs, domain.fn, cfg, n_startup, self.cap,
                                self.hist_dtype, self.device)
+        self._n_startup = int(n_startup)
+        self._cost_cfg = cfg  # until the chunk cost is recorded, once
 
     def init_state(self):
         """A fresh ``(vals, active, losses, has_loss)`` loop state."""
@@ -329,7 +363,42 @@ class DeviceLoopRunner:
         readback)."""
         lo, hi = prng.seed_words(seed)
         base = prng.fold_in(prng.PRNGKey(lo, self.device), hi)
-        rows = self._loop.run(state, base, int(start), int(limit), capture=self.capture)
+        obs = self._obs
+        loop = self._loop
+        if limit > self._n_startup and self._cost_cfg is not None:
+            # the analytic cost of a chunk of TPE steps (CHUNK ticks of one
+            # key over capacity cap)
+            from .obs import health
+
+            shapes = tpe._get_propose(self.cs, self._cost_cfg).ei_shapes(1, self.cap)
+            ops, nbytes = health.ei_launch_cost(shapes)
+            health.record_program_cost("chunk", ops * self.CHUNK, nbytes * self.CHUNK,
+                                       _METRICS)
+            self._cost_cfg = None
+        captured = set(loop.graphs)
+        events = [] if self.device.type == "cuda" and self.capture else None
+        # execute-boundary beats: a quiet period after "pre" that never
+        # reaches "post" is a hung replay or read-back
+        _wd_beat("device.execute", stage="chunk", start=int(start), mark="pre")
+        ann = (obs.annotate("device.chunk", step=int(start), start=int(start),
+                            limit=int(limit)) if obs is not None else contextlib.nullcontext())
+        t0 = time.perf_counter()
+        with ann:
+            rows = loop.run(state, base, int(start), int(limit), capture=self.capture,
+                            events=events)
+        wall = time.perf_counter() - t0
+        for branch in set(loop.graphs) - captured:
+            # a branch's warm-up and capture: the counterpart of XLA's compile
+            _METRICS.histogram("chunk.compile_sec").observe(loop.capture_sec[branch])
+            if obs is not None:
+                obs.event("device.compile", branch=branch, sec=loop.capture_sec[branch])
+        if events is None:
+            sec = wall
+        else:  # the rows' read-back synchronized the card: the events are done
+            sec = sum(a.elapsed_time(b) for a, b in events) / 1e3
+        _METRICS.histogram("chunk.execute_sec").observe(sec)
+        _METRICS.counter("chunk.dispatches").inc()
+        _wd_beat("device.execute", stage="chunk", start=int(start), mark="post")
         return state, rows
 
 

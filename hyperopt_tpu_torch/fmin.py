@@ -8,7 +8,9 @@ which is the CUDA card unless the caller passes ``device="cpu"``.  With
 ``device_loop`` a traceable objective's whole ask→tell chain runs on that
 device instead (``device_fmin``).  An asynchronous trials backend
 (``FileTrials``, ``ExecutorTrials``) evaluates elsewhere: the loop then
-only asks, inserts and polls.
+only asks, inserts and polls.  Every run carries an ``obs.RunObs``
+(spans, metrics, trial events, heartbeats; the JSONL stream, the scrape
+server, device captures and device-memory samples when armed).
 """
 
 from __future__ import annotations
@@ -22,8 +24,9 @@ import time
 
 import numpy as np
 
+from . import obs as obs_mod
 from . import progress as progress_mod
-from ._env import not_ported, refuse_armed_knobs, resolve_device
+from ._env import resolve_device
 from .base import (
     Ctrl,
     Domain,
@@ -100,8 +103,12 @@ class FMinIter:
                  max_queue_len=None, poll_interval_secs=None,
                  max_evals=float("inf"), timeout=None, loss_threshold=None,
                  verbose=False, show_progressbar=True, early_stop_fn=None,
-                 trials_save_file="", lookahead=0, device_loop=False):
-        refuse_armed_knobs("fmin")  # the obs planes' knobs
+                 trials_save_file="", lookahead=0, device_loop=False,
+                 obs=None, obs_http=None, profile=None, compile_cache=None):
+        if compile_cache is not None:
+            from ._build import set_build_dir
+
+            set_build_dir(compile_cache)
         self.device_loop = device_loop
         self.algo = algo
         self.domain = domain
@@ -150,6 +157,7 @@ class FMinIter:
                     "lookahead > 0 requires a suggester with an async "
                     "dispatch/readback split (tpe.suggest or rand.suggest, "
                     "optionally functools.partial-tuned)")
+        self._arm_obs(obs, obs_http, profile)
         if self.asynchronous:
             # workers in other threads or processes load the domain from
             # this blob (misc.cmd = ('domain_attachment', 'FMinIter_Domain'))
@@ -159,6 +167,43 @@ class FMinIter:
                 trials.attachments["FMinIter_Domain"] = cloudpickle.dumps(domain)
         else:
             trials.attachments["FMinIter_Domain"] = domain
+
+    def _arm_obs(self, obs, obs_http, profile):
+        """The run's telemetry bundle: ``obs`` (None: the environment, a
+        path, an ``ObsConfig`` or a built ``RunObs``) with ``obs_http`` /
+        ``profile`` on top, its tracer aggregating into
+        ``trials.phase_timings``; the handles go onto the trials
+        (``obs_run_id``, ``obs_metrics``, ``obs_http_url``,
+        ``obs_profiler`` and, for an armed stream, ``obs_health``, which
+        switches TPE to its health-instrumented tick)."""
+        trials = self.trials
+        if obs_http is not None or profile is not None:
+            if isinstance(obs, obs_mod.RunObs):
+                logger.warning(
+                    "obs_http=%r / profile=%r ignored: obs= is a pre-built RunObs "
+                    "(set http_port/profile_dir on its ObsConfig instead)",
+                    obs_http, profile)
+            else:
+                import dataclasses
+
+                from .obs.profiler import split_profile_mode
+
+                overrides = {}
+                if obs_http is not None:
+                    overrides["http_port"] = obs_http
+                if profile is not None:
+                    cap_dir, full_dir = split_profile_mode(str(profile))
+                    overrides["profile_dir"] = cap_dir
+                    overrides["profile_full"] = full_dir
+                obs = dataclasses.replace(obs_mod.ObsConfig.resolve(obs), **overrides)
+        if not hasattr(trials, "phase_timings"):
+            trials.phase_timings = obs_mod.PhaseTimings()
+        self.obs = obs_mod.RunObs.resolve(obs, totals=trials.phase_timings)
+        trials.obs_run_id = self.obs.run_id
+        trials.obs_metrics = self.obs.metrics
+        trials.obs_http_url = self.obs.http.url if self.obs.http is not None else None
+        trials.obs_profiler = self.obs.profiler
+        trials.obs_health = self.obs if self.obs.sink is not None else None
 
     def _resolve_async_algo(self):
         """An ``(ids, domain, trials, seed) -> AskHandle`` dispatcher when
@@ -187,8 +232,14 @@ class FMinIter:
                 continue
             trial["state"] = JOB_STATE_RUNNING
             trial["book_time"] = coarse_utcnow()
+            self.obs.trial_event(obs_mod.events_mod.TRIAL_CLAIMED, trial["tid"],
+                                 owner="serial")
+            # a hang past this beat is the objective: the watchdog's stall
+            # report names the trial that wedged the loop
+            self.obs.heartbeat("fmin.evaluate", tid=trial["tid"])
             spec = spec_from_misc(trial["misc"])
             ctrl = Ctrl(self.trials, current_trial=trial)
+            t0 = time.perf_counter()
             try:
                 result = self.domain.evaluate(spec, ctrl)
             except Exception as e:
@@ -196,6 +247,9 @@ class FMinIter:
                 trial["state"] = JOB_STATE_ERROR
                 trial["misc"]["error"] = (str(type(e)), str(e))
                 trial["refresh_time"] = coarse_utcnow()
+                self.obs.trial_event(obs_mod.events_mod.TRIAL_FINISHED, trial["tid"],
+                                     status="error", sec=time.perf_counter() - t0)
+                self.obs.counter("trials.errors").inc()
                 if not self.catch_eval_exceptions:
                     self.trials.refresh()
                     raise
@@ -203,6 +257,10 @@ class FMinIter:
                 trial["state"] = JOB_STATE_DONE
                 trial["result"] = result
                 trial["refresh_time"] = coarse_utcnow()
+                self.obs.trial_event(obs_mod.events_mod.TRIAL_FINISHED, trial["tid"],
+                                     status=result.get("status", "ok"),
+                                     sec=time.perf_counter() - t0)
+                self.obs.counter("trials.completed").inc()
             N -= 1
             if N == 0:
                 break
@@ -232,6 +290,7 @@ class FMinIter:
             if not already_printed and self.verbose:
                 logger.info("Waiting for %d jobs to finish ...", qlen)
                 already_printed = True
+            self.obs.heartbeat("fmin.drain", qlen=qlen)
             time.sleep(self.poll_interval_secs)
             if timed_out() and cancel is not None:
                 cancel()
@@ -239,6 +298,22 @@ class FMinIter:
         self.trials.refresh()
 
     def run(self, N, block_until_done=True):
+        # a re-entered run (iterator protocol) re-adopts its metrics
+        # namespace after the previous leg's finish()
+        self.obs.rearm()
+        with self.obs.profiler_ctx(), self.obs.span(
+                "run", aggregate=False, N=N if N != float("inf") else "inf",
+                device_loop=bool(self.device_loop)):
+            try:
+                # this thread serves the capture plane at its tick boundaries
+                with self.obs.loop():
+                    self._run(N, block_until_done)
+            finally:
+                # one metrics snapshot record per run(): a killed stream
+                # still ends with the latest full picture
+                self.obs.finish()
+
+    def _run(self, N, block_until_done=True):
         if self.device_loop:
             plan, reasons = self._device_loop_plan()
             if plan is not None:
@@ -269,6 +344,8 @@ class FMinIter:
 
         stopped = False
         n_reported = get_n_done()
+        tick = 0  # ask→tell tick ordinal: the capture timeline's step id
+        obs = self.obs
         with progress_mod.get_progress_callback(self.show_progressbar)(
             initial=n_reported, total=self.max_evals
         ) as progress_ctx:
@@ -278,29 +355,56 @@ class FMinIter:
             def land(new_trials):
                 """Insert freshly-asked docs; False = suggester is done."""
                 nonlocal n_queued, qlen, stopped
+                obs.counter("suggest.calls").inc()
                 if not len(new_trials):
                     stopped = True
                     return False
+                for doc in new_trials:
+                    obs.trial_event(obs_mod.events_mod.TRIAL_NEW, doc["tid"])
+                obs.counter("trials.suggested").inc(len(new_trials))
                 trials.insert_trial_docs(new_trials)
                 trials.refresh()
                 n_queued += len(new_trials)
                 qlen = get_queue_len()
+                obs.gauge("queue_depth").set(qlen)
                 return True
 
             while n_queued < N or (block_until_done and not all_trials_complete):
+                # one beat, one device-memory sample and one capture-plane
+                # boundary per tick
+                tick += 1
+                obs.heartbeat("fmin.tick", n_queued=n_queued)
+                obs.devmem_sample()
+                obs.boundary()
                 qlen = get_queue_len()
                 while inflight and qlen < self.max_queue_len and n_queued < N:
-                    if not land(inflight.pop(0).result()):
+                    handle = inflight.pop(0)
+                    obs.gauge("suggest.inflight").set(len(inflight))
+                    t_ask = time.perf_counter()
+                    with self.obs.span("suggest"), self.obs.span("suggest.readback"):
+                        new_trials = handle.result()
+                    obs.histogram("ask.blocked_sec").observe(time.perf_counter() - t_ask)
+                    if not land(new_trials):
                         break
                 while qlen < self.max_queue_len and n_queued < N and not stopped:
                     n_to_enqueue = min(self.max_queue_len - qlen, N - n_queued)
                     new_ids = trials.new_trial_ids(n_to_enqueue)
                     trials.refresh()
-                    if async_algo is not None:
-                        new_trials = async_algo(new_ids, self.domain, trials,
-                                                next_seed()).result()
-                    else:
-                        new_trials = algo(new_ids, self.domain, trials, next_seed())
+                    t_ask = time.perf_counter()
+                    # a capture overlapping this ask shows its kernels under
+                    # the tick ordinal and the trial ids it proposed
+                    with obs.annotate("fmin.tick", step=tick,
+                                      tid=new_ids[0] if len(new_ids) else -1,
+                                      n=len(new_ids)), self.obs.span("suggest"):
+                        if async_algo is not None:
+                            with self.obs.span("suggest.dispatch"):
+                                handle = async_algo(new_ids, self.domain, trials,
+                                                    next_seed())
+                            with self.obs.span("suggest.readback"):
+                                new_trials = handle.result()
+                        else:
+                            new_trials = algo(new_ids, self.domain, trials, next_seed())
+                    obs.histogram("ask.blocked_sec").observe(time.perf_counter() - t_ask)
                     if len(new_trials) > len(new_ids):
                         raise ValueError("suggester returned more trials than ids")
                     if not land(new_trials):
@@ -314,16 +418,28 @@ class FMinIter:
                             break
                         new_ids = trials.new_trial_ids(int(k))
                         trials.refresh()
-                        inflight.append(async_algo(new_ids, self.domain, trials,
-                                                   next_seed()))
+                        # dispatch only: the landing readback carries the
+                        # ask's one "suggest" span
+                        with obs.annotate("fmin.tick.speculative", step=tick,
+                                          tid=new_ids[0] if len(new_ids) else -1,
+                                          n=len(new_ids)), \
+                                self.obs.span("suggest.dispatch"):
+                            inflight.append(async_algo(new_ids, self.domain, trials,
+                                                       next_seed()))
+                        obs.counter("suggest.speculative").inc()
+                        obs.gauge("suggest.inflight").set(len(inflight))
 
                 if self.asynchronous:
-                    time.sleep(self.poll_interval_secs)  # workers fill in the trials
+                    with self.obs.span("poll"):
+                        time.sleep(self.poll_interval_secs)  # workers fill in the trials
                 else:
-                    self.serial_evaluate()
-                trials.refresh()
+                    with self.obs.span("evaluate"):
+                        self.serial_evaluate()
+                with self.obs.span("refresh"):
+                    trials.refresh()
                 if self.trials_save_file != "":
-                    self._save_trials()
+                    with self.obs.span("save"):
+                        self._save_trials()
 
                 if self.early_stop_fn is not None:
                     stop, kwargs = self.early_stop_fn(trials, *self.early_stop_args)
@@ -336,7 +452,9 @@ class FMinIter:
                              if r.get("status") == STATUS_OK and r.get("loss") is not None]
                 if ok_losses:
                     best_loss = min(best_loss, min(ok_losses))
-                    progress_ctx.postfix = progress_mod.format_postfix(best_loss)
+                    # the scrape server reads the best loss from this gauge
+                    obs.gauge("best_loss").set(float(best_loss))
+                    progress_ctx.postfix = progress_mod.format_postfix(best_loss, obs)
                 n_done_now = get_n_done()
                 progress_ctx.update(n_done_now - n_reported)
                 n_reported = n_done_now
@@ -423,7 +541,8 @@ class FMinIter:
         cs = self.domain.cs
         L = len(cs.labels)
         cap = int(self.max_evals)
-        runner = DeviceLoopRunner(self.domain, cfg, n_startup, cap, device=trials.device)
+        runner = DeviceLoopRunner(self.domain, cfg, n_startup, cap, device=trials.device,
+                                  obs=self.obs)
         n_done = getattr(self, "_device_n_done", 0)
         state = self._device_state if n_done else runner.init_state()
         target = min(cap, n_done + int(N))
@@ -434,12 +553,16 @@ class FMinIter:
             initial=n_done, total=self.max_evals
         ) as progress_ctx:
             while n_done < target and not stopped:
+                self.obs.heartbeat("fmin.device_chunk", n_done=n_done)
+                self.obs.devmem_sample()  # chunk-boundary watermark
+                self.obs.boundary()
                 limit = min(n_done + runner.CHUNK, target)
                 seed = (self.rstate.integers(2**31 - 1)
                         if hasattr(self.rstate, "integers")
                         else self.rstate.randint(2**31 - 1))
                 try:
-                    state, rows = runner.run_chunk(state, n_done, limit, seed)
+                    with self.obs.span("suggest"):
+                        state, rows = runner.run_chunk(state, n_done, limit, seed)
                 except BaseException:
                     # a chunk that failed part way left the state half
                     # written: drop the resume handle, so a later run()
@@ -462,11 +585,17 @@ class FMinIter:
                     doc["state"] = JOB_STATE_DONE
                     doc["book_time"] = now
                     doc["refresh_time"] = now
+                    self.obs.trial_event(obs_mod.events_mod.TRIAL_FINISHED, doc["tid"],
+                                         status=doc["result"].get("status", "ok"),
+                                         source="device_loop")
+                self.obs.counter("trials.completed").inc(len(docs))
                 trials.insert_trial_docs(docs)
-                trials.refresh()
+                with self.obs.span("refresh"):
+                    trials.refresh()
                 n_done = limit
                 if self.trials_save_file != "":
-                    self._save_trials()
+                    with self.obs.span("save"):
+                        self._save_trials()
                 if self.early_stop_fn is not None:
                     stop, kw = self.early_stop_fn(trials, *self.early_stop_args)
                     self.early_stop_args = kw
@@ -474,7 +603,8 @@ class FMinIter:
                         logger.info("Early stop triggered")
                         stopped = True
                 if np.isfinite(best_loss):
-                    progress_ctx.postfix = progress_mod.format_postfix(best_loss)
+                    self.obs.gauge("best_loss").set(float(best_loss))
+                    progress_ctx.postfix = progress_mod.format_postfix(best_loss, self.obs)
                 progress_ctx.update(k)
                 if self.timeout is not None and time.time() - self.start_time >= self.timeout:
                     stopped = True
@@ -551,12 +681,28 @@ def fmin(
     trials.  ``"auto"`` takes the host loop when the run is ineligible
     and logs why; ``True`` raises with the reasons.
 
-    The JAX package's ``obs``, ``obs_http``, ``profile`` and
-    ``compile_cache`` options are not ported yet and raise."""
-    for name, value in (("obs", obs), ("obs_http", obs_http),
-                        ("profile", profile), ("compile_cache", compile_cache)):
-        if value is not None:
-            raise not_ported(f"fmin({name}=...)", 14)
+    ``obs``: the run's telemetry — None reads the environment
+    (``HYPEROPT_TPU_OBS`` and its family), a path streams spans, trial
+    events, health records and a metrics snapshot to that JSONL file
+    (``python -m hyperopt_tpu_torch.obs.report run.jsonl`` renders it), or
+    an ``obs.ObsConfig`` / ``obs.RunObs``.  An armed stream switches TPE
+    to its health-instrumented tick: the same proposals, bit for bit.
+
+    ``obs_http``: port of the live scrape server (``/metrics``,
+    ``/snapshot``, ``/events``, ``/profile?sec=N``); ``0`` binds an
+    ephemeral port, read back from ``trials.obs_http_url``.  Defaults to
+    ``HYPEROPT_TPU_OBS_HTTP``; an occupied port warns and disables.
+
+    ``profile``: a directory arming the bounded ``torch.profiler`` capture
+    plane (``GET /profile?sec=N``, ``trials.obs_profiler.capture(sec)``,
+    one capture on a watchdog stall; the loop records each capture on its
+    own thread at its tick boundaries); ``"full:<dir>"`` profiles the
+    whole run instead.  Defaults to ``HYPEROPT_TPU_PROFILE``.
+
+    ``compile_cache``: a directory to build and load the CUDA kernel
+    libraries in (``_build.set_build_dir``; default
+    ``HYPEROPT_TPU_COMPILE_CACHE`` or ``build/`` beside the package): a
+    later process naming it pays no ``nvcc`` compile."""
     if algo is None:
         from .algos import tpe
 
@@ -593,7 +739,8 @@ def fmin(
         verbose=verbose, max_queue_len=max_queue_len,
         show_progressbar=show_progressbar, early_stop_fn=early_stop_fn,
         trials_save_file=trials_save_file, lookahead=lookahead,
-        device_loop=device_loop,
+        device_loop=device_loop, obs=obs, obs_http=obs_http, profile=profile,
+        compile_cache=compile_cache,
     )
     rval.catch_eval_exceptions = catch_eval_exceptions
     rval.exhaust()

@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["mode", "supports", "armed", "build_cohort", "ei_diff", "ei_diff_plain",
-           "fused_sample_ei", "fused_sample_ei_plain"]
+           "fused_sample_ei", "fused_sample_ei_plain", "ei_cost", "fused_cost"]
 
 # log(sqrt(2*pi))
 _LOG_SQRT_2PI = 0.9189385332046727
@@ -76,6 +76,25 @@ def _check(name, x, tables, rows=()):
     if m < 1:
         raise ValueError(f"{name}: a mixture needs at least one component")
     return P, x.shape[1], m
+
+
+def ei_cost(P, n, m):
+    """The least work of one ``ei_diff`` launch at ``(P, n, m)``:
+    ``(ops, bytes)``.  ``ops`` counts the exponentials, one per candidate,
+    component and mixture (the special-function work that bounds the
+    kernel); ``bytes`` reads ``x`` and writes the output once, plus the
+    six component tables.  A lower bound on the launch's work: the
+    roofline of ``chip_smoke.py`` and the ``suggest.tpe`` cost gauges of
+    ``obs/health.py`` both read it."""
+    return 2 * P * n * m, 4 * (2 * P * n + 6 * P * m)
+
+
+def fused_cost(P, N, m):
+    """The least work of one ``fused_sample_ei`` launch at ``(P, N, m)``:
+    ``(ops, bytes)``.  Two exponentials per candidate and component (one
+    per mixture) plus one ``ndtri`` per candidate; the bytes are the two
+    uniforms and the two outputs once, nine tables and the two bounds."""
+    return 2 * P * N * m + P * N, 16 * P * N + 36 * P * m + 8 * P
 
 
 def _launchable(name, P, tensors):

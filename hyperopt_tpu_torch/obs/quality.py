@@ -17,15 +17,15 @@ bit, and disarmed (``HYPEROPT_TPU_QUALITY=off``) means
 ``scheduler.quality is None``.
 
 :func:`summarize_run` summarizes one finished run for the per-algorithm
-quality table.  :func:`quality_record`, the trajectory store's record,
-needs ``obs/trajectory.py``, which is not ported yet (ROADMAP.md, queue
-1, item 14): it raises ``not_ported``.
+quality table, and :func:`quality_record` is its ``kind="quality"``
+record in the trajectory store (``obs/trajectory.py``).
 """
 
 from __future__ import annotations
 
 import hashlib
 import threading
+import time
 
 __all__ = ["DEFAULT_PLATEAU_WINDOW", "DEFAULT_PLATEAU_PCT", "DEFAULT_EWMA_ALPHA",
            "QUALITY_ALGOS", "StudyQuality", "QualityPlane", "merge_status", "summarize_run",
@@ -332,8 +332,18 @@ def summarize_run(losses, budget, loss_target=None, optimum=None):
 
 
 def quality_record(source, algos, config=None, root=None):
-    """The trajectory store's ``kind="quality"`` record: it stamps the git
-    revision through ``obs/trajectory.py``, which is not ported yet."""
-    from .._env import not_ported
+    """One ``kind="quality"`` trajectory-store record: the search-quality
+    sibling of the ``kind="bench"`` rows (``trajectory.load`` filters by
+    kind, so both share the store).  ``algos`` maps algo name → summary
+    dict (at least ``trials_to_target``, ``final_regret``,
+    ``solved_frac``)."""
+    from . import trajectory
 
-    raise not_ported("obs.quality.quality_record (obs/trajectory.py)", 14)
+    return {
+        "kind": "quality",
+        "ts": time.time(),
+        "source": str(source),
+        "git_rev": trajectory.git_rev(root),
+        "config": dict(config or {}),
+        "algos": {str(k): dict(v) for k, v in (algos or {}).items()},
+    }

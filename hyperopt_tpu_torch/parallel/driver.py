@@ -31,10 +31,8 @@ parameters), so either package resumes the other's.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import hashlib
-import itertools
 import os
 import pickle
 import threading
@@ -44,11 +42,12 @@ import numpy as np
 import torch
 
 from .. import chaos, prng, quant
-from .._env import (not_ported, parse_allgather_timeout, parse_hist_dtype, refuse_armed_knobs,
+from .._env import (parse_allgather_timeout, parse_hist_dtype,
                     resolve_device)
 from ..algos import tpe
 from ..exceptions import AllTrialsFailed, FleetDegraded
-from ..obs import Tracer, get_metrics, get_watchdog
+from ..obs import ObsConfig, RunObs
+from ..obs.health import controller_stream_path
 from ..spaces import compile_space
 from . import multihost, sharding
 from . import payload as payload_mod
@@ -87,53 +86,81 @@ class MultihostResult:
                                         device=device if device is not None else self._device)
 
 
-class _DriverObs:
-    """The driver's telemetry on the port's host core, under ``RunObs``'s
-    method names: counters, gauges and histograms in the metrics namespace
-    ``run_id``, spans and events through a ``Tracer`` (into the flight
-    ring), heartbeats to the stall watchdog (retained for the run).
-    ``annotate`` and ``devmem_sample`` do nothing, as in a disarmed
-    ``RunObs``."""
+def _controller_port(port, pid):
+    """Per-controller scrape port: an explicit base port plus the process
+    index; 0 stays 0 (each controller binds its own ephemeral port).
+    ``host:port`` keeps the host and offsets the port; a malformed value
+    passes through and fails open at bind time (``obs/serve.py``)."""
+    if not port:
+        return port
+    try:
+        if isinstance(port, str) and ":" in port:
+            host, _, base = port.rpartition(":")
+            if int(base) == 0:
+                return port
+            return f"{host}:{int(base) + int(pid)}"
+        return int(port) + int(pid)
+    except (TypeError, ValueError):
+        return port
 
-    _ids = itertools.count()
 
-    def __init__(self, run_id=None):
-        self.run_id = run_id or f"mh-{next(self._ids)}"
-        self.tracer = Tracer(run_id=self.run_id)
-        self.metrics = get_metrics(self.run_id)
-        self.watchdog = get_watchdog()
-        if self.watchdog is not None:
-            self.watchdog.retain()
+def _controller_obs(obs, pid, P):
+    """The run bundle of controller ``pid`` of ``P``: with more than one
+    controller every stream, flight dump and scrape port is split per
+    controller (``run.jsonl`` → ``run.p<i>.jsonl``, the port offset by the
+    index, the run id tagged ``-p<i>``); ``obs.report --merge`` renders
+    the streams together.  A pre-built ``RunObs`` is rebuilt from its
+    config with the split paths after its own hooks are released."""
+    if isinstance(obs, RunObs) and P > 1 and (
+            obs.config.jsonl_path or obs.config.flight_path
+            or obs.config.http_port or obs.config.devmem_period is not None):
+        # N controllers appending to one stream would interleave records
+        # under one run id, and N crash dumps would clobber one file
+        if obs.http is not None:
+            obs.http.stop()
+        if obs.devmem is not None:
+            obs.devmem.stop()
+        if obs._flight_target is not None:
+            obs.flight.remove_target(obs._flight_target)
+        elif obs.config.flight_path:
+            obs.flight.remove_target(obs.config.flight_path)
+        if obs.watchdog is not None:
+            obs.watchdog.detach_sink(obs.sink)
+            obs.watchdog.release()
+        return RunObs(
+            dataclasses.replace(
+                obs.config,
+                jsonl_path=(controller_stream_path(obs.config.jsonl_path, pid)
+                            if obs.config.jsonl_path else None),
+                flight_path=(controller_stream_path(obs.config.flight_path, pid)
+                             if obs.config.flight_path else None),
+                http_port=_controller_port(obs.config.http_port, pid)),
+            run_id=f"{obs.run_id}-p{pid}")
+    if isinstance(obs, RunObs):
+        return obs
+    config = ObsConfig.resolve(obs)
+    if P > 1:
+        config = dataclasses.replace(
+            config, http_port=_controller_port(config.http_port, pid),
+            jsonl_path=(controller_stream_path(config.jsonl_path, pid)
+                        if config.jsonl_path else None),
+            flight_path=(controller_stream_path(config.flight_path, pid)
+                         if config.flight_path else None))
+    run_id = f"{config.run_id or 'mh'}-p{pid}" if P > 1 else None
+    return RunObs(config, run_id=run_id)
 
-    def span(self, name, **attrs):
-        return self.tracer.span(name, **attrs)
 
-    def event(self, name, **attrs):
-        self.tracer.event(name, **attrs)
+def _pop_compile_cache(cfg):
+    """``cfg`` without its ``"compile_cache"`` entry, which (like
+    ``fmin(compile_cache=...)``) names the directory the kernel libraries
+    are built and loaded in, for this process; it is no run parameter."""
+    cfg = dict(cfg or {})
+    cache = cfg.pop("compile_cache", None)
+    if cache is not None:
+        from .._build import set_build_dir
 
-    def heartbeat(self, component, **detail):
-        if self.watchdog is not None:
-            self.watchdog.beat(component, **detail)
-
-    def counter(self, name):
-        return self.metrics.counter(name)
-
-    def gauge(self, name):
-        return self.metrics.gauge(name)
-
-    def histogram(self, name):
-        return self.metrics.histogram(name)
-
-    def annotate(self, name, **ids):
-        return contextlib.nullcontext()
-
-    def devmem_sample(self):
-        return None
-
-    def finish(self):
-        if self.watchdog is not None:
-            self.watchdog.release()
-            self.watchdog = None
+        set_build_dir(cache)
+    return cfg
 
 
 def _default_cfg(batch):
@@ -345,31 +372,33 @@ def fmin_multihost(fn, space, max_evals, batch=None, seed=0, cfg=None, n_startup
     deadline on every collective; past it the driver checkpoints the last
     verified generation and raises :class:`FleetDegraded`.
 
-    Run telemetry (``obs=``, the armed ``HYPEROPT_TPU_OBS`` family and
-    ``cfg["compile_cache"]``) is not ported yet and raises; the driver's
-    counters, gauges, histograms and heartbeats go to the port's host
-    core."""
-    if obs is not None:
-        raise not_ported("fmin_multihost(obs=...)", 14)
-    refuse_armed_knobs("fmin_multihost")
-    if cfg and "compile_cache" in cfg:
-        raise not_ported('fmin_multihost(cfg={"compile_cache": ...})', 14)
+    ``obs``: the run's telemetry, as ``fmin``'s (None: the environment;
+    a path; an ``ObsConfig`` or ``RunObs``).  With more than one
+    controller each writes its own ``run.p<i>.jsonl`` and serves its own
+    port (the base port plus its index); render them together with
+    ``python -m hyperopt_tpu_torch.obs.report --merge run.p0.jsonl
+    run.p1.jsonl``.  ``cfg["compile_cache"]`` names the directory the
+    kernel libraries are built and loaded in."""
+    cfg = _pop_compile_cache(cfg)
     if fleet_dir is not None:
         from .fleet import fleet_fmin
 
         return fleet_fmin(fn, space, max_evals, fleet_dir, batch=batch, seed=seed, cfg=cfg,
                           n_startup=n_startup, n_shards=n_shards, lease_ttl=lease_ttl,
-                          checkpoint_file=checkpoint_file, device=device)
+                          checkpoint_file=checkpoint_file, obs=obs, device=device)
     if allgather_timeout is None:
         allgather_timeout = parse_allgather_timeout()
     single = _force_single or multihost.process_count() == 1
     pid, P = (0, 1) if single else (multihost.process_index(), multihost.process_count())
     if single:
         device = resolve_device(device)  # without a card this raises here
-    run = _DriverObs(run_id=f"mh-p{pid}" if P > 1 else None)
+    run = _controller_obs(obs, pid, P)
     try:
-        out = _collective(fn, space, max_evals, batch, seed, cfg, n_startup, checkpoint_file,
-                          single, pid, P, allgather_timeout, device, run)
+        # this thread proposes: it serves the capture plane at generation
+        # boundaries
+        with run.profiler_ctx(), run.loop():
+            out = _collective(fn, space, max_evals, batch, seed, cfg, n_startup,
+                              checkpoint_file, single, pid, P, allgather_timeout, device, run)
     finally:
         run.finish()
     return out
@@ -522,6 +551,7 @@ def _collective(fn, space, max_evals, batch, seed, cfg, n_startup, checkpoint_fi
         obs.heartbeat("driver.gen", gen=gen, n_done=n_done)
         chaos.point("gen", metrics=obs.metrics)
         obs.devmem_sample()
+        obs.boundary()
         B = min(batch, max_evals - n_done)
         gseed = _gen_seed(seed, gen)
         with obs.annotate("driver.gen", step=gen, gen=gen, n_done=n_done, pid=pid), \

@@ -52,7 +52,8 @@ __all__ = ["fleet_fmin"]
 
 def fleet_fmin(fn, space, max_evals, fleet_dir, batch=None, seed=0, cfg=None,
                n_startup=None, n_shards=None, lease_ttl=15.0, checkpoint_file=None,
-               owner=None, poll_interval=0.05, barrier_timeout=600.0, device=None):
+               obs=None, owner=None, poll_interval=0.05, barrier_timeout=600.0,
+               device=None):
     """Minimize ``fn`` over ``space`` as one controller of an elastic
     fleet rooted at ``fleet_dir``.  Run any number of these at once, as
     plain processes (no process group); each returns the same
@@ -66,13 +67,20 @@ def fleet_fmin(fn, space, max_evals, fleet_dir, batch=None, seed=0, cfg=None,
     ``barrier_timeout`` bounds a wait in which nothing moves; past it the
     controller checkpoints what is verified and raises
     :class:`FleetDegraded`.  ``device`` is where proposals run (the card
-    unless ``"cpu"``)."""
-    from .driver import (ControllerDivergence, _DriverObs, _checkpoint_state, _default_cfg,
+    unless ``"cpu"``); ``obs`` is the run's telemetry, as ``fmin``'s.
+    ``cfg["compile_cache"]`` names the kernel libraries' directory."""
+    from ..obs import ObsConfig, RunObs
+    from .driver import (ControllerDivergence, _checkpoint_state, _default_cfg,
                          _digest_generation, _evaluate, _gen_seed, _host, _load_checkpoint,
-                         _new_history, _result)
+                         _new_history, _pop_compile_cache, _result)
 
     dev = resolve_device(device)
-    obs = _DriverObs()
+    cfg = _pop_compile_cache(cfg)
+    if not isinstance(obs, RunObs):
+        obs = RunObs(ObsConfig.resolve(obs))
+    # this thread proposes: it serves the capture plane until the run ends
+    if obs.profiler is not None:
+        obs.profiler.attach_loop()
     try:
         cs = compile_space(space)
         labels = cs.labels
@@ -134,6 +142,7 @@ def fleet_fmin(fn, space, max_evals, fleet_dir, batch=None, seed=0, cfg=None,
         while n_done < max_evals:
             obs.heartbeat("driver.gen", gen=gen, n_done=n_done, owner=member.owner)
             obs.devmem_sample()
+            obs.boundary()
             chaos.point("gen", metrics=obs.metrics)
             member.heartbeat_member()
             B = min(batch, max_evals - n_done)
@@ -243,4 +252,6 @@ def fleet_fmin(fn, space, max_evals, fleet_dir, batch=None, seed=0, cfg=None,
         member.leave()
         return result
     finally:
+        if obs.profiler is not None:
+            obs.profiler.detach_loop()
         obs.finish()

@@ -482,7 +482,8 @@ def _split_rows(n_rows, n_parts, what):
     return n_rows // n_parts
 
 
-def suggest_batch_sharded(cs, cfg, mesh, packed=False, shard_history=False, qparams=None):
+def suggest_batch_sharded(cs, cfg, mesh, packed=False, shard_history=False, qparams=None,
+                          diag=False):
     """Data-parallel batched proposals: ``fn(history, keys[B, 2])``.
 
     Mesh entry ``i`` (flat order) proposes for keys ``i·B/n .. (i+1)·B/n``
@@ -494,8 +495,13 @@ def suggest_batch_sharded(cs, cfg, mesh, packed=False, shard_history=False, qpar
     on the first local entry's device: ``B_local`` rows are the entries
     this process owns, all ``B`` in one process.  Each proposal depends on
     its key and the history only, so the result equals the unsharded
-    step's (``tpe.build_propose``)."""
-    propose = tpe.build_propose(cs, cfg, qparams=qparams)
+    step's (``tpe.build_propose``).  ``diag=True`` (with ``packed``) runs
+    the health-instrumented step and returns ``tpe._pack_health``'s
+    ``[B_local, 10L+2]`` buffer."""
+    if diag and not packed:
+        raise ValueError("suggest_batch_sharded: diag needs packed=True")
+    propose = (tpe.build_propose_with_scores(cs, cfg, qparams=qparams, diagnostics=True)
+               if diag else tpe.build_propose(cs, cfg, qparams=qparams))
 
     def fn(history, keys):
         per = _split_rows(keys.shape[0], mesh.size, "batch")
@@ -504,7 +510,7 @@ def suggest_batch_sharded(cs, cfg, mesh, packed=False, shard_history=False, qpar
         for i in local:
             dev = mesh.devices.flat[i]
             out = propose(entry_history(history, i, dev), keys[i * per:(i + 1) * per].to(dev))
-            outs.append(rand.pack_labels(cs, out))
+            outs.append(tpe._pack_health(cs, *out) if diag else rand.pack_labels(cs, out))
         home = mesh.devices.flat[local[0]]
         mat = torch.cat([o.to(home) for o in outs])
         if packed:

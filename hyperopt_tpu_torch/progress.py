@@ -9,9 +9,27 @@ __all__ = ["tqdm_progress_callback", "no_progress_callback",
            "get_progress_callback", "format_postfix"]
 
 
-def format_postfix(best_loss):
-    """The progress-bar postfix: the best loss so far."""
-    return f"best loss: {best_loss:.6g}"
+def format_postfix(best_loss, obs=None):
+    """The live progress-bar postfix: the best loss, plus the run's latest
+    search-health gauges ("EI p50 …  dup …") once an armed run recorded a
+    health ask, plus the device-memory watermark ("hbm 62%") when
+    ``HYPEROPT_TPU_DEVMEM`` is armed.  A disarmed run renders exactly
+    ``best loss: <x>``."""
+    s = f"best loss: {best_loss:.6g}"
+    if obs is not None and getattr(obs, "sink", None) is not None:
+        from .obs.health import live_health_postfix
+
+        extra = live_health_postfix(obs)
+        if extra:
+            s += "  " + extra
+    devmem = getattr(obs, "devmem", None) if obs is not None else None
+    if devmem is not None:
+        frac, peak = devmem.watermark()
+        if frac is not None:
+            s += f"  hbm {frac * 100:.0f}%"
+        elif peak is not None:
+            s += f"  hbm peak {peak / (1 << 20):.0f}MiB"
+    return s
 
 
 class _NullProgress:

@@ -17,7 +17,7 @@ epoch) WALs, the ownership fence and 307 routing) and the serving planes
 the schedulers feed (``obs/quality.py``, ``obs/load.py``,
 ``obs/tenant.py``).
 
-Not ported yet (ROADMAP.md, queue 1, item 14): the prober's canary
+Not ported yet (ROADMAP.md, queue 1, item 14b): the prober's canary
 studies; ``create_study(canary=...)`` and ``--probe`` raise
 ``not_ported``.
 """

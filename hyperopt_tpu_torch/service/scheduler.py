@@ -62,7 +62,7 @@ a fleet.
 The compile plane has nothing to compile here: a cohort's program is
 ready at once, so no ask is served at the warming floor (see
 ``service/compile_plane.py``).  Not ported yet: the prober's canary
-studies (ROADMAP.md, queue 1, item 14); ``create_study(canary=...)``
+studies (ROADMAP.md, queue 1, item 14b); ``create_study(canary=...)``
 raises.
 """
 
@@ -176,7 +176,7 @@ class Study:
         from ..obs.tenant import ANON, sanitize_tenant
 
         if canary:
-            raise not_ported("create_study(canary=...)", 14)
+            raise not_ported("create_study(canary=...)", "14b")
         self.study_id = study_id
         # the principal the study's device time and tells are charged to;
         # "anon" is not stamped into the admit kwargs, so tenantless

@@ -43,7 +43,7 @@ finish the waves in flight, compact and close the WAL (in a fleet, hand
 every held shard off), exit 0.
 
 Not ported: the blackbox prober (``--probe``, ``GET /probes``, canary
-studies; ROADMAP.md queue 1, item 14), which raises ``not_ported`` or
+studies; ROADMAP.md queue 1, item 14b), which raises ``not_ported`` or
 answers 501.
 """
 
@@ -277,8 +277,8 @@ class ServiceHTTPServer:
 
     def _slo_escalation(self):
         """The SLO plane's fast-burn hook.  The JAX package takes one
-        device capture here; the port's capture plane comes with item 14,
-        so this logs."""
+        device capture here; the server arms no capture plane until the
+        service-side tools (item 14b), so this logs."""
         logger.warning("SLO fast burn-rate alert: error budget burning hot")
 
     _slo_warned = False
@@ -367,7 +367,7 @@ class ServiceHTTPServer:
                 if path == "/fleet/load":
                     return 200, self.fleet_load_dict()
                 if path == "/probes":
-                    raise not_ported("GET /probes (the blackbox prober)", 14)
+                    raise not_ported("GET /probes (the blackbox prober)", "14b")
                 sid = _timeline_study_id(path)
                 if sid is not None:
                     return 200, self._route(sid).study_timeline(sid)
@@ -923,12 +923,12 @@ def main(argv=None):
     p.add_argument("--announce", action="store_true",
                    help="print 'SERVICE_URL <url>' once bound")
     p.add_argument("--probe", default=None, choices=("on", "off"),
-                   help="the blackbox prober (not ported: item 14)")
-    p.add_argument("--probe-period", type=float, default=None, help="(item 14)")
+                   help="the blackbox prober (not ported: item 14b)")
+    p.add_argument("--probe-period", type=float, default=None, help="(item 14b)")
     args = p.parse_args(argv)
 
     if args.probe == "on" or args.probe_period is not None:
-        raise not_ported("--probe", 14)
+        raise not_ported("--probe", "14b")
     port = args.port if args.port is not None else parse_service()
     if port is None:
         p.error("no port: pass --port or set HYPEROPT_TPU_SERVICE")

@@ -568,3 +568,69 @@ def test_serving_planes_armed_propose_what_disarmed_do_on_the_card(cuda_device):
         if not off:
             assert sched.load.status()["waves"] > 0 and sched.tenants.status()["tenants"] == 3
     assert streams[0] == streams[1]
+
+
+def _counted_obs_fmin(device, n=60, trials=None, **kw):
+    """A branin ``fmin`` at 64 candidates counting its TPE asks and the
+    ``ei_diff`` launches they make."""
+    counts = {"asks": 0, "launches": 0}
+    tuned = __import__("functools").partial(tpe.suggest, n_startup_jobs=20,
+                                            n_EI_candidates=64)
+
+    def algo(new_ids, domain, trials, seed):
+        before = megakernel.ei_diff.launches
+        docs = tuned(new_ids, domain, trials, seed)
+        if len(trials.trials) >= 20:
+            counts["asks"] += 1
+            counts["launches"] += megakernel.ei_diff.launches - before
+        return docs
+
+    dom = zoo.ZOO["branin"]
+    t = trials if trials is not None else port.Trials(device=device)
+    port.fmin(dom.objective, dom.space, algo=algo, max_evals=n, trials=t,
+              rstate=np.random.default_rng(4), show_progressbar=False, **kw)
+    return t, counts
+
+
+def test_armed_obs_run_on_the_card_is_bit_for_bit_and_launches_ei_diff(cuda_device, tmp_path):
+    """Armed (stream, scrape server, capture plane), the card's branin run
+    proposes what the disarmed one does, every TPE ask launches
+    ``ei_diff`` once either way, and a capture asked for on another
+    thread while the run goes records the kernel inside ``fmin.tick``."""
+    import gzip
+    import json
+    import threading
+    import time
+
+    plain, c_plain = _counted_obs_fmin(cuda_device)
+    box = {}
+    t = port.Trials(device=cuda_device)
+
+    def ask_capture():
+        deadline = time.monotonic() + 60
+        # past the prior draws: the loop is running and serves captures
+        while len(t.trials) < 25 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        box["rec"] = t.obs_profiler.capture(0.5)
+
+    th = threading.Thread(target=ask_capture)
+    th.start()
+    armed, c_armed = _counted_obs_fmin(cuda_device, n=300, trials=t,
+                                       obs=str(tmp_path / "run.jsonl"), obs_http=0,
+                                       profile=str(tmp_path / "prof"))
+    th.join(timeout=120)
+    assert not th.is_alive()
+    assert c_plain["launches"] == c_plain["asks"] == 40
+    assert c_armed["launches"] == c_armed["asks"] == 280
+    again, _ = _counted_obs_fmin(cuda_device, n=300)
+    assert [d["misc"]["vals"] for d in armed.trials] == [d["misc"]["vals"] for d in again.trials]
+    rec = box["rec"]
+    assert rec["ok"] and rec["thread"] == "loop", rec
+    with gzip.open(rec["trace_json"], "rt") as f:
+        events = json.load(f)["traceEvents"]
+    ticks = [e for e in events if e.get("ph") == "X"
+             and str(e.get("name", "")).startswith("fmin.tick#")]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "ei_diff" in e.get("name", "")]
+    assert ticks and kernels
+    assert any(a["ts"] <= k["ts"] and k["ts"] + k.get("dur", 0) <= a["ts"] + a["dur"]
+               for k in kernels for a in ticks)

@@ -97,13 +97,25 @@ def test_loss_threshold_and_checkpoint_resume(tmp_path):
     assert len(t.trials) < 200 and min(t.losses()) <= 0.5
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
+    """The run-plane options once refused here are ported: ``obs`` streams
+    JSONL, ``obs_http`` serves, ``profile`` arms the capture plane and
+    ``compile_cache`` names the kernel build directory.  A run the device
+    loop cannot take still raises."""
+    from hyperopt_tpu_torch import _build
+
     dom = zoo.ZOO["quadratic1"]
-    for kw in ({"obs": "run.jsonl"}, {"profile": "prof"}, {"obs_http": 0},
-               {"compile_cache": "c"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            port.fmin(dom.objective, dom.space, max_evals=2, device="cpu",
-                      show_progressbar=False, **kw)
+    t = port.Trials(device="cpu")
+    try:
+        port.fmin(dom.objective, dom.space, max_evals=2, device="cpu", trials=t,
+                  show_progressbar=False, obs=str(tmp_path / "run.jsonl"), obs_http=0,
+                  profile=str(tmp_path / "prof"), compile_cache=str(tmp_path / "cc"))
+        assert _build.build_dir() == (tmp_path / "cc").resolve()
+    finally:
+        _build.set_build_dir(None)
+    assert (tmp_path / "run.jsonl").stat().st_size > 0
+    assert t.obs_http_url.startswith("http://127.0.0.1:")
+    assert t.obs_profiler is not None and t.obs_health is not None
     # device_loop is ported: a run it cannot take raises with the reasons
     with pytest.raises(ValueError, match="ineligible"):
         port.fmin(dom.objective, dom.space, max_evals=2, device="cpu",

@@ -47,7 +47,11 @@ def test_import_loads_neither_jax_nor_the_jax_package():
             "hyperopt_tpu_torch.service.compile_plane, hyperopt_tpu_torch.obs.reqtrace, "
             "hyperopt_tpu_torch.obs.slo, hyperopt_tpu_torch.obs.serve, "
             "hyperopt_tpu_torch.obs.tenant, hyperopt_tpu_torch.obs.load, "
-            "hyperopt_tpu_torch.obs.quality, hyperopt_tpu_torch.service.fleet; "
+            "hyperopt_tpu_torch.obs.quality, hyperopt_tpu_torch.service.fleet, "
+            "hyperopt_tpu_torch.obs.profiler, hyperopt_tpu_torch.obs.devmem, "
+            "hyperopt_tpu_torch.obs.health, hyperopt_tpu_torch.obs.export, "
+            "hyperopt_tpu_torch.obs.report, hyperopt_tpu_torch.obs.trajectory, "
+            "hyperopt_tpu_torch.progress, hyperopt_tpu_torch._build; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hyperopt_tpu')]; "
             "assert not bad, bad")
     env = {**os.environ, "PYTHONPATH": str(REPO)}

@@ -2,7 +2,9 @@
 the port (``_env.KNOBS``): honoured, refused with ``not_ported(knob,
 item)`` at the entry points that read it, or accepted with no effect
 because it only tunes XLA.  Knobs are set with ``monkeypatch`` only, so
-none outlives its test."""
+none outlives its test.  The run's observability knobs, refused until
+their planes were ported, are honoured: ``ObsConfig.from_env`` reads them
+as the reference's does and ``fmin`` arms what they name."""
 
 import importlib.util
 import pathlib
@@ -21,7 +23,8 @@ from hyperopt_tpu_torch.service.server import ServiceHTTPServer
 PKG = pathlib.Path(port.__file__).resolve().parent
 REF = pathlib.Path(hyperopt_tpu.__file__).resolve().parent
 
-# a value that arms each refused knob (a path where the knob names a file)
+# a value that arms each refused (or once refused) knob (a path where the
+# knob names a file)
 ARMING = {
     "HYPEROPT_TPU_OBS": "{tmp}/run.jsonl",
     "HYPEROPT_TPU_PROFILE": "{tmp}/prof",
@@ -305,9 +308,51 @@ def test_not_ported_names_the_knob_and_its_value(no_knobs):
         ENTRY["ServiceHTTPServer"]()
     StudyScheduler(device="cpu")  # read by the server only: the scheduler is unaffected
     no_knobs.delenv("HYPEROPT_TPU_PROBE")
-    no_knobs.setenv("HYPEROPT_TPU_DEVMEM", "5")
-    with pytest.raises(NotImplementedError, match="HYPEROPT_TPU_DEVMEM='5' .*item 14"):
-        _multihost()
+    no_knobs.setenv("HYPEROPT_TPU_DEVMEM", "5")  # honoured now: the run samples
+    assert _multihost().n_evals == 4
     no_knobs.delenv("HYPEROPT_TPU_DEVMEM")
     no_knobs.setenv("HYPEROPT_TPU_SHARD", "2")  # honoured: one CPU, an unsharded loop
     device_fmin.DeviceLoopRunner(Domain(_quadratic, _SPACE), {}, 1, 4, device="cpu")
+
+
+OBS_KNOBS = ("HYPEROPT_TPU_OBS", "HYPEROPT_TPU_PROFILE", "HYPEROPT_TPU_OBS_HTTP",
+             "HYPEROPT_TPU_DEVMEM", "HYPEROPT_TPU_FLIGHT", "HYPEROPT_TPU_COMPILE_CACHE")
+
+
+@pytest.mark.parametrize("name", OBS_KNOBS)
+def test_obs_knobs_are_honoured(name, no_knobs, tmp_path):
+    """Each run-plane knob is honoured: the run's config reads it as the
+    reference's does, ``fmin`` arms what it names and proposes what it
+    proposes disarmed."""
+    import dataclasses
+    import socket
+
+    from hyperopt_tpu.obs import ObsConfig as RefObsConfig
+    from hyperopt_tpu_torch import _build
+    from hyperopt_tpu_torch.obs import ObsConfig
+
+    assert _env.KNOBS[name].treatment == "honoured" and not _env.KNOBS[name].refused_at
+    want = _run_fmin()
+    raw = ARMING.get(name, "{tmp}/cc").format(tmp=tmp_path)
+    if name == "HYPEROPT_TPU_OBS_HTTP":
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            raw = str(sock.getsockname()[1])
+    no_knobs.setenv(name, raw)
+    assert dataclasses.asdict(ObsConfig.from_env()) == dataclasses.asdict(
+        RefObsConfig.from_env())
+    try:
+        got = _run_fmin()
+        built = _build.build_dir()
+    finally:
+        _build.set_build_dir(None)
+    assert [d["misc"]["vals"] for d in got.trials] == [d["misc"]["vals"] for d in want.trials]
+    armed = {
+        "HYPEROPT_TPU_OBS": lambda: (tmp_path / "run.jsonl").stat().st_size > 0,
+        "HYPEROPT_TPU_PROFILE": lambda: got.obs_profiler is not None,
+        "HYPEROPT_TPU_OBS_HTTP": lambda: got.obs_http_url.endswith(":" + raw),
+        "HYPEROPT_TPU_DEVMEM": lambda: got.obs_metrics.counter("devmem.samples").value >= 1,
+        "HYPEROPT_TPU_FLIGHT": lambda: ObsConfig.from_env().flight_path == raw,
+        "HYPEROPT_TPU_COMPILE_CACHE": lambda: built == (tmp_path / "cc").resolve(),
+    }[name]
+    assert armed()

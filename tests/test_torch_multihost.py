@@ -10,7 +10,10 @@
 - a checkpoint resumes bit for bit, a reference checkpoint resumes in the
   port and a port checkpoint in the reference;
 - an all-failed run raises, ``_timed_gather`` degrades to
-  ``FleetDegraded``, and the unported telemetry options raise.
+  ``FleetDegraded``, and the run telemetry (``obs=``, the knobs,
+  ``cfg["compile_cache"]``) is honoured: two armed controllers write
+  ``run.p0.jsonl`` and ``run.p1.jsonl``, which ``obs.report --merge``
+  renders.
 
 Tolerance: the parity standard against the reference (floats rtol 1e-5,
 atol 1e-6, ids and discrete values bitwise); port against port is
@@ -34,23 +37,29 @@ RTOL, ATOL = 1e-5, 1e-6
 HPOB = "hpob_surrogate"
 
 
-def _child(rank, port, out, max_evals, batch, seed):
-    """One controller of a two-process gloo run on the CPU."""
+def _child(rank, port, out, max_evals, batch, seed, obs_path=None):
+    """One controller of a two-process gloo run on the CPU; with
+    ``obs_path`` an armed one (its stream split per controller)."""
     from hyperopt_tpu_torch import zoo
-    from hyperopt_tpu_torch.obs import get_metrics
+    from hyperopt_tpu_torch.obs import ObsConfig, RunObs
     from hyperopt_tpu_torch.parallel import driver, multihost
 
     multihost.initialize(f"127.0.0.1:{port}", 2, rank, device="cpu", timeout=120)
     dom = zoo.ZOO[HPOB]
-    res = driver.fmin_multihost(dom.objective, dom.space, max_evals, batch=batch, seed=seed)
+    # a built bundle with no stream passes through unsplit, so its
+    # registry can be read after the run released its namespace
+    obs = obs_path or RunObs(ObsConfig(), run_id=f"mh-p{rank}")
+    res = driver.fmin_multihost(dom.objective, dom.space, max_evals, batch=batch, seed=seed,
+                                obs=obs)
+    sharded = None if obs_path else obs.metrics.gauge("suggest.hist_sharded").value
     with open(f"{out}.{rank}", "w") as f:
         json.dump({"checksum": res.checksum, "losses": res.losses.tolist(),
-                   "hist_sharded": get_metrics(f"mh-p{rank}").gauge(
-                       "suggest.hist_sharded").value}, f)
+                   "hist_sharded": sharded}, f)
 
 
 if __name__ == "__main__":
-    _child(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], *map(int, sys.argv[4:7]))
+    _child(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], *map(int, sys.argv[4:7]),
+           *sys.argv[7:8])
     sys.exit(0)
 
 
@@ -180,16 +189,13 @@ def _free_port():
     return port
 
 
-@pytest.mark.parametrize("hist_shard_min", [None, "64"])
-def test_two_controllers_over_gloo_give_the_single_checksum(hist_shard_min, tmp_path):
-    want = _port_run(48)
+def _two_controllers(tmp_path, env_extra=(), obs_path=None, max_evals=48):
     env = {**os.environ, "PYTHONPATH": REPO, "HYPEROPT_TPU_WATCHDOG": "0",
-           "JAX_PLATFORMS": "cpu"}
-    if hist_shard_min is not None:
-        env["HYPEROPT_TPU_HIST_SHARD_MIN"] = hist_shard_min  # cap 128 splits over 2
+           "JAX_PLATFORMS": "cpu", **dict(env_extra)}
     port, out = _free_port(), str(tmp_path / "out")
+    extra = [obs_path] if obs_path else []
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(r), str(port),
-                               out, "48", "16", "3"], env=env, cwd=REPO,
+                               out, str(max_evals), "16", "3", *extra], env=env, cwd=REPO,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for r in range(2)]
     try:
@@ -199,6 +205,15 @@ def test_two_controllers_over_gloo_give_the_single_checksum(hist_shard_min, tmp_
             p.kill()
     for p, (_, err) in zip(procs, results):
         assert p.returncode == 0, err[-3000:]
+    return out
+
+
+@pytest.mark.parametrize("hist_shard_min", [None, "64"])
+def test_two_controllers_over_gloo_give_the_single_checksum(hist_shard_min, tmp_path):
+    want = _port_run(48)
+    # cap 128 splits over 2 at a minimum of 64
+    out = _two_controllers(tmp_path, {"HYPEROPT_TPU_HIST_SHARD_MIN": hist_shard_min}
+                           if hist_shard_min is not None else ())
     for r in range(2):
         with open(f"{out}.{r}") as f:
             got = json.load(f)
@@ -250,7 +265,7 @@ def test_all_failed_raises():
 
 
 def test_timed_gather_degrades_to_fleet_degraded():
-    obs = driver._DriverObs()
+    obs = driver.RunObs()
     assert driver._timed_gather(lambda: 42, None, "x", obs, lambda: None) == 42
     assert driver._timed_gather(lambda: 42, 5.0, "x", obs, lambda: None) == 42
     release = threading.Event()
@@ -287,14 +302,49 @@ def test_allgather_timeout_knob_is_read(monkeypatch):
 
 
 def test_unported_telemetry_options_raise(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        _port_run(8, obs=str(tmp_path / "run.jsonl"))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        _port_run(8, cfg={"compile_cache": str(tmp_path)})
-    monkeypatch.setenv("HYPEROPT_TPU_OBS", str(tmp_path / "run.jsonl"))
-    with pytest.raises(NotImplementedError, match="HYPEROPT_TPU_OBS.*item 14"):
-        _port_run(8)
-    assert not any(tmp_path.iterdir())
+    """The telemetry options this test once found refused are honoured:
+    ``obs=`` and ``HYPEROPT_TPU_OBS`` stream the run, and
+    ``cfg["compile_cache"]`` names the kernel build directory without
+    changing the run."""
+    from hyperopt_tpu_torch import _build
+    from hyperopt_tpu_torch.obs import read_jsonl
+
+    want = _port_run(8)
+    got = _port_run(8, obs=str(tmp_path / "a.jsonl"))
+    assert got.checksum == want.checksum
+    kinds = {r["kind"] for r in read_jsonl(str(tmp_path / "a.jsonl"))}
+    assert {"span", "metrics"} <= kinds
+    try:
+        assert _port_run(8, cfg={"compile_cache": str(tmp_path / "cc")}).checksum == want.checksum
+        assert _build.build_dir() == (tmp_path / "cc").resolve()
+    finally:
+        _build.set_build_dir(None)
+    monkeypatch.setenv("HYPEROPT_TPU_OBS", str(tmp_path / "b.jsonl"))
+    assert _port_run(8).checksum == want.checksum
+    assert (tmp_path / "b.jsonl").stat().st_size > 0
+
+
+def test_two_armed_controllers_write_their_own_streams_and_merge(tmp_path):
+    """``fmin_multihost(obs=run.jsonl)`` on two gloo controllers: each
+    writes ``run.p<i>.jsonl`` under run id ``mh-p<i>``, and the port's
+    ``obs.report --merge`` renders the pair as the reference's does."""
+    from hyperopt_tpu.obs import report as ref_report
+    from hyperopt_tpu_torch.obs import read_jsonl, report
+
+    path = str(tmp_path / "run.jsonl")
+    out = _two_controllers(tmp_path, obs_path=path, max_evals=32)
+    with open(f"{out}.0") as f0, open(f"{out}.1") as f1:
+        assert json.load(f0)["checksum"] == json.load(f1)["checksum"]
+    streams = []
+    for r in range(2):
+        p = str(tmp_path / f"run.p{r}.jsonl")
+        recs = read_jsonl(p)
+        assert {rec.get("run_id") for rec in recs if rec.get("run_id")} == {f"mh-p{r}"}
+        streams.append((p, recs))
+    text = report.render_merged(streams)
+    assert "run.p0.jsonl" in text and "run.p1.jsonl" in text
+    assert text == ref_report.render_merged(streams)
+    assert report.main(["--merge", *(p for p, _ in streams)]) == 0
 
 
 def test_multihost_helpers_outside_a_process_group():

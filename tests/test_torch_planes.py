@@ -9,6 +9,7 @@ objectives; and armed planes never move a proposal."""
 
 import itertools
 import json
+import os
 import shutil
 import time
 
@@ -30,6 +31,8 @@ from hyperopt_tpu_torch.obs import load, quality, tenant
 from hyperopt_tpu_torch.service import AdmissionGuard, OverloadError, StudyScheduler, integrity
 from hyperopt_tpu_torch.service.scheduler import Study
 from hyperopt_tpu_torch.service.server import ServiceHTTPServer
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.fixture
 def fake_clock(monkeypatch):
@@ -150,8 +153,11 @@ def test_quality_plane_status_equals_the_reference():
     runs = ([1.0, None, 0.3, 0.2], 10, 0.25, 0.0), ([5.0, 4.0], 2, 1.0, None)
     for args in runs:
         assert quality.summarize_run(*args) == ref_quality.summarize_run(*args)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        quality.quality_record("bench", {})
+    # the trajectory store's quality record, ported with obs/trajectory.py
+    algos = {"tpe": {"trials_to_target": 12, "final_regret": 0.01, "solved_frac": 1.0}}
+    got_rec = quality.quality_record("bench", algos, config={"n": 3}, root=REPO)
+    want_rec = ref_quality.quality_record("bench", algos, config={"n": 3}, root=REPO)
+    assert abs(got_rec.pop("ts") - want_rec.pop("ts")) < 60 and got_rec == want_rec
 
 
 def test_merge_status_equals_the_reference(fake_clock):
