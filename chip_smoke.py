@@ -136,7 +136,18 @@ Phases, each of which fails the run (non-zero exit) on its own:
     and kernel launches per wave (each TPE wave launches the kernel of
     every route it asks), WAL bytes and fsyncs per wave, the device's
     idle share over a profiled slice; every answer in its space, every
-    study at 30 told, the ladder at level 0, ``drain()`` compacts.  (b)
+    study at 30 told, the ladder at level 0, ``drain()`` compacts.  The
+    server arms the blackbox prober (``arm_prober``, period 30 s): its
+    canary cycles beside the tenants must all be ``ok``, and it reports
+    the cycles, the canary's client-view ask p50/p99 and the ``/healthz``
+    probe fields.  Then the canary in process (``local_digest``) twice on
+    the fused route and twice with ``HYPEROPT_TPU_MEGAKERNEL=off``: one
+    digest per route, the fused one equal to the server's first-trusted
+    (TOFU) golden; and a short server with ``HYPEROPT_TPU_PROFILE`` armed
+    whose ticks chaos corrupts after a clean cycle: the prober turns
+    ``mismatch`` (detection latency reported), escalates once, and the
+    capture it hands the server is recorded by the leader of a later
+    wave and holds its kernels (that wave's ms against the median).  (b)
     ``python -m hyperopt_tpu_torch.service.server`` as a real process on
     a store, SIGKILLed at the ``tick`` site by ``HYPEROPT_TPU_CHAOS`` and
     restarted twice (the first restart armed again) while 64 clients (32
@@ -186,7 +197,9 @@ Phases, each of which fails the run (non-zero exit) on its own:
     adopter's first answer, adoption seconds, launches per wave per
     replica and the card's idle share over the drive (NVML's
     ``utilization.gpu`` from ``nvidia-smi`` every 0.5 s, every process's
-    kernels counted).
+    kernels counted).  Before the replicas stop, ``python -m
+    hyperopt_tpu_torch.obs.prober --targets <r0>,<r2> --cycles 2`` must
+    exit 0 with one digest across the replicas.
 
 16. Run observability on the fmin path (branin, BASELINE config 2, 1000
     evaluations, 1024 candidates, ``rstate=np.random.default_rng(0)``):
@@ -210,6 +223,11 @@ Phases, each of which fails the run (non-zero exit) on its own:
     lints it clean; ``fmin_multihost(obs=...)`` on two controller
     processes (``hpob_surrogate``, batch 64, 256 evaluations) writes
     ``run.p0.jsonl`` and ``run.p1.jsonl``, which ``--merge`` renders.
+    The capture's ``prof.stop()`` is reported in parts (the device
+    synchronize, torch's ``_disable_profiler`` call, and the teardown
+    from two small sessions stopped with ``TEARDOWN_CUPTI=0`` and ``=1``),
+    and a stall capture taken on another thread during a device-loop run
+    states the kernels it holds.
     Every ``ei_diff`` shape of the phase is held against the plain
     version afterwards.
 
@@ -2618,6 +2636,15 @@ SVC_LADDER_STUDIES, SVC_LADDER_WAVES, SVC_LADDER_PATIENCE = 64, 30, 2
 SVC_LADDER_P = 0.05
 # (d) replay: 16 mix studies, WAL only, 4 TPE waves, then 5 more asks each
 SVC_REPLAY_STUDIES, SVC_REPLAY_WAVES, SVC_REPLAY_NEXT = 16, 4, 5
+# the blackbox prober on (a)'s server: its per-request budget (0.8 x period
+# / 9, the prober's own rule) must stay above (a)'s ask p99 (1.2-1.8 s on
+# an H100), so the default period; its cycles never overlap the profiled
+# waves, whose session start stalls queued asks for seconds
+SVC_PROBE_PERIOD = 30.0
+# the corrupted-tick server: chaos's silent perturbation of every tick's
+# read-back proposals, and the cycles it may take to turn mismatch and to
+# record the escalation's capture
+SVC_PROBE_CORRUPT, SVC_PROBE_CYCLES = "7:corrupt@tick:1.0", 4
 
 
 def _svc_reset_counts():
@@ -2715,6 +2742,8 @@ def _svc_http(out, shapes, fused_shapes):
     from hyperopt_tpu_torch.service import ServiceClient, StudyScheduler
     from hyperopt_tpu_torch.service.server import ServiceHTTPServer
 
+    from hyperopt_tpu_torch.obs.prober import probes_path_for, read_probes
+
     root = tempfile.mkdtemp(prefix="svc_http_")
     sched = StudyScheduler(device=DEVICE, store_root=root, wave_window=SVC_WINDOW)
     server = ServiceHTTPServer(0, scheduler=sched)
@@ -2722,7 +2751,23 @@ def _svc_http(out, shapes, fused_shapes):
         raise AssertionError("the service did not bind")
     waves = []  # (asks, routes asked, fused launches, ei_diff launches, sec, profiled)
     inner = sched._run_wave_inner
-    prof_state = {"left": None, "busy_us": 0.0, "windows": []}  # wall-clock spans
+    # "active" from the profiled waves' start to the last one's end,
+    # "probing" while a probe cycle runs: the two never overlap
+    prof_state = {"left": None, "busy_us": 0.0, "windows": [], "active": False,
+                  "probing": False}
+    prober = server.arm_prober(period=SVC_PROBE_PERIOD)
+    probe_cycle = prober.run_cycle
+
+    def cycle(now=None):
+        while prof_state["active"]:
+            time.sleep(0.05)
+        prof_state["probing"] = True
+        try:
+            return probe_cycle(now)
+        finally:
+            prof_state["probing"] = False
+
+    prober.run_cycle = cycle
 
     def counted_wave(reqs):
         before = _svc_counts()
@@ -2738,6 +2783,8 @@ def _svc_http(out, shapes, fused_shapes):
             prof_state["windows"].append((w0, time.time()))
             prof_state["busy_us"] += sum(a.self_device_time_total for a in prof.key_averages()
                                          if a.device_type == torch.autograd.DeviceType.CUDA)
+            if not prof_state["left"]:
+                prof_state["active"] = False
         else:
             inner(reqs)
         dt = time.perf_counter() - t0
@@ -2762,7 +2809,9 @@ def _svc_http(out, shapes, fused_shapes):
                                   env=env)
                  for i in range(SVC_CLIENT_PROCS)]
         while any(p.poll() is None for p in procs):
-            if prof_state["left"] is None and tells.value - tells0 >= total // 2:
+            if (prof_state["left"] is None and tells.value - tells0 >= total // 2
+                    and not prof_state["probing"]):
+                prof_state["active"] = True
                 prof_state["left"] = SVC_PROFILED_WAVES
             if time.perf_counter() - t0 > SVC_CHILD_SEC:
                 for p in procs:
@@ -2785,9 +2834,14 @@ def _svc_http(out, shapes, fused_shapes):
     if res_c["errors"]:
         raise AssertionError(f"{len(res_c['errors'])} clients failed, e.g. {res_c['errors'][0]}")
     status = ServiceClient(server.url).studies()
-    wrong = [s for s in status["studies"]
-             if s.get("n_pending") != 0 or s.get("n_told") != SVC_TRIALS]
+    wrong = [s for s in status["studies"] if not s.get("canary")
+             and (s.get("n_pending") != 0 or s.get("n_told") != SVC_TRIALS)]
     metrics = urllib.request.urlopen(server.url + "/metrics", timeout=60).read().decode()
+    healthz = json.loads(urllib.request.urlopen(server.url + "/healthz", timeout=60).read())
+    prober.stop(timeout=60)  # a cycle in flight ends before the view is read
+    probes = json.loads(urllib.request.urlopen(server.url + "/probes", timeout=60).read())
+    probe_recs, probe_corrupt, _ = read_probes(probes_path_for(root, "single"))
+    n_tells -= sum(r.get("asks", 0) for r in probe_recs)  # the canaries' tells
     degrade = sched.degrade.status()
     wal = {"bytes": sched.journal.size_bytes(), "appends": sched.journal.appends,
            "fsyncs": sched.journal.syncs}
@@ -2839,6 +2893,15 @@ def _svc_http(out, shapes, fused_shapes):
                                            if busy_ms else None),
         "degrade": degrade, "drain_quiesced": quiesced,
         "drain_compactions": sched.journal.compactions - compactions,
+        # the blackbox prober beside the tenants: cycles, verdicts, the
+        # canary's client-view ask latency and the /healthz fields
+        "probe": {"period_sec": SVC_PROBE_PERIOD, "request_timeout_sec": prober._timeout,
+                  "cycles": probes["cycles"], "verdicts": probes["verdicts"],
+                  "golden": probes["golden"], "golden_source": probes["golden_source"],
+                  "ask_latency_ms": probes.get("ask_latency_ms"),
+                  "healthz": healthz.get("probe"), "ledger_records": len(probe_recs),
+                  "ledger_corrupt": probe_corrupt,
+                  "digests": sorted({r.get("digest") for r in probe_recs})},
     }
     out["http"] = res
     log(f"phase 14 (a): {res}")
@@ -2859,7 +2922,144 @@ def _svc_http(out, shapes, fused_shapes):
     if not quiesced or res["drain_compactions"] < 1:
         raise AssertionError(f"drain did not quiesce and compact: {quiesced}, "
                              f"{res['drain_compactions']}")
+    pr = res["probe"]
+    if pr["cycles"] < 2 or pr["verdicts"]["ok"] != pr["cycles"] or pr["ledger_corrupt"]:
+        raise AssertionError(f"the prober's verdicts are not all ok: {pr}")
+    if pr["digests"] != [pr["golden"]]:
+        raise AssertionError(f"the card's canary streams differ: {pr}")
+    if not (pr["healthz"] or {}).get("green"):
+        raise AssertionError(f"/healthz does not show the prober green: {pr['healthz']}")
     return launches
+
+
+def _svc_canary_routes(out, shapes, fused_shapes):
+    """(f) The prober's canary in process on the card (``local_digest``),
+    twice on the fused route and twice with ``HYPEROPT_TPU_MEGAKERNEL=off``
+    (grouped ``ei_diff``): each route gives one digest.  Returns the fused
+    route's, the route (a)'s server served.  The shapes join the after-phase
+    checks."""
+    from hyperopt_tpu_torch.obs import prober
+
+    digests = {}
+    with LaunchLog() as rec:
+        for route, knob in (("fused_sample_ei", "on"), ("ei_diff", "off")):
+            old = _md_set_env("HYPEROPT_TPU_MEGAKERNEL", knob)
+            try:
+                t0 = time.perf_counter()
+                runs = [prober.local_digest(device=DEVICE) for _ in range(2)]
+                sec = (time.perf_counter() - t0) / 2
+            finally:
+                _md_set_env("HYPEROPT_TPU_MEGAKERNEL", old)
+            digests[route] = {"digests": [d for d, _ in runs], "flagged": [f for _, f in runs],
+                              "sec_per_run": sec}
+    by_shape = _svc_shape_counts(rec.shapes)
+    shapes.update(by_shape["ei_diff"])
+    fused_shapes.update(by_shape["fused_sample_ei"])
+    res = out["canary_routes"] = {
+        **digests, "launches_by_shape": {k: sorted(v.items()) for k, v in by_shape.items()},
+        "routes_agree": digests["fused_sample_ei"]["digests"][0]
+        == digests["ei_diff"]["digests"][0]}
+    log(f"phase 14 canary routes: {res}")
+    for route, d in digests.items():
+        if len(set(d["digests"])) != 1 or any(d["flagged"]):
+            raise AssertionError(f"the canary on the {route} route is not the same twice: {d}")
+        if not by_shape[route]:
+            raise AssertionError(f"the canary on the {route} route launched no {route}")
+    return digests["fused_sample_ei"]["digests"][0]
+
+
+def _svc_probe_mismatch(out, golden, shapes, fused_shapes):
+    """(c) A short server in this process with ``HYPEROPT_TPU_PROFILE``
+    armed and the prober on: a clean first cycle pins the card's golden
+    (TOFU, equal to ``golden``, the in-process digest), then chaos corrupts
+    every tick's read-back proposals (``HYPEROPT_TPU_CHAOS``) and the
+    cycles driven from this thread must turn ``mismatch`` and escalate
+    once; the escalation's capture is recorded by the leader of a later
+    canary wave and must hold that wave's kernels.  Reports the detection
+    latency and the wave that held the session's start and stop against
+    the median wave."""
+    import tempfile
+
+    from hyperopt_tpu_torch import chaos
+    from hyperopt_tpu_torch.service import StudyScheduler
+    from hyperopt_tpu_torch.service.server import ServiceHTTPServer
+
+    root = tempfile.mkdtemp(prefix="svc_probe_")
+    old = _md_set_env("HYPEROPT_TPU_PROFILE", os.path.join(root, "caps"))
+    try:
+        sched = StudyScheduler(device=DEVICE, store_root=root, wave_window=SVC_WINDOW)
+        server = ServiceHTTPServer(0, scheduler=sched)
+    finally:
+        _md_set_env("HYPEROPT_TPU_PROFILE", old)
+    waves = []  # (start epoch, end epoch, ms): the whole wave, capture hooks included
+    outer = sched._run_wave
+
+    def timed_wave(reqs):
+        t0, p0 = time.time(), time.perf_counter()
+        try:
+            return outer(reqs)
+        finally:
+            waves.append((t0, time.time(), 1e3 * (time.perf_counter() - p0)))
+
+    sched._run_wave = timed_wave
+    if not server.start():
+        raise AssertionError("the probe server did not bind")
+    cycles = []
+    try:
+        with LaunchLog() as rec:
+            # the thread's first cycle pins the golden; the rest run here
+            prober = server.arm_prober(period=3600.0)
+            deadline = time.monotonic() + 120
+            while prober.last is None and time.monotonic() < deadline:
+                time.sleep(0.05)
+            cycles.append(prober.last)
+            old_chaos = _md_set_env("HYPEROPT_TPU_CHAOS", SVC_PROBE_CORRUPT)
+            chaos.reset()
+            try:
+                for _ in range(SVC_PROBE_CYCLES):
+                    cycles.append(prober.run_cycle())
+                    if prober.last_capture is not None:
+                        break
+                deadline = time.monotonic() + 120
+                while prober.last_capture is None and time.monotonic() < deadline:
+                    time.sleep(0.05)
+            finally:
+                _md_set_env("HYPEROPT_TPU_CHAOS", old_chaos)
+                chaos.reset()
+            cycles.append(prober.run_cycle())  # clean again: the episode ends
+            status = prober.status_dict()
+    finally:
+        server.drain()
+    by_shape = _svc_shape_counts(rec.shapes)
+    shapes.update(by_shape["ei_diff"])
+    fused_shapes.update(by_shape["fused_sample_ei"])
+    cap = prober.last_capture or {}
+    held = [w for w in waves if cap.get("t0") and w[0] <= cap["t0"] <= w[1]]
+    others = sorted(w[2] for w in waves if w not in held)
+    verdicts = [c["verdict"] for c in cycles]
+    first_bad = next((c for c in cycles if c["verdict"] != "ok"), {})
+    res = out["probe_mismatch"] = {
+        "verdicts": verdicts, "cycles_to_mismatch": verdicts.index("mismatch")
+        if "mismatch" in verdicts else None,
+        "detection_latency_sec": first_bad.get("detection_latency_sec"),
+        "escalations": status["escalations"], "golden": status["golden"],
+        "golden_source": status["golden_source"], "in_process_golden": golden,
+        "capture": {k: cap.get(k) for k in ("ok", "error", "reason", "scope", "waves",
+                                            "kernels", "sec", "wall_sec", "start_sec",
+                                            "stop_sec", "stop_split", "write_sec")},
+        "capture_wave_ms": held[0][2] if held else None,
+        "median_wave_ms": statistics.median(others) if others else None,
+        "waves": len(waves),
+        "launches_by_shape": {k: sorted(v.items()) for k, v in by_shape.items()}}
+    log(f"phase 14 (a') probe mismatch: {res}")
+    if verdicts[0] != "ok" or status["golden"] != golden:
+        raise AssertionError(f"the clean cycle did not pin the in-process golden: {res}")
+    if "mismatch" not in verdicts[1:] or verdicts[-1] != "ok":
+        raise AssertionError(f"the corrupted ticks did not turn the prober mismatch: {res}")
+    if status["escalations"] != 1:
+        raise AssertionError(f"{status['escalations']} escalations in one episode: {res}")
+    if not cap.get("ok") or cap.get("scope") != "wave leader" or not cap.get("kernels"):
+        raise AssertionError(f"the escalation's capture holds no wave kernel: {res}")
 
 
 def _svc_free_port():
@@ -3318,6 +3518,13 @@ def phase_service_plane(report):
     launches["service_http"] = _svc_http(out, shapes, fused_shapes)
     out["a_sec"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    golden = _svc_canary_routes(out, shapes, fused_shapes)
+    if golden != out["http"]["probe"]["golden"]:
+        raise AssertionError(f"the card's TOFU golden over HTTP {out['http']['probe']['golden']} "
+                             f"is not the in-process fused digest {golden}")
+    _svc_probe_mismatch(out, golden, shapes, fused_shapes)
+    out["probe_sec"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     _svc_crash(out)
     out["b_sec"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -3396,7 +3603,7 @@ def fleet_replica(argv):
     warmed = _svc_counts()
     _svc_reset_counts()
     stats = {"replica": rid, "warm_launches": warmed, "tpe_waves": 0, "adoptions": [],
-             "first_answer": {}}
+             "first_answer": {}, "route_waves": {"fused_sample_ei": 0, "ei_diff": 0}}
     lock = threading.Lock()
     rec = LaunchLog()
     rec.__enter__()
@@ -3437,6 +3644,8 @@ def fleet_replica(argv):
     def inner(self, reqs):
         with lock:
             stats["tpe_waves"] += 1
+            for route in {_svc_route(r.study.domain.cs) for r in reqs}:
+                stats["route_waves"][route] += 1
         return real_inner(self, reqs)
 
     StudyScheduler._run_wave_inner = inner
@@ -3589,6 +3798,37 @@ def _fleet_report(proc, rid, outdir):
     path = os.path.join(outdir, f"{rid}.json.partial")
     with open(path) as f:
         return json.load(f)
+
+
+def _fleet_probe(urls, outdir):
+    """(b) The standalone prober against the live replicas, before they
+    stop (``python -m hyperopt_tpu_torch.obs.prober --targets ... --cycles
+    2``): every verdict ok and one digest across replicas and cycles (the
+    cross-replica divergence check; the card trusts its first stream)."""
+    from hyperopt_tpu_torch.obs.prober import read_probes
+
+    led = os.path.join(outdir, "probes.jsonl")
+    if os.path.exists(led):
+        os.remove(led)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "HYPEROPT_TPU_WATCHDOG": "0",
+           "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "hyperopt_tpu_torch.obs.prober", "--targets",
+                          ",".join(urls), "--cycles", "2", "--ledger", led, "--replica",
+                          "phase15"], env=env, cwd=root, capture_output=True, text=True,
+                         timeout=300)
+    recs, corrupt, _ = read_probes(led)
+    res = {"rc": run.returncode, "sec": time.perf_counter() - t0, "targets": urls,
+           "verdicts": [(r["cycle"], r["target"], r["verdict"]) for r in recs],
+           "digests": sorted({r.get("digest") for r in recs}), "corrupt": corrupt,
+           "golden_source": sorted({r.get("golden_source") for r in recs}),
+           "ask_latency_ms": [r.get("latency_ms") for r in recs]}
+    log(f"phase 15 (b) prober: {res}")
+    if (run.returncode != 0 or len(recs) != 2 * len(urls) or len(res["digests"]) != 1
+            or any(v != "ok" for *_, v in res["verdicts"])):
+        raise AssertionError(f"the prober across the replicas: {res}; {run.stderr[-2000:]}")
+    return res
 
 
 def phase_fleet(report):
@@ -3745,6 +3985,7 @@ def phase_fleet(report):
         loads = {r: _fleet_get(urls[k], "/fleet/load") for k, r in ((0, "r0"), (2, "r2"))}
         heat = read_heat(root)
         tenants = _fleet_get(urls[0], "/tenants")
+        probe = _fleet_probe([urls[0], urls[2]], outdir)
     finally:
         sampling.set()
         for p in clients:
@@ -3839,7 +4080,7 @@ def phase_fleet(report):
     for rid, r in reps.items():
         waves = r["tpe_waves"]
         per_replica[rid] = {
-            "launches": r["launches"], "tpe_waves": waves,
+            "launches": r["launches"], "tpe_waves": waves, "route_waves": r["route_waves"],
             "launches_per_wave": {k: v / max(waves, 1) for k, v in r["launches"].items()},
             "adoptions": [(a["shard"], a["epoch"], round(a["t1"] - a["t0"], 4))
                           for a in r["adoptions"]],
@@ -3858,6 +4099,7 @@ def phase_fleet(report):
         "acked_at_kill": killed[0][1] if killed else None,
         "acked_at_r2_start": marks.get("r2_start"),
         "kill_site": f"tell hit {kill_at}", "r1_returncode": procs["r1"].returncode,
+        "prober": probe,
         "kill_to_first_adopter_answer_sec": (min(firsts) - t_kill) if firsts else None,
         "reclaim_adoptions": [(a["replica"], a["shard"], a["epoch"]) for a in reclaims],
         "reclaim_adopt_sec": [round(a["t1"] - a["t0"], 4) for a in reclaims],
@@ -3923,11 +4165,19 @@ def phase_fleet(report):
         raise AssertionError(f"shards without heat: {cold}, ledger {heat_shards}")
     if res["tenants_seen"] != sorted(_fleet_tenant(i) for i in range(FLEET_TENANTS)):
         raise AssertionError(f"/tenants shows {res['tenants_seen']}")
+    # a replica launches the kernel of every route its TPE waves asked (one
+    # that joined late may hold only one route's studies), and the
+    # surviving replicas launch both
     for rid in ("r0", "r2"):
         r = reps[rid]
-        if r["tpe_waves"] and not (r["launches"]["fused_sample_ei"] and r["launches"]["ei_diff"]):
-            raise AssertionError(f"{rid} served TPE waves but did not launch both kernels: "
-                                 f"{r['launches']}")
+        missed = [k for k, n in r["route_waves"].items() if n and not r["launches"][k]]
+        if missed:
+            raise AssertionError(f"{rid}'s TPE waves asked {missed} but it launched none: "
+                                 f"{r['route_waves']}, {r['launches']}")
+    if not all(reps["r0"]["launches"][k] + reps["r2"]["launches"][k]
+               for k in ("fused_sample_ei", "ei_diff")):
+        raise AssertionError(f"the surviving replicas did not launch both kernels: "
+                             f"{reps['r0']['launches']}, {reps['r2']['launches']}")
     shapes = {tuple(s) for r in reps.values() for s, _ in r["shapes"]}
     fused_shapes = {tuple(s) for r in reps.values() for s, _ in r["fused_shapes"]}
     launches = {f"fleet_{rid}": r["launches"] for rid, r in reps.items()}
@@ -3941,6 +4191,12 @@ def phase_fleet(report):
 OBS_CAPTURE_SEC = 1  # GET /profile?sec=1
 OBS_PROFILED_ASKS = 5  # asks per launch count on a finished history (phase 5's way)
 OBS_MH_EVALS, OBS_MH_BATCH = 256, 64  # the two-controller merge (phase 13's run, smaller)
+# item 13's stall capture: a 1 s session started on another thread once
+# (c)'s device loop, run again warm (no graph capture), has replayed 880 of
+# its 980 TPE steps, so it holds the last ~100 steps and stops after the
+# last replay (over a whole run its ~1.1 M kernel events took 20 s to stop
+# and ~46 s to write on an H100)
+OBS_STALL_SEC, OBS_STALL_AT = 1.0, 880
 OBS_SECTIONS = ("== phase-time breakdown", "== trial-state waterfall", "== search health",
                 "== kernel roofline", "== device memory", "== device captures")
 
@@ -4102,7 +4358,8 @@ def _obs_armed_fmin(dom, tuned, tmp, out):
         raise AssertionError(f"/profile?sec={OBS_CAPTURE_SEC} failed: {cap}")
     n_ticks, n_kernels, inside = _obs_trace_check(cap["trace_json"])
     out["capture"] = {**{k: cap.get(k) for k in ("sec", "wall_sec", "start_sec", "stop_sec",
-                                                 "write_sec", "thread", "trace_json")},
+                                                 "stop_split", "write_sec", "thread", "scope",
+                                                 "kernels", "trace_json")},
                       "trace_bytes": os.path.getsize(cap["trace_json"]),
                       "fmin_tick_annotations": n_ticks, "ei_diff_kernels": n_kernels,
                       "ei_diff_kernels_inside_fmin_tick": inside,
@@ -4221,6 +4478,96 @@ def _obs_device_loop(dom, tuned, tmp, out):
     return a["ei_diff_launches"]
 
 
+def _obs_stop_split(out):
+    """(d) Item 12: ``prof.stop()`` in parts.  The capture's own record
+    splits the stop on the loop's thread into the device synchronize and
+    torch's ``_disable_profiler`` call (CUPTI's flush, the trace's
+    processing, the teardown); two small sessions over the same 20
+    ``ei_diff`` launches, stopped with ``TEARDOWN_CUPTI=0`` and then ``=1``,
+    separate the teardown (the difference of their disable calls)."""
+    import torch
+
+    from hyperopt_tpu_torch import megakernel
+    from hyperopt_tpu_torch.obs import profiler
+
+    x, tabs = ei_inputs(2, 1024, 1025, seed=11)
+    runs = {}
+    for flag in ("0", "1"):
+        old = _md_set_env("TEARDOWN_CUPTI", flag)
+        try:
+            t0 = time.perf_counter()
+            prof = profiler._start_session()
+            start = time.perf_counter() - t0
+            for _ in range(20):
+                megakernel.ei_diff(x, *tabs)
+            runs[flag] = {"start_sec": start, **profiler._stop_timed(prof)}
+        finally:
+            _md_set_env("TEARDOWN_CUPTI", old)
+    on, off = runs["1"], runs["0"]
+    tear = (on.get("disable_sec", 0.0) - off.get("disable_sec", 0.0)
+            if "disable_sec" in on and "disable_sec" in off else None)
+    cap = out["capture"].get("stop_split") or {}
+    out["stop_split"] = {
+        "teardown_off": off, "teardown_on": on, "teardown_sec": tear,
+        "capture_stop": cap,
+        "capture_flush_and_process_sec": (cap["disable_sec"] - tear
+                                          if tear is not None and "disable_sec" in cap
+                                          else None),
+        "tick_gap_at_capture_stop_ms": out["tick_gap_ms"]["at_capture_stop"]}
+    log(f"phase 16 (d) stop split: {out['stop_split']}")
+
+
+def _obs_stall_capture(dom, tuned, tmp, out):
+    """(d) Item 13: a stall capture taken on another thread while
+    ``fmin(device_loop=True)`` replays its chunks (a warm run, its graphs
+    captured by (c)): its record states the scope and the kernels it
+    holds.  The session outlasts the run, so it stops with no replay in
+    flight."""
+    import threading
+
+    import numpy as np
+
+    import hyperopt_tpu_torch as port
+    from hyperopt_tpu_torch import megakernel
+    from hyperopt_tpu_torch.obs.profiler import DeviceProfiler
+
+    box = {}
+
+    def run():
+        try:
+            port.fmin(dom.traceable, dom.space, algo=tuned, max_evals=MAIN_EVALS,
+                      trials=port.Trials(), rstate=np.random.default_rng(0),
+                      show_progressbar=False, device_loop=True)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            box["error"] = e
+
+    prof = DeviceProfiler(os.path.join(tmp, "stall"), stall_capture_sec=OBS_STALL_SEC)
+    th = threading.Thread(target=run, name="stalled-loop")
+    g0 = megakernel.ei_diff.graph_launches
+    t0 = time.perf_counter()
+    th.start()
+    while megakernel.ei_diff.graph_launches - g0 < OBS_STALL_AT and th.is_alive():
+        time.sleep(0.001)
+    steps_at_start = megakernel.ei_diff.graph_launches - g0
+    stall = {"kind": "stall"}
+    rec = prof.capture_on_stall(stall)
+    th.join(timeout=300)
+    if "error" in box:
+        raise box["error"]
+    out["stall_capture"] = {**{k: rec.get(k) for k in ("ok", "error", "scope", "kernels",
+                                                       "wall_sec", "stop_sec")},
+                            "loop_and_capture_sec": time.perf_counter() - t0,
+                            "tpe_steps_before_start": steps_at_start,
+                            "postmortem": stall.get("capture")}
+    log(f"phase 16 (d) stall capture: {out['stall_capture']}")
+    if rec.get("scope") != "watchdog thread" or not isinstance(rec.get("kernels"), int):
+        raise AssertionError(f"the stall capture does not state its kernels: {rec}")
+    if (rec["kernels"] == 0) == bool(rec.get("ok")) or stall.get("capture", {}).get(
+            "kernels") != rec["kernels"]:
+        raise AssertionError(f"the stall capture's record and postmortem disagree: {rec}, "
+                             f"{stall}")
+
+
 def _obs_multihost(out):
     """(d) ``fmin_multihost(obs=run.jsonl)`` on two controller processes
     sharing the card over gloo: each writes ``run.p<i>.jsonl``, and the
@@ -4330,8 +4677,10 @@ def phase_obs(report):
                                  f"phase 5's {want}")
         _obs_check_stream(tmp, cap, out)
         launches["obs_device_loop_armed"] = _obs_device_loop(dom, tuned, tmp, out)
+        _obs_stall_capture(dom, tuned, tmp, out)
         shapes = {tuple(s[1:]) for s in shapes_log.take() if s[0] == "ei_diff"}
     shapes |= _obs_multihost(out)
+    _obs_stop_split(out)
     out["ei_diff_shapes"] = sorted(shapes)
     out["phase_sec"] = time.perf_counter() - t_phase
     log(f"phase 16: {out['phase_sec']:.1f} s; devmem peak {out.get('devmem_peak_bytes')} B")

@@ -10,7 +10,8 @@ one of three treatments:
   package reads it, the port's entry point raises ``not_ported(knob,
   item)`` when the knob is set to a value that arms it
   (:func:`refuse_armed_knobs`), or the entry point that reads it is not
-  in the port yet;
+  in the port yet (no knob is refused now; the mechanism stays for the
+  next path that is not ported);
 * ``none`` — it tunes XLA only (disabling the compilation cache,
   buffer donation, the deprecated Pallas alias) and changes no result and
   no file: it is accepted and has no effect.
@@ -18,7 +19,8 @@ one of three treatments:
 Where the JAX package warns about a malformed service, plane or fleet
 value and falls back, the port raises ``ValueError`` naming the knob, as
 for its other knobs.  The observability knobs (``HYPEROPT_TPU_OBS_HTTP``,
-``HYPEROPT_TPU_DEVMEM``) warn once and disable, as the reference's do.
+``HYPEROPT_TPU_DEVMEM``, the ``HYPEROPT_TPU_PROBE*`` trio) warn once and
+disable or keep their defaults, as the reference's do.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ __all__ = ["resolve_device", "parse_hist_dtype", "parse_megakernel", "parse_comp
            "parse_load", "parse_load_slo", "parse_fleet_shards", "parse_fleet_lease_ttl",
            "parse_fleet_addr", "parse_tenant", "parse_tenant_top_k", "parse_tenant_quota",
            "parse_tenant_slo", "parse_obs_http", "parse_devmem_period",
-           "DEFAULT_DEVMEM_PERIOD_SEC", "not_ported", "Knob", "KNOBS",
+           "DEFAULT_DEVMEM_PERIOD_SEC", "parse_probe", "parse_probe_period",
+           "parse_probe_slo", "DEFAULT_PROBE_PERIOD_SEC", "not_ported", "Knob", "KNOBS",
            "refuse_armed_knobs"]
 
 
@@ -575,11 +578,11 @@ def parse_tenant_slo():
 _warned_envs = set()
 
 
-def _warn_once(var, raw, why):
+def _warn_once(var, raw, why, action="disabling"):
     if var not in _warned_envs:
         _warned_envs.add(var)
-        logger.warning("%s=%r is not %s; disabling (observability env "
-                       "values warn-and-disable, never raise)", var, raw, why)
+        logger.warning("%s=%r is not %s; %s (observability env "
+                       "values warn-and-disable, never raise)", var, raw, why, action)
 
 
 def parse_obs_http(env=None):
@@ -629,6 +632,83 @@ def parse_devmem_period(env=None):
     return period
 
 
+# the blackbox prober's knobs: off by default (the prober is the one
+# plane that makes traffic), malformed values warn once and keep defaults
+
+DEFAULT_PROBE_PERIOD_SEC = 30.0
+
+
+def parse_probe(env=None):
+    """``HYPEROPT_TPU_PROBE`` → whether the server arms the blackbox
+    prober (``obs/prober.py``) against itself once bound.  Off by default;
+    ``1``/``on`` arms it (the server's ``--probe`` wins over it)."""
+    env = os.environ if env is None else env
+    raw = env.get("HYPEROPT_TPU_PROBE", "").strip().lower()
+    return raw in ("1", "on", "true", "yes")
+
+
+def parse_probe_period(env=None):
+    """``HYPEROPT_TPU_PROBE_PERIOD=<seconds>`` → the probe cycle period
+    (default 30 s); a malformed or non-positive value warns once and keeps
+    the default."""
+    env = os.environ if env is None else env
+    raw = env.get("HYPEROPT_TPU_PROBE_PERIOD", "").strip()
+    if not raw:
+        return DEFAULT_PROBE_PERIOD_SEC
+    try:
+        v = float(raw)
+    except ValueError:
+        _warn_once("HYPEROPT_TPU_PROBE_PERIOD", raw, "a number of seconds",
+                   "keeping the default")
+        return DEFAULT_PROBE_PERIOD_SEC
+    if v <= 0:
+        _warn_once("HYPEROPT_TPU_PROBE_PERIOD", raw, "a positive period",
+                   "keeping the default")
+        return DEFAULT_PROBE_PERIOD_SEC
+    return v
+
+
+def parse_probe_slo(env=None):
+    """``HYPEROPT_TPU_PROBE_SLO`` → the blackbox objectives the prober
+    feeds the server's SLO plane, or None when disabled: unset / ``1`` /
+    ``on`` gives ``obs.slo.PROBE_TARGETS``; ``0`` / ``off`` None (verdicts
+    still render, no budget burns); ``avail=N`` and ``golden=N`` (percent)
+    and ``ask_p99_ms=N`` tune it.  Malformed tokens warn once and keep
+    the defaults."""
+    from .obs.slo import PROBE_TARGETS
+
+    env = os.environ if env is None else env
+    raw = env.get("HYPEROPT_TPU_PROBE_SLO", "").strip()
+    if raw.lower() in ("0", "off", "false", "no"):
+        return None
+    targets = {k: dict(v) for k, v in PROBE_TARGETS.items()}
+    if raw.lower() in ("", "1", "on", "true", "yes", "auto"):
+        return targets
+    for token in raw.split(","):
+        token = token.strip()
+        if not token:
+            continue
+        key, _, val = token.partition("=")
+        key = key.strip().lower()
+        try:
+            v = float(val)
+        except ValueError:
+            _warn_once("HYPEROPT_TPU_PROBE_SLO", token, "a key=number token",
+                       "keeping the defaults")
+            continue
+        if key in ("avail", "availability") and 0 < v <= 100:
+            targets["probe_avail"]["target"] = min(0.9999, v / 100.0)
+        elif key == "golden" and 0 < v <= 100:
+            targets["probe_golden_match"]["target"] = min(0.9999, v / 100.0)
+        elif key == "ask_p99_ms" and v > 0:
+            targets["probe_ask_p99_ms"]["threshold_ms"] = v
+        else:
+            _warn_once("HYPEROPT_TPU_PROBE_SLO", token,
+                       "one of avail=/golden=/ask_p99_ms= with a sane value",
+                       "keeping the defaults")
+    return targets
+
+
 def not_ported(what, item):
     """The error a not-yet-ported option raises, naming its ROADMAP item."""
     return NotImplementedError(
@@ -637,14 +717,6 @@ def not_ported(what, item):
 
 
 _OFF = ("0", "off", "false", "no")
-
-
-def _set(raw):
-    return raw != ""
-
-
-def _set_not_off(raw):
-    return raw != "" and raw.lower() not in _OFF
 
 
 class Knob(NamedTuple):
@@ -663,9 +735,6 @@ class Knob(NamedTuple):
     arms: Callable[[str], bool] | None = None
     under: str | None = None
 
-
-_SCHED = ("StudyScheduler",)
-_SERVER = ("ServiceHTTPServer",)
 
 KNOBS = {
     # honoured: the port reads them as the JAX package does
@@ -695,7 +764,9 @@ KNOBS = {
                              "obs.ObsConfig (a path streams JSONL)"),
     "HYPEROPT_TPU_PROFILE": Knob("honoured", None, "fmin, fmin_multihost via "
                                  "obs.ObsConfig (torch.profiler captures; "
-                                 "full:<dir> traces the whole run)"),
+                                 "full:<dir> traces the whole run); service/server "
+                                 "(one wave capture per SLO fast burn and per "
+                                 "probe mismatch episode)"),
     "HYPEROPT_TPU_OBS_HTTP": Knob("honoured", None, "fmin, fmin_multihost via "
                                   "obs.ObsConfig (the scrape server)"),
     "HYPEROPT_TPU_DEVMEM": Knob("honoured", None, "fmin, fmin_multihost via "
@@ -742,13 +813,13 @@ KNOBS = {
                                          "(parse_fleet_lease_ttl)"),
     "HYPEROPT_TPU_FLEET_ADDR": Knob("honoured", None, "service/server (parse_fleet_addr, "
                                     "for --fleet)"),
-    # refused at the server: the blackbox prober
-    "HYPEROPT_TPU_PROBE": Knob("refused", "14b", "service/server (the blackbox prober)",
-                               _SERVER, lambda r: r.lower() in ("1", "on", "true", "yes")),
-    "HYPEROPT_TPU_PROBE_PERIOD": Knob("refused", "14b", "obs/prober",
-                                      under="HYPEROPT_TPU_PROBE"),
-    "HYPEROPT_TPU_PROBE_SLO": Knob("refused", "14b", "service/server (with the prober)",
-                                   under="HYPEROPT_TPU_PROBE"),
+    # the blackbox prober
+    "HYPEROPT_TPU_PROBE": Knob("honoured", None, "service/server main (parse_probe: "
+                               "arms the prober once bound)"),
+    "HYPEROPT_TPU_PROBE_PERIOD": Knob("honoured", None, "service/server arm_prober, "
+                                      "obs/prober main (parse_probe_period)"),
+    "HYPEROPT_TPU_PROBE_SLO": Knob("honoured", None, "service/server arm_prober "
+                                   "(parse_probe_slo)"),
     # no counterpart: they tune XLA only (the port has no compilation
     # cache to disable: a kernel library is built once per source hash)
     "HYPEROPT_TPU_NO_CACHE": Knob("none", None, "fmin (the XLA compilation cache)"),

@@ -31,8 +31,10 @@ Render a run with::
 
     python -m hyperopt_tpu_torch.obs.report run.jsonl
 
-The blackbox prober and the ``obs.top`` dashboard are not ported yet
-(ROADMAP.md, queue 1, item 14b).
+The service side: the blackbox prober (``obs/prober.py``, armed on the
+server with ``--probe on``; ``python -m hyperopt_tpu_torch.obs.report
+--probes <store root>`` renders its ledgers) and the terminal dashboard
+(``python -m hyperopt_tpu_torch.obs.top <url or run.jsonl> --once``).
 """
 
 from __future__ import annotations

@@ -33,6 +33,25 @@ caller's thread as in the JAX package.  After each session CUPTI is torn
 down (``TEARDOWN_CUPTI=1``, set here unless the caller set it), or every
 later launch of the process runs ~30% slower.
 
+**The server's waves.**  A service's kernels run on whichever HTTP handler
+thread leads the wave (``StudyScheduler._run_wave``), a different one from
+wave to wave.  A scheduler that owns a profiler (the server passes the one
+it arms from ``HYPEROPT_TPU_PROFILE``) attaches its waves
+(:meth:`DeviceProfiler.attach_waves`); a capture asked for on another
+thread is then started by the leader of the next tick wave
+(:meth:`DeviceProfiler.wave_begin`) and stopped by the same thread at the
+end of that wave (:meth:`DeviceProfiler.wave_end`), while the caller waits
+and then writes the trace.  One capture holds one wave.
+
+Every record states what it holds: ``scope`` (``loop thread``, ``caller
+thread``, ``wave leader`` or ``watchdog thread``), ``kernels`` (device
+kernel events in the artifact) and, for a wave, ``waves``.  A wave or stall
+capture that holds no kernel is ``ok: false`` with the reason, its file
+kept as ``host_trace_json``, never as the device trace.  A stop on the
+loop's or leader's thread is timed in parts (``stop_split``: the device
+synchronize, torch's ``_disable_profiler`` call, which is CUPTI's flush,
+the trace's processing and the teardown, and the rest).
+
 Each capture lands in its own ``capture-<n>-<reason>`` directory under
 the armed profile dir as ``device.trace.json.gz`` (``export_chrome_trace``)
 and is recorded as a ``kind="profile"`` JSONL record (and flight-ring
@@ -58,6 +77,7 @@ import glob
 import gzip
 import logging
 import os
+import re
 import shutil
 import threading
 import time
@@ -72,6 +92,10 @@ DEFAULT_MAX_CAPTURE_SEC = 30.0
 
 #: bounded duration of the automatic stall-escalation capture
 DEFAULT_STALL_CAPTURE_SEC = 5.0
+
+#: bound on a service escalation's capture (an SLO fast burn, a probe
+#: mismatch); the wave that starts it ends it
+ESCALATION_CAPTURE_SEC = 2.0
 
 #: retained completed-capture records
 CAPTURES_KEEP = 256
@@ -143,13 +167,54 @@ def _start_session():
     return prof
 
 
+_KERNEL_EVENT = re.compile(rb'"cat"\s*:\s*"kernel"')
+
+
 def _write(prof, path):
-    """Write the stopped session's chrome trace to ``path`` (gzip)."""
+    """Write the stopped session's chrome trace to ``path`` (gzip);
+    returns the number of device kernel events in it."""
     raw = path[: -len(".gz")]
     prof.export_chrome_trace(raw)
+    with open(raw, "rb") as fin:
+        kernels = len(_KERNEL_EVENT.findall(fin.read()))
     with open(raw, "rb") as fin, gzip.open(path, "wb") as fout:
         shutil.copyfileobj(fin, fout)
     os.remove(raw)
+    return kernels
+
+
+def _stop_timed(prof):
+    """``prof.stop()`` in parts: the device synchronize it starts with,
+    torch's ``_disable_profiler`` call (CUPTI's flush, the trace's
+    processing and, with ``TEARDOWN_CUPTI=1``, the teardown; torch's own
+    stat) and the whole stop, in seconds."""
+    t0 = time.perf_counter()
+    try:
+        import torch
+
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    except Exception:  # noqa: BLE001 - the stop below still runs
+        pass
+    t1 = time.perf_counter()
+    prof.stop()
+    t2 = time.perf_counter()
+    split = {"sync_sec": t1 - t0, "stop_sec": t2 - t1}
+    stats = getattr(getattr(prof, "profiler", None), "_stats", None)
+    us = getattr(stats, "profiler_disable_call_duration_us", None)
+    if us is not None:
+        split["disable_sec"] = us / 1e6
+    return split
+
+
+def _judge(rec):
+    """A wave or stall capture that recorded no kernel says so: ``ok:
+    false`` with the reason, its file kept as ``host_trace_json``."""
+    if rec.get("ok") and rec.get("kernels") == 0:
+        rec["host_trace_json"] = rec.pop("trace_json")
+        rec.update(ok=False, error=(
+            f"the session recorded no device kernel (scope: {rec['scope']}): "
+            "it holds host events only"))
 
 
 @contextlib.contextmanager
@@ -166,13 +231,17 @@ def trace_session(out_dir):
 
 
 class _Request:
-    """One capture handed to the attached loop."""
+    """One capture handed to the attached loop, or to the next wave's
+    leader (``wave``)."""
 
-    __slots__ = ("sec", "rec", "state", "prof", "t_mono", "done", "waiting")
+    __slots__ = ("sec", "rec", "state", "prof", "t_mono", "done", "waiting", "wave",
+                 "leader")
 
-    def __init__(self, sec, rec):
+    def __init__(self, sec, rec, wave=False):
         self.sec = sec
         self.rec = rec
+        self.wave = wave
+        self.leader = None  # the thread that started a wave capture
         # "pending" → "running" → "stopped" (the caller writes the trace)
         # or "done"; "returned" when the loop detached before starting it
         self.state = "pending"
@@ -200,6 +269,7 @@ class DeviceProfiler:
         self._cv = threading.Condition()
         self._loop = None  # ident of the attached loop's thread
         self._loops = 0
+        self._waves = 0  # schedulers whose wave leaders serve captures
         self._request = None
         self._count = 0
         self._stall_captured = False  # once-per-run bound
@@ -235,9 +305,11 @@ class DeviceProfiler:
             if self._loops == 0:
                 self._loop = None
             req = self._request
-            if req is not None and req.state == "running":
+            if req is None or req.wave:
+                return
+            if req.state == "running":
                 self._end(req)
-            elif req is not None and req.state == "pending":
+            elif req.state == "pending":
                 req.state = "returned"
                 self._request = None
                 req.done.set()
@@ -250,11 +322,58 @@ class DeviceProfiler:
             return
         with self._cv:
             req = self._request
-            if req is None:
+            if req is None or req.wave:
                 return
             if req.state == "pending":
                 self._begin(req)
             elif time.monotonic() - req.t_mono >= req.sec:
+                self._end(req)
+
+    # -- the server's wave hand-off ----------------------------------------
+
+    def attach_waves(self):
+        """A scheduler's wave leaders serve captures (:meth:`wave_begin`,
+        :meth:`wave_end`) until :meth:`detach_waves`."""
+        with self._cv:
+            self._waves += 1
+
+    def detach_waves(self):
+        """Stop serving: a pending wave capture goes back to its caller,
+        who records that no wave started."""
+        with self._cv:
+            self._waves = max(0, self._waves - 1)
+            req = self._request
+            if self._waves == 0 and req is not None and req.wave and req.state == "pending":
+                req.state = "returned"
+                self._request = None
+                req.done.set()
+
+    def wave_begin(self):
+        """Called by a wave's leader before its ticks: start a pending
+        capture on this thread.  Returns the request it started (hand it to
+        :meth:`wave_end`), else None; one attribute read when nothing is
+        asked."""
+        if self._request is None:
+            return None
+        with self._cv:
+            req = self._request
+            if req is None or not req.wave or req.state != "pending":
+                return None
+            self._begin(req)
+            if req.state != "running":
+                return None
+            req.leader = threading.get_ident()
+            req.rec["waves"] = 0
+            return req
+
+    def wave_end(self, req):
+        """Called by the same leader after its wave: stop the session it
+        started (one wave per capture)."""
+        if req is None:
+            return
+        with self._cv:
+            if req.state == "running" and req.leader == threading.get_ident():
+                req.rec["waves"] += 1
                 self._end(req)
 
     def _begin(self, req):
@@ -278,13 +397,13 @@ class DeviceProfiler:
         rec = req.rec
         t1 = time.time()
         try:
-            req.prof.stop()
+            split = _stop_timed(req.prof)
         except Exception as e:  # noqa: BLE001 - fail open
             rec.update(ok=False, error=f"{type(e).__name__}: {e}")
             req.prof = None
             self._finish(req)
             return
-        rec.update(t1=t1, wall_sec=t1 - rec["t0"], stop_sec=time.time() - t1)
+        rec.update(t1=t1, wall_sec=t1 - rec["t0"], stop_sec=time.time() - t1, stop_split=split)
         if req.waiting:
             self._request = None
             req.state = "stopped"
@@ -297,11 +416,13 @@ class DeviceProfiler:
         t = time.time()
         try:
             path = os.path.join(rec["dir"], ARTIFACT)
-            _write(req.prof, path)
+            kernels = _write(req.prof, path)
         except Exception as e:  # noqa: BLE001 - fail open
             rec.update(ok=False, error=f"{type(e).__name__}: {e}")
         else:
-            rec.update(ok=True, write_sec=time.time() - t, trace_json=path)
+            rec.update(ok=True, write_sec=time.time() - t, trace_json=path, kernels=kernels)
+            if req.wave:
+                _judge(rec)
         req.prof = None
         self._finish(req)
 
@@ -314,12 +435,13 @@ class DeviceProfiler:
 
     # -- captures ----------------------------------------------------------
 
-    def capture(self, sec, reason="ondemand", here=False):
+    def capture(self, sec, reason="ondemand", here=False, scope=None):
         """One bounded capture: the ``kind="profile"`` record (``ok=True``
         with the artifact path) or an ``ok=False`` record naming why (busy,
-        unsupported, bad duration, no tick boundary in time).  Never
-        raises.  ``here=True`` records on the calling thread even while a
-        loop is attached."""
+        unsupported, bad duration, no tick boundary or wave in time, no
+        kernel in a wave or stall capture).  Never raises.  ``here=True``
+        records on the calling thread even while a loop or waves are
+        attached; ``scope`` then names that thread in the record."""
         try:
             sec = float(sec)
         except (TypeError, ValueError):
@@ -344,30 +466,51 @@ class DeviceProfiler:
                    "sec": sec, "dir": cap_dir}
             loop = self._loop
             if not here and loop is not None and loop != threading.get_ident():
-                rec["thread"] = "loop"
+                rec.update(thread="loop", scope="loop thread")
                 got = self._handoff(sec, rec)
                 if got is not None:
                     return got
-            rec["thread"] = "caller"
+            elif not here and self._waves:
+                rec.update(thread="wave", scope="wave leader")
+                got = self._handoff(sec, rec, wave=True)
+                if got is not None:
+                    return got
+            rec.update(thread="caller", scope=scope or "caller thread")
             return self._capture_here(sec, rec)
         finally:
             self._lock.release()
 
-    def _handoff(self, sec, rec):
-        """Hand ``rec`` to the attached loop; its record, or None when the
-        loop detached before starting it (capture on this thread then)."""
-        req = _Request(sec, rec)
+    def capture_async(self, sec, reason, on_record=None):
+        """:meth:`capture` on a short-lived daemon thread, for a caller that
+        must neither wait nor record (an HTTP handler, the prober's cycle):
+        ``on_record(rec)`` gets the record.  Returns the thread."""
+        def run():
+            rec = self.capture(sec, reason=reason)
+            logger.warning("%s: device capture ok=%s kernels=%s waves=%s dir=%s", reason,
+                           rec.get("ok"), rec.get("kernels"), rec.get("waves"), rec.get("dir"))
+            if on_record is not None:
+                on_record(rec)
+
+        th = threading.Thread(target=run, name=f"hyperopt-capture-{reason}", daemon=True)
+        th.start()
+        return th
+
+    def _handoff(self, sec, rec, wave=False):
+        """Hand ``rec`` to the attached loop (or the next wave's leader);
+        its record, or None when the loop detached before starting it
+        (capture on this thread then)."""
+        req = _Request(sec, rec, wave=wave)
         with self._cv:
-            if self._loop is None:
+            if (not self._waves) if wave else (self._loop is None):
                 return None
             self._request = req
         if not req.done.wait(sec + self.handoff_margin_sec):
             with self._cv:
                 if req.state == "pending":
                     self._request = None
+                    what = "no wave started" if wave else "the loop reached no tick boundary"
                     rec.update(ok=False, error=(
-                        f"the loop reached no tick boundary within "
-                        f"{sec + self.handoff_margin_sec:.0f} s"))
+                        f"{what} within {sec + self.handoff_margin_sec:.0f} s"))
                     return self._record(rec)
             # running: the loop ends it at its next boundary or detach
             if not req.done.wait(self.handoff_margin_sec):
@@ -376,6 +519,9 @@ class DeviceProfiler:
                         req.waiting = False  # the loop writes and records it
                         return dict(rec, ok=False, error="capture still running")
         if req.state == "returned":
+            if wave:  # the scheduler detached: no wave leader will start it
+                rec.update(ok=False, error="the waves detached before one started")
+                return self._record(rec)
             return None
         if req.state == "stopped":
             self._write_trace(req)
@@ -396,15 +542,17 @@ class DeviceProfiler:
         finally:
             t1 = time.time()
             try:
-                prof.stop()
+                split = _stop_timed(prof)
                 t2 = time.time()
                 path = os.path.join(rec["dir"], ARTIFACT)
-                _write(prof, path)
+                kernels = _write(prof, path)
             except Exception as e:  # noqa: BLE001 - fail open
                 rec.update(ok=False, error=f"{type(e).__name__}: {e}")
                 return self._record(rec)
-        rec.update(ok=True, t1=t1, wall_sec=t1 - t0, stop_sec=t2 - t1,
-                   write_sec=time.time() - t2, trace_json=path)
+        rec.update(ok=True, t1=t1, wall_sec=t1 - t0, stop_sec=t2 - t1, stop_split=split,
+                   write_sec=time.time() - t2, trace_json=path, kernels=kernels)
+        if rec["scope"] == "watchdog thread":
+            _judge(rec)
         return self._record(rec)
 
     def _unsupported(self, e):
@@ -419,12 +567,20 @@ class DeviceProfiler:
         """The watchdog escalation hook: ONE bounded capture per run, on
         the watchdog's own thread (the stalled loop may be wedged inside
         the very call the trace is meant to show, so nothing is handed to
-        it).  A busy miss keeps the budget; any other failure latches."""
+        it).  Such a session holds the watchdog thread's kernels only, none
+        of the loop's: its record (``scope: "watchdog thread"``, ``kernels``)
+        and the stall record's ``capture`` say so.  A busy miss keeps the
+        budget; any other failure latches."""
         if self._stall_captured:
             return None
-        rec = self.capture(self.stall_capture_sec, reason="stall", here=True)
+        rec = self.capture(self.stall_capture_sec, reason="stall", here=True,
+                           scope="watchdog thread")
         if not rec.get("busy"):
             self._stall_captured = True
+        if isinstance(stall_rec, dict):
+            # the postmortem's stall record says what the capture holds
+            stall_rec["capture"] = {k: rec.get(k) for k in
+                                    ("scope", "kernels", "ok", "error", "dir")}
         if rec.get("ok"):
             logger.warning("stall escalation: captured %.1fs device trace to %s "
                            "(referenced from the flight dump)",

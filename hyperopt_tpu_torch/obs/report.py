@@ -53,8 +53,10 @@ aligned with the host spans.
 history — the answer to "did ``ask_p50_ms`` creep up over the last six
 PRs" from the committed artifacts alone.
 
-The blackbox-probe view (``--probes``, ``render_probes``) is not ported
-yet (ROADMAP.md, queue 1, item 14b) and raises.
+``--probes`` renders the blackbox prober's sealed verdict ledgers
+(``render_probes``): per replica the verdict census, the golden's
+provenance and the detection latency of every green-to-red edge.  It is a
+view of its own and renders text only.
 """
 
 from __future__ import annotations
@@ -668,10 +670,83 @@ def _megakernel_section(metrics, spans, out):
 
 
 def render_probes(path):
-    """The blackbox-probe verdict view: the prober is not ported yet."""
-    from .._env import not_ported
+    """The blackbox-probe verdict view from the durable CRC-sealed
+    ledgers: give one ``<replica>.jsonl`` ledger, a
+    ``fleet/probes`` dir, or a store root — per replica the verdict
+    census, current/newest verdict, golden digest provenance and the
+    measured detection-latency stats over every green→red edge.
+    Corrupt ledger lines are counted, not fatal (the census read
+    discipline)."""
+    from .prober import PROBES_DIR, detection_stats, read_probes
 
-    raise not_ported("obs.report --probes (the blackbox prober)", "14b")
+    if os.path.isdir(path):
+        probes_dir = os.path.join(path, PROBES_DIR)
+        if not os.path.isdir(probes_dir):
+            probes_dir = path
+        ledgers = sorted(
+            os.path.join(probes_dir, f) for f in os.listdir(probes_dir)
+            if f.endswith(".jsonl"))
+    else:
+        ledgers = [path]
+    out = []
+    out.append("== blackbox probes " + "=" * 45)
+    if not ledgers:
+        out.append(f"  (no probe ledgers under {path} — is any replica "
+                   "running with --probe on / HYPEROPT_TPU_PROBE=1?)")
+        return "\n".join(out) + "\n"
+    verdict_names = ("ok", "degraded", "contract", "mismatch", "error")
+    glyph = {"ok": ".", "degraded": "d", "contract": "c",
+             "mismatch": "X", "error": "!"}
+    for ledger in ledgers:
+        recs, corrupt, torn = read_probes(ledger)
+        name = os.path.basename(ledger)[: -len(".jsonl")]
+        line = f"  {name:<24} verdicts {len(recs)}"
+        if corrupt:
+            line += f"  CORRUPT {corrupt}"
+        if torn:
+            line += f"  torn {torn}"
+        out.append(line)
+        if not recs:
+            continue
+        recs = sorted(recs, key=lambda r: (r.get("ts") or 0.0,
+                                           r.get("cycle") or 0))
+        counts = {}
+        for r in recs:
+            counts[r.get("verdict") or "?"] = (
+                counts.get(r.get("verdict") or "?", 0) + 1)
+        census = "  ".join(f"{v} {counts[v]}" for v in verdict_names
+                           if v in counts)
+        extra = sum(n for v, n in counts.items()
+                    if v not in verdict_names)
+        if extra:
+            census += f"  other {extra}"
+        last = recs[-1]
+        out.append(f"    census   {census}")
+        out.append(
+            f"    newest   cycle {int(last.get('cycle') or 0)}"
+            f"  verdict {last.get('verdict')}"
+            + (f"  ({last.get('why')})" if last.get("why") else ""))
+        golden = last.get("golden")
+        if golden:
+            out.append(
+                f"    golden   {golden} [{last.get('golden_source')}]"
+                f"  canary {last.get('canary')}"
+                f"  backend {last.get('backend')}")
+        strip = "".join(glyph.get(r.get("verdict"), "?")
+                        for r in recs[-48:])
+        out.append(f"    verdicts [{strip}]  (newest right)")
+        stats = detection_stats(recs)
+        if stats["episodes"]:
+            out.append(
+                f"    detect   {stats['episodes']} episode(s)  "
+                f"latency min {stats['min_sec']:.2f}s  "
+                f"mean {stats['mean_sec']:.2f}s  "
+                f"max {stats['max_sec']:.2f}s (client-view "
+                "green->red)")
+        evidence = [r.get("evidence") for r in recs if r.get("evidence")]
+        if evidence:
+            out.append(f"    evidence {evidence[-1]}")
+    return "\n".join(out) + "\n"
 
 
 def _slo_lines(metrics, out):

@@ -15,11 +15,8 @@ nothing compiles per cohort here, so no ask is ever served warming), the
 replicated serving fleet (``fleet.py``: leased study shards, per-(shard,
 epoch) WALs, the ownership fence and 307 routing) and the serving planes
 the schedulers feed (``obs/quality.py``, ``obs/load.py``,
-``obs/tenant.py``).
-
-Not ported yet (ROADMAP.md, queue 1, item 14b): the prober's canary
-studies; ``create_study(canary=...)`` and ``--probe`` raise
-``not_ported``.
+``obs/tenant.py``), and the blackbox prober's canary studies
+(``create_study(canary=True)``, ``--probe on``; ``obs/prober.py``).
 """
 
 from ..exceptions import StoreFullError

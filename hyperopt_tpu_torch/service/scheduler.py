@@ -61,9 +61,20 @@ a fleet.
 
 The compile plane has nothing to compile here: a cohort's program is
 ready at once, so no ask is served at the warming floor (see
-``service/compile_plane.py``).  Not ported yet: the prober's canary
-studies (ROADMAP.md, queue 1, item 14b); ``create_study(canary=...)``
-raises.
+``service/compile_plane.py``).
+
+Canary studies (``create_study(canary=True)``, the blackbox prober's,
+``obs/prober.py``) serve exactly as a tenant study does, through the same
+ask, tell and WAL path, but feed none of the quality, load and tenant
+planes nor the census bank: probe traffic is free.  The flag rides the WAL
+admit record, so a resumed canary stays one.
+
+A scheduler given a ``profiler`` (the server passes the
+:class:`~hyperopt_tpu_torch.obs.profiler.DeviceProfiler` it arms from
+``HYPEROPT_TPU_PROFILE``) lets its wave leaders serve that profiler's
+captures: the leader of a tick wave starts a pending capture's session
+before its ticks and stops it after them, on its own thread, the only one
+whose kernels a session records.
 """
 
 from __future__ import annotations
@@ -79,7 +90,7 @@ import numpy as np
 import torch
 
 from .. import chaos, quant
-from .._env import (not_ported, parse_compile_plane, parse_compile_widen, parse_hist_dtype,
+from .._env import (parse_compile_plane, parse_compile_widen, parse_hist_dtype,
                     parse_load, parse_quality, parse_service_degrade, parse_service_idle_sec,
                     parse_service_max_pending, parse_service_max_studies, parse_service_wal,
                     parse_shard, parse_store_gc, parse_store_watermark, parse_tenant,
@@ -175,9 +186,10 @@ class Study:
                  tenant=None, **tpe_kwargs):
         from ..obs.tenant import ANON, sanitize_tenant
 
-        if canary:
-            raise not_ported("create_study(canary=...)", "14b")
         self.study_id = study_id
+        # a blackbox prober's synthetic study: served as any other, kept
+        # out of the planes' telemetry, charging and the census bank
+        self.canary = bool(canary)
         # the principal the study's device time and tells are charged to;
         # "anon" is not stamped into the admit kwargs, so tenantless
         # journals stay byte-identical
@@ -189,6 +201,8 @@ class Study:
         self.space_spec = space_spec
         # the WAL registry entry's kwargs, as the JAX package stamps them
         self.admit_kwargs = {}
+        if self.canary:
+            self.admit_kwargs["canary"] = True
         if self.tenant != ANON:
             self.admit_kwargs["tenant"] = self.tenant
         if n_startup_jobs is not None:
@@ -309,6 +323,8 @@ class Study:
             # ready here, so no study ever warms
             "warming": False,
         }
+        if self.canary:
+            out["canary"] = True
         if self.tenant != "anon":
             out["tenant"] = self.tenant
         return out
@@ -579,12 +595,15 @@ class StudyScheduler:
     resolves ``HYPEROPT_TPU_QUALITY`` / ``_LOAD`` / ``_TENANT`` (each on
     by default), False disarms (the attribute is then None), an instance
     arms it explicitly.  They are built before the WAL replays, so a
-    resume rebuilds their state."""
+    resume rebuilds their state.  ``profiler`` (a
+    :class:`~hyperopt_tpu_torch.obs.profiler.DeviceProfiler`) has the wave
+    leaders serve its captures, one wave each."""
 
     def __init__(self, max_studies=None, max_pending=None, idle_sec=None,
                  device=None, hist_dtype=None, store_root=None, wave_window=0.0,
                  wal=None, degrade=None, overload=None, auto_resume=True,
-                 compile_plane=None, widen=None, quality=None, load=None, tenants=None):
+                 compile_plane=None, widen=None, quality=None, load=None, tenants=None,
+                 profiler=None):
         refuse_armed_knobs("StudyScheduler")
         self.device = resolve_device(device)
         self.hist_dtype = str(hist_dtype) if hist_dtype else parse_hist_dtype()
@@ -613,6 +632,8 @@ class StudyScheduler:
         # shard's lease still stand?", checked at every durability point;
         # None outside a fleet
         self.fence = None
+        self.profiler = None
+        self.set_profiler(profiler)
 
         self._owns_plane = False
         if compile_plane is None and parse_compile_plane():
@@ -689,6 +710,15 @@ class StudyScheduler:
         if auto_resume and self.journal is not None:
             self.resume()
 
+    def set_profiler(self, profiler):
+        """Have this scheduler's wave leaders serve ``profiler``'s captures
+        (None: none)."""
+        if self.profiler is not None:
+            self.profiler.detach_waves()
+        self.profiler = profiler
+        if profiler is not None:
+            profiler.attach_waves()
+
     # -- study lifecycle ---------------------------------------------------
 
     def create_study(self, space, seed=0, study_id=None, space_spec=None, _replay=False,
@@ -733,7 +763,7 @@ class StudyScheduler:
                     raise
             st.note("admit", trace=trace, replay=True if _replay else None)
             self._studies[study_id] = st
-            if self.tenants is not None:
+            if self.tenants is not None and not st.canary:
                 # replay included: WAL replay rebuilds the tenant tables
                 self._plane_call("tenant note_study", self.tenants.note_study, st.tenant)
             self.metrics.counter("service.studies_created").inc()
@@ -754,7 +784,7 @@ class StudyScheduler:
                 self.journal.append(StudyJournal.close_rec(study_id, trace=trace))
                 self.journal.sync()
             st.note("close", trace=trace)
-            if self.tenants is not None:
+            if self.tenants is not None and not st.canary:
                 self._plane_call("tenant forget_study", self.tenants.forget_study, st.tenant)
             self._evict_from_cohort(st)
             self._gc_cohorts()
@@ -1118,7 +1148,9 @@ class StudyScheduler:
         if spec["rand"] or (spec["cap_limit"] is not None and cohort.cap > spec["cap_limit"]):
             return None
         if (self.compile_plane is not None and spec["cand_scale"] == 1.0
-                and not any(r.replay for r in cohort_reqs)):
+                and not any(r.replay for r in cohort_reqs)
+                and not all(r.study.canary for r in cohort_reqs)):
+            # a canary-only tick never feeds the census bank
             self._census_note(cohort, cohort_reqs)
         chaos.io_point("tick", self.metrics)
         self.metrics.gauge("suggest.megakernel").set(1.0 if cohort.fused() else 0.0)
@@ -1236,8 +1268,14 @@ class StudyScheduler:
         links = sorted({r.trace for r in reqs if r.trace})
         if links:
             attrs["links"] = links
-        with _tracer.span("service.wave", **attrs):
-            self._run_wave_inner(reqs)
+        prof = self.profiler
+        cap = prof.wave_begin() if prof is not None else None
+        try:
+            with _tracer.span("service.wave", **attrs):
+                self._run_wave_inner(reqs)
+        finally:
+            if cap is not None:
+                prof.wave_end(cap)
 
     def _charge_wave(self, cohort, cohort_reqs, device_sec):
         """Charge one cohort tick's measured dispatch+readback seconds to
@@ -1245,7 +1283,10 @@ class StudyScheduler:
         tick's rows.  The history bytes follow the JAX package's float32
         formula (per label a float32 value plane and a bool active plane,
         plus the losses and has_loss planes, all ``[n_slots, cap]``),
-        whatever the storage dtype."""
+        whatever the storage dtype.  Canary asks are never charged."""
+        cohort_reqs = [r for r in cohort_reqs if not r.study.canary]
+        if not cohort_reqs:
+            return
         hbm = float(cohort.n_slots * cohort.cap * (len(cohort.cs.labels) * 5 + 5))
         if self.load is not None:
             entries = [(r.study.study_id, len(r.new_ids)) for r in cohort_reqs]
@@ -1530,13 +1571,14 @@ class StudyScheduler:
         ok_loss = float(loss) if ok else None
         st.record_result(ok_loss)
         self.metrics.counter("service.tells").inc()
-        if self.quality is not None:
-            self._plane_call("quality observe_tell", self.quality.observe_tell, st, ok_loss,
-                             replay=replay)
-        if self.load is not None and not replay:
-            self._plane_call("load observe_tell", self.load.observe_tell, st.study_id)
-        if self.tenants is not None:
-            self._plane_call("tenant observe_tell", self.tenants.observe_tell, st.tenant)
+        if not st.canary:  # probe traffic feeds no plane
+            if self.quality is not None:
+                self._plane_call("quality observe_tell", self.quality.observe_tell, st, ok_loss,
+                                 replay=replay)
+            if self.load is not None and not replay:
+                self._plane_call("load observe_tell", self.load.observe_tell, st.study_id)
+            if self.tenants is not None:
+                self._plane_call("tenant observe_tell", self.tenants.observe_tell, st.tenant)
         if st.max_trials is not None and st.n_trials >= st.max_trials and st.n_pending == 0:
             st.state = "done"
             self._evict_from_cohort(st)
@@ -1726,7 +1768,7 @@ class StudyScheduler:
                 st.state = rec.get("state", "active")
                 for rid, tids in (rec.get("served") or {}).items():
                     st.remember_req(rid, tids)
-                if self.quality is not None and st.n_told:
+                if self.quality is not None and st.n_told and not st.canary:
                     # a compacted WAL holds no tell records for the settled
                     # history: fold the store's DONE docs in tid order (docs
                     # past the snapshot's n_told fold through their records)
@@ -1796,10 +1838,10 @@ class StudyScheduler:
                 st.record_result(ok_loss)
                 # the tell-time bookkeeping still folds it: once per told
                 # trial on both replay branches
-                if self.quality is not None:
+                if self.quality is not None and not st.canary:
                     self._plane_call("quality observe_tell", self.quality.observe_tell, st,
                                      ok_loss, replay=True)
-                if self.tenants is not None:
+                if self.tenants is not None and not st.canary:
                     self._plane_call("tenant observe_tell", self.tenants.observe_tell,
                                      st.tenant)
                 if (st.max_trials is not None and st.n_trials >= st.max_trials
@@ -1841,6 +1883,7 @@ class StudyScheduler:
         land), wait for in-flight waves, then compact and close the WAL.
         Returns True when the scheduler quiesced within ``timeout``."""
         with self._cond:
+            self.set_profiler(None)  # a capture waiting for a wave goes back
             self._draining = True
             deadline = time.monotonic() + float(timeout)
             while self._tick_running or self._wave_reqs:

@@ -12,18 +12,20 @@ Endpoints, all JSON, with the JAX package's request and answer shapes:
 * ``POST /tell`` — ``{"study_id", "tid", "loss"}`` (or ``"results": [...]``).
 * ``POST /close`` — ``{"study_id"}``.
 * ``GET /studies``, ``GET /study/<id>/timeline``, ``GET /healthz``,
-  ``GET /metrics`` (Prometheus text: the ``service.*``, ``quality.*`` and
-  ``slo_*`` families), ``GET /snapshot``, ``GET /tenants`` (the tenant
-  table) and ``GET /fleet/load`` (this replica's cost view and the
-  fleet-wide heat read from the store root's heat ledgers).
+  ``GET /metrics`` (Prometheus text: the ``service.*``, ``quality.*``,
+  ``probe.*`` and ``slo_*`` families), ``GET /snapshot``, ``GET /tenants``
+  (the tenant table), ``GET /fleet/load`` (this replica's cost view and
+  the fleet-wide heat read from the store root's heat ledgers) and ``GET
+  /probes`` (the blackbox prober's verdicts; ``{"armed": false}`` when it
+  is off).
 
 Errors are in-band and typed: 400 for a malformed request (a hostile
 ``x-tenant`` header included), 404 for an unknown study, 409 for a
 duplicate tell, 410 for a quarantined study, 429 (+ ``Retry-After`` from
 the wave-time EWMA) for a shed, a per-tenant budget or a quota, 503 while
 draining, for a shard nobody serves yet and for a fenced shard, 507 when
-the store is full, 501 for the prober (not ported), 500 for a handler
-fault, a kernel's build or launch included (recorded in the flight ring).
+the store is full, 500 for a handler fault, a kernel's build or launch
+included (recorded in the flight ring).
 Every request carries a trace id (``obs/reqtrace.py``) and feeds the SLO
 plane (``obs/slo.py``), with the quality, load and per-tenant objectives
 installed beside the armed planes; ``HYPEROPT_TPU_SERVICE_ACCESS_LOG``
@@ -42,9 +44,19 @@ card unless ``--device cpu`` is given.  SIGTERM drains: stop admitting,
 finish the waves in flight, compact and close the WAL (in a fleet, hand
 every held shard off), exit 0.
 
-Not ported: the blackbox prober (``--probe``, ``GET /probes``, canary
-studies; ROADMAP.md queue 1, item 14b), which raises ``not_ported`` or
-answers 501.
+The blackbox prober (``--probe on`` or ``HYPEROPT_TPU_PROBE=1``, period
+``--probe-period`` / ``HYPEROPT_TPU_PROBE_PERIOD``) drives a canary study
+(``POST /study {"canary": true}``) through this server's own URL once
+bound (``obs/prober.py``); its requests carry ``x-probe: 1`` and feed
+neither the SLOs nor the tenant ledger.  Disarmed, ``prober`` is None.
+
+The capture plane: with ``HYPEROPT_TPU_PROFILE=<dir>`` the server owns
+one :class:`~hyperopt_tpu_torch.obs.profiler.DeviceProfiler` that every
+scheduler it fronts serves at its waves.  An SLO fast burn takes one
+capture (``reason="slo_burn"``) and a probe mismatch episode one
+(``reason="probe_mismatch"``); each is asked for on a short-lived thread
+and recorded by the leader of the next wave, the thread whose kernels the
+session sees.
 """
 
 from __future__ import annotations
@@ -52,10 +64,11 @@ from __future__ import annotations
 import json
 import logging
 import math
+import os
 import threading
 import time
 
-from .._env import (not_ported, parse_load, parse_load_slo, parse_quality_slo, parse_reqtrace,
+from .._env import (parse_load, parse_load_slo, parse_quality_slo, parse_reqtrace,
                     parse_service, parse_service_access_log, parse_service_deadline_ms,
                     parse_service_slo, parse_tenant_slo, parse_tenant_top_k,
                     refuse_armed_knobs)
@@ -178,6 +191,12 @@ class ServiceHTTPServer:
             self._tenant_obj_bound = parse_tenant_top_k()
         log_path = parse_service_access_log() if access_log is None else (access_log or None)
         self.access_log = JsonlSink(log_path) if log_path else None
+        # the capture plane (HYPEROPT_TPU_PROFILE=<dir>): one profiler whose
+        # captures the schedulers' wave leaders record; None when unarmed
+        self.profiler = self._arm_capture_plane()
+        # the blackbox prober: None until arm_prober() (no thread, no
+        # probe objective while disarmed)
+        self.prober = None
         self._httpd = None
         self._thread = None
         self._stopped = False
@@ -275,11 +294,36 @@ class ServiceHTTPServer:
         except Exception:  # noqa: BLE001
             pass
 
+    def _arm_capture_plane(self):
+        """The server's :class:`DeviceProfiler` when ``HYPEROPT_TPU_PROFILE``
+        names a capture directory, attached to every scheduler it fronts
+        (a fleet's later shards get it through their kwargs); else None."""
+        from ..obs.profiler import DeviceProfiler, split_profile_mode
+
+        cap_dir, _full = split_profile_mode(os.environ.get("HYPEROPT_TPU_PROFILE"))
+        if cap_dir is None:
+            return None
+        prof = DeviceProfiler(cap_dir)
+        if self.fleet is not None:
+            self.fleet.scheduler_kwargs["profiler"] = prof
+        for sched in self._schedulers():
+            sched.set_profiler(prof)
+        return prof
+
     def _slo_escalation(self):
-        """The SLO plane's fast-burn hook.  The JAX package takes one
-        device capture here; the server arms no capture plane until the
-        service-side tools (item 14b), so this logs."""
-        logger.warning("SLO fast burn-rate alert: error budget burning hot")
+        """The SLO plane's fast-burn hook: one wave capture when the capture
+        plane is armed (the plane's cooldown bounds how often), a warning
+        either way."""
+        if self.profiler is None:
+            logger.warning("SLO fast burn-rate alert: error budget burning hot (no device "
+                           "capture: arm HYPEROPT_TPU_PROFILE=<dir> to get one)")
+            return
+        logger.warning("SLO fast burn-rate alert: error budget burning hot; capturing a wave")
+        # recorded by the next wave's leader: the hook fires on a handler
+        # thread, which must neither wait for a wave nor record one
+        from ..obs.profiler import ESCALATION_CAPTURE_SEC
+
+        self.profiler.capture_async(ESCALATION_CAPTURE_SEC, "slo_burn")
 
     _slo_warned = False
 
@@ -322,7 +366,11 @@ class ServiceHTTPServer:
         """``GET /healthz``: the replica's shard table in a fleet, else the
         same shape with no shards; drain state, WAL and store health."""
         if self.fleet is not None:
-            return self.fleet.healthz()
+            out = self.fleet.healthz()
+            if self.prober is not None:
+                # fail-open: the verdict never flips `ok`
+                out["probe"] = self.prober.healthz_fields()
+            return out
         sched = self.scheduler
         out = {"ok": True, "replica": None, "addr": self.url, "n_shards": None,
                "shards_held": [], "shards": {}, "draining": sched._draining,
@@ -344,6 +392,8 @@ class ServiceHTTPServer:
             except Exception:  # noqa: BLE001 - fail-open roll-up
                 pass
         out["ok"] = out["ok"] and not sched._draining
+        if self.prober is not None:
+            out["probe"] = self.prober.healthz_fields()
         return out
 
     def _studies_status(self):
@@ -367,7 +417,7 @@ class ServiceHTTPServer:
                 if path == "/fleet/load":
                     return 200, self.fleet_load_dict()
                 if path == "/probes":
-                    raise not_ported("GET /probes (the blackbox prober)", "14b")
+                    return 200, self.probes_dict()
                 sid = _timeline_study_id(path)
                 if sid is not None:
                     return 200, self._route(sid).study_timeline(sid)
@@ -377,7 +427,8 @@ class ServiceHTTPServer:
                                                "POST /close", "GET /studies",
                                                "GET /study/<id>/timeline", "GET /healthz",
                                                "GET /metrics", "GET /snapshot",
-                                               "GET /fleet/load", "GET /tenants"]}
+                                               "GET /fleet/load", "GET /tenants",
+                                               "GET /probes"]}
                 raise _RequestError(404, f"no such endpoint: {path}")
             if method != "POST":
                 raise _RequestError(405, f"{method} not supported")
@@ -713,6 +764,22 @@ class ServiceHTTPServer:
         for key in ("fleet", "degrade", "compile", "wal", "store", "quarantined"):
             if key in status:
                 out[key] = status[key]
+        if self.prober is not None:
+            out["probes"] = self.prober.status_dict()
+        return out
+
+    def probes_dict(self):
+        """``GET /probes``: the prober's rolling verdict view, or
+        ``{"armed": false}`` when it is disarmed."""
+        out = {"ok": True, "ts": time.time(), "endpoint": "probes"}
+        if self.prober is None:
+            out["armed"] = False
+            return out
+        try:
+            out.update(self.prober.status_dict())
+        except Exception:  # noqa: BLE001 - fail-open scrape
+            out["armed"] = True
+            out["error"] = "probe status unavailable"
         return out
 
     def _refresh_store_gauges(self):
@@ -765,8 +832,10 @@ class ServiceHTTPServer:
     def drain(self, timeout=30.0):
         """Graceful shutdown: stop admitting, finish in-flight waves,
         compact and close the WAL (in a fleet, hand every held shard off so
-        a survivor adopts it), stop serving.  Returns True when everything
+        a survivor adopts it), stop serving.  The prober stops first, so a
+        drain renders no error verdict.  Returns True when everything
         quiesced within ``timeout``."""
+        self._stop_prober()
         if self.fleet is not None:
             quiesced = self.fleet.drain(timeout=timeout)
         else:
@@ -774,10 +843,62 @@ class ServiceHTTPServer:
         self.stop()
         return quiesced
 
+    def arm_prober(self, period=None, targets=None):
+        """Arm the blackbox prober against this server once it is bound
+        (it probes the bound URL through the real HTTP path): install the
+        ``probe_*`` SLO objectives (only now), put the sealed verdict
+        ledger under the store root when there is one, hand it the capture
+        plane, and start its thread.  Idempotent; returns the prober, or
+        None when the server is not bound."""
+        if self.prober is not None:
+            return self.prober
+        if not targets and self.url is None:
+            logger.warning("probe: server is not bound; prober stays disarmed")
+            return None
+        from .._env import parse_probe_period, parse_probe_slo
+        from ..obs.prober import Prober, _backend_key, probes_path_for
+
+        slo_targets = parse_probe_slo() if self.slo is not None else None
+        if slo_targets:
+            for name, spec in slo_targets.items():
+                self.slo.add_objective(name, spec)
+        if self.fleet is not None:
+            replica, store_root = self.fleet.replica_id, self.fleet.store_root
+            wal_path = None  # per-(shard, epoch) WALs; evidence skips it
+            device = self.fleet.device
+        else:
+            replica, store_root = "single", self.scheduler.store_root
+            j = self.scheduler.journal
+            wal_path = j.path if j is not None else None
+            device = self.scheduler.device
+        self.prober = Prober(
+            list(targets) if targets else [self.url],
+            period=period if period is not None else parse_probe_period(),
+            slo=self.slo if slo_targets else None, metrics=self.metrics,
+            ledger_path=probes_path_for(store_root, replica) if store_root else None,
+            replica=replica, wal_path=wal_path, backend=_backend_key(device),
+            profiler=self.profiler)
+        self.prober.start()
+        logger.info("blackbox prober armed: %s every %.3gs", self.prober.targets,
+                    self.prober.period)
+        return self.prober
+
+    def _stop_prober(self):
+        if self.prober is not None:
+            try:
+                self.prober.stop()
+            except Exception:  # noqa: BLE001
+                pass
+
     def stop(self):
         if self._stopped:
             return
         self._stopped = True
+        self._stop_prober()
+        if self.profiler is not None:
+            # a capture still waiting for a wave goes back to its caller
+            for sched in self._schedulers():
+                sched.set_profiler(None)
         httpd, self._httpd = self._httpd, None
         if httpd is not None:
             try:
@@ -923,12 +1044,14 @@ def main(argv=None):
     p.add_argument("--announce", action="store_true",
                    help="print 'SERVICE_URL <url>' once bound")
     p.add_argument("--probe", default=None, choices=("on", "off"),
-                   help="the blackbox prober (not ported: item 14b)")
-    p.add_argument("--probe-period", type=float, default=None, help="(item 14b)")
+                   help="the blackbox prober: pinned-seed canary studies through this "
+                        "server's HTTP path, verdicts on GET /probes (default: "
+                        "$HYPEROPT_TPU_PROBE or off)")
+    p.add_argument("--probe-period", type=float, default=None,
+                   help="probe cycle period in seconds (default: "
+                        "$HYPEROPT_TPU_PROBE_PERIOD or 30)")
     args = p.parse_args(argv)
 
-    if args.probe == "on" or args.probe_period is not None:
-        raise not_ported("--probe", "14b")
     port = args.port if args.port is not None else parse_service()
     if port is None:
         p.error("no port: pass --port or set HYPEROPT_TPU_SERVICE")
@@ -989,6 +1112,10 @@ def main(argv=None):
             return 1
     if args.announce:
         print(f"SERVICE_URL {server.url}", flush=True)
+    from .._env import parse_probe
+
+    if args.probe == "on" or (args.probe is None and parse_probe()):
+        server.arm_prober(period=args.probe_period)
 
     stop = threading.Event()
     prev = signal.signal(signal.SIGTERM, lambda _s, _f: stop.set())

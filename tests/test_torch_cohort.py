@@ -262,8 +262,8 @@ def test_scheduler_quotas_errors_and_unported_options(tmp_path):
     with pytest.raises(UnknownStudyError):
         sched.ask("nope")
     # the store, the journal, the ladder and the serving planes are ported
-    # (the planes armed by default, an instance arms, False disarms); the
-    # prober's canary studies are not
+    # (the planes armed by default, an instance arms, False disarms), and
+    # so are the prober's canary studies
     from hyperopt_tpu_torch.obs.quality import QualityPlane
     from hyperopt_tpu_torch.obs.tenant import TenantLedger
 
@@ -279,8 +279,10 @@ def test_scheduler_quotas_errors_and_unported_options(tmp_path):
     assert armed.study_status(t)["tenant"] == "t" and ledger.status()["table"]["t"]["studies"] == 1
     with pytest.raises(ValueError, match="reserved"):
         armed.create_study(_space(hp, "mixed"), tenant="other")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        sched.create_study(_space(hp, "mixed"), canary=True)
+    c = armed.create_study(_space(hp, "mixed"), canary=True)
+    assert armed.study_status(c)["canary"] is True and "canary" not in armed.study_status(t)
+    assert armed._studies[c].admit_kwargs == {"canary": True}
+    assert ledger.status()["table"]["t"]["studies"] == 1 and "anon" not in ledger.status()["table"]
 
 
 def test_study_mix_serves_every_study_inside_its_space(monkeypatch):

@@ -634,3 +634,91 @@ def test_armed_obs_run_on_the_card_is_bit_for_bit_and_launches_ei_diff(cuda_devi
     assert ticks and kernels
     assert any(a["ts"] <= k["ts"] and k["ts"] + k.get("dur", 0) <= a["ts"] + a["dur"]
                for k in kernels for a in ticks)
+
+
+@pytest.mark.parametrize("route", ["on", "off"])
+def test_canary_digest_on_the_card_is_the_same_twice_on_each_route(cuda_device, monkeypatch,
+                                                                   route):
+    """The prober's canary, served in process on the card, digests the
+    same twice on the fused route and on grouped ``ei_diff``, and its TPE
+    asks launch that route's kernel."""
+    from hyperopt_tpu_torch.obs import prober
+
+    monkeypatch.setenv("HYPEROPT_TPU_MEGAKERNEL", route)
+    kernel = megakernel.fused_sample_ei if route == "on" else megakernel.ei_diff
+    before = kernel.launches
+    first = prober.local_digest(device=cuda_device)
+    assert kernel.launches - before >= prober.CANARY["asks"] - prober.CANARY["n_startup"]
+    assert prober.local_digest(device=cuda_device) == first and not first[1]
+
+
+def test_server_capture_from_another_thread_holds_the_wave_kernels(cuda_device, tmp_path,
+                                                                   monkeypatch):
+    """``HYPEROPT_TPU_PROFILE`` arms the server's capture plane; a capture
+    asked for on another thread is recorded by the thread that leads the
+    next wave, so it holds that wave's kernel."""
+    import threading
+    import time
+
+    from hyperopt_tpu_torch.service.server import ServiceHTTPServer
+
+    monkeypatch.setenv("HYPEROPT_TPU_PROFILE", str(tmp_path / "caps"))
+    srv = ServiceHTTPServer(0, scheduler=StudyScheduler(device=cuda_device, wal=False),
+                            trace=False, slo=False)
+    sid = srv.handle("POST", "/study", {"zoo": "quadratic1", "seed": 2,
+                                        "n_startup_jobs": 1})[1]["study_id"]
+
+    def ask_tell():
+        code, a = srv.handle("POST", "/ask", {"study_id": sid})
+        assert code == 200
+        srv.handle("POST", "/tell", {"study_id": sid, "tid": a["trials"][0]["tid"],
+                                     "loss": 1.0})
+
+    ask_tell()  # the startup ask: no tick wave
+    box = {}
+    th = threading.Thread(target=lambda: box.setdefault(
+        "rec", srv.profiler.capture(1.0, reason="test")))
+    th.start()
+    deadline = time.monotonic() + 60
+    while srv.profiler._request is None and time.monotonic() < deadline:
+        time.sleep(0.005)
+    before = megakernel.fused_sample_ei.launches
+    ask_tell()  # this thread leads the wave
+    th.join(timeout=180)
+    rec = box["rec"]
+    assert megakernel.fused_sample_ei.launches == before + 1
+    assert rec["ok"] and rec["scope"] == "wave leader" and rec["waves"] == 1, rec
+    assert rec["kernels"] >= 1 and set(rec["stop_split"]) >= {"sync_sec", "stop_sec"}
+
+
+def test_stall_capture_states_its_kernel_count(cuda_device, tmp_path):
+    """A stall capture runs on the watchdog's thread while another thread
+    launches kernels: its record states its scope and kernel count, and
+    with no kernel it is no device trace."""
+    import threading
+
+    from hyperopt_tpu_torch.obs.profiler import DeviceProfiler
+
+    prof = DeviceProfiler(str(tmp_path / "caps"), stall_capture_sec=0.5)
+    stop = threading.Event()
+    args = _inputs(2, 1024, 1025, cuda_device)
+
+    def loop():
+        while not stop.is_set():
+            megakernel.ei_diff(*args)
+            torch.cuda.synchronize()
+
+    th = threading.Thread(target=loop)
+    th.start()
+    stall = {"kind": "stall"}
+    try:
+        rec = prof.capture_on_stall(stall)
+    finally:
+        stop.set()
+        th.join()
+    assert rec["scope"] == "watchdog thread" and isinstance(rec["kernels"], int)
+    assert stall["capture"]["kernels"] == rec["kernels"]
+    if rec["kernels"] == 0:
+        assert not rec["ok"] and "host_trace_json" in rec and "trace_json" not in rec
+    else:
+        assert rec["ok"] and "trace_json" in rec

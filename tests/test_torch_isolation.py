@@ -16,6 +16,7 @@ import torch
 import hyperopt_tpu_torch as port
 from hyperopt_tpu_torch import convert, hp, spaces
 from hyperopt_tpu_torch.base import PaddedHistory
+from hyperopt_tpu_torch.obs import prober
 from hyperopt_tpu_torch.service import FleetReplica, StudyScheduler, server
 from hyperopt_tpu_torch.service.server import ServiceHTTPServer
 
@@ -51,7 +52,9 @@ def test_import_loads_neither_jax_nor_the_jax_package():
             "hyperopt_tpu_torch.obs.profiler, hyperopt_tpu_torch.obs.devmem, "
             "hyperopt_tpu_torch.obs.health, hyperopt_tpu_torch.obs.export, "
             "hyperopt_tpu_torch.obs.report, hyperopt_tpu_torch.obs.trajectory, "
-            "hyperopt_tpu_torch.progress, hyperopt_tpu_torch._build; "
+            "hyperopt_tpu_torch.progress, hyperopt_tpu_torch._build, "
+            "hyperopt_tpu_torch.obs.prober, hyperopt_tpu_torch.obs.top, "
+            "hyperopt_tpu_torch.plotting; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hyperopt_tpu')]; "
             "assert not bad, bad")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
@@ -96,6 +99,8 @@ def test_default_device_entry_points_raise_without_cuda(tmp_path):
         lambda: StudyScheduler(store_root=str(tmp_path)),
         lambda: FleetReplica(str(tmp_path / "fleet"), lease_ttl=1.0),
         lambda: server.main(["--port", "0", "--fleet", "--store", str(tmp_path / "fleet")]),
+        lambda: prober.local_digest(),
+        lambda: prober.main(["--regen-golden"]),
         lambda: convert.cohort_stack_from_numpy(
             {"vals": {}, "active": {}, "losses": np.zeros((1, 16), np.float32),
              "has_loss": np.zeros((1, 16), bool)}),

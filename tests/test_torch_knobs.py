@@ -4,11 +4,14 @@ item)`` at the entry points that read it, or accepted with no effect
 because it only tunes XLA.  Knobs are set with ``monkeypatch`` only, so
 none outlives its test.  The run's observability knobs, refused until
 their planes were ported, are honoured: ``ObsConfig.from_env`` reads them
-as the reference's does and ``fmin`` arms what they name."""
+as the reference's does and ``fmin`` arms what they name.  So are the
+prober's (``HYPEROPT_TPU_PROBE*``), the last knobs to be refused: no knob
+is refused now, and the refusal mechanism is checked on a stand-in."""
 
 import importlib.util
 import pathlib
 import re
+import threading
 
 import numpy as np
 import pytest
@@ -190,10 +193,23 @@ def test_honoured_knobs_are_read_by_the_port():
             assert name in source or f'"{name}"' in env_src.split("KNOBS = {")[0], name
 
 
-@pytest.mark.parametrize("name", sorted(n for n, k in _env.KNOBS.items()
-                                        if k.treatment == "refused"))
+# the knobs that were refused last (the blackbox prober's); a knob refused
+# again later joins this list
+ONCE_REFUSED = ("HYPEROPT_TPU_PROBE", "HYPEROPT_TPU_PROBE_PERIOD", "HYPEROPT_TPU_PROBE_SLO")
+
+
+@pytest.mark.parametrize("name", sorted(ONCE_REFUSED))
 def test_refused_knob_raises_naming_its_item(name, no_knobs, tmp_path):
+    """A refused knob raises at its entry points; the prober's, refused
+    until the prober was ported, are honoured there now."""
     knob = _env.KNOBS[name]
+    if knob.treatment == "honoured":
+        assert not knob.refused_at and knob.item is None
+        no_knobs.setenv(name, ARMING[name].format(tmp=tmp_path))
+        for entry in ("StudyScheduler", "ServiceHTTPServer"):
+            ENTRY[entry]()  # nothing refuses it
+        assert not any(tmp_path.iterdir())
+        return
     if not knob.refused_at and knob.under is None:
         # the entry point that reads it is not in the port yet
         module = "hyperopt_tpu_torch." + knob.read_in.split()[0].replace("/", ".")
@@ -303,11 +319,20 @@ def test_unset_knobs_change_nothing(no_knobs):
 
 
 def test_not_ported_names_the_knob_and_its_value(no_knobs):
-    no_knobs.setenv("HYPEROPT_TPU_PROBE", "on")
-    with pytest.raises(NotImplementedError, match=r"HYPEROPT_TPU_PROBE='on' .*item 14"):
+    """The refusal mechanism stays for the next path that is not ported: a
+    stand-in refused knob raises at the entry point that reads it, naming
+    itself, its value and its item."""
+    assert _env.refuse_armed_knobs("ServiceHTTPServer") is None
+    no_knobs.setitem(_env.KNOBS, "HYPEROPT_TPU_STANDIN", _env.Knob(
+        "refused", "99", "service/server", ("ServiceHTTPServer",), lambda r: r == "on"))
+    no_knobs.setenv("HYPEROPT_TPU_STANDIN", "on")
+    with pytest.raises(NotImplementedError, match=r"HYPEROPT_TPU_STANDIN='on' .*item 99"):
         ENTRY["ServiceHTTPServer"]()
     StudyScheduler(device="cpu")  # read by the server only: the scheduler is unaffected
-    no_knobs.delenv("HYPEROPT_TPU_PROBE")
+    no_knobs.setenv("HYPEROPT_TPU_STANDIN", "off")
+    ENTRY["ServiceHTTPServer"]()
+    no_knobs.delitem(_env.KNOBS, "HYPEROPT_TPU_STANDIN")
+    no_knobs.delenv("HYPEROPT_TPU_STANDIN")
     no_knobs.setenv("HYPEROPT_TPU_DEVMEM", "5")  # honoured now: the run samples
     assert _multihost().n_evals == 4
     no_knobs.delenv("HYPEROPT_TPU_DEVMEM")
@@ -356,3 +381,65 @@ def test_obs_knobs_are_honoured(name, no_knobs, tmp_path):
         "HYPEROPT_TPU_COMPILE_CACHE": lambda: built == (tmp_path / "cc").resolve(),
     }[name]
     assert armed()
+
+
+# the prober's knobs: values the port reads as the reference does (a
+# malformed one warns and keeps the default in both)
+PROBE = {
+    "HYPEROPT_TPU_PROBE": ("parse_probe", ["", "1", "on", "off", "maybe"]),
+    "HYPEROPT_TPU_PROBE_PERIOD": ("parse_probe_period", ["", "2.5", "0", "soon"]),
+    "HYPEROPT_TPU_PROBE_SLO": ("parse_probe_slo",
+                               ["", "off", "avail=99.5,ask_p99_ms=500", "golden=90,junk"]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PROBE))
+def test_probe_knobs_are_honoured(name, no_knobs, tmp_path):
+    """Each ``HYPEROPT_TPU_PROBE*`` knob is read as the reference reads
+    it, and the server arms the prober with what it names."""
+    from hyperopt_tpu import _env as ref_env
+
+    reader, values = PROBE[name]
+    assert _env.KNOBS[name].treatment == "honoured" and not _env.KNOBS[name].refused_at
+    for raw in values:
+        no_knobs.setenv(name, raw)
+        assert getattr(_env, reader)() == getattr(ref_env, reader)(), raw
+    no_knobs.setenv(name, {"HYPEROPT_TPU_PROBE": "1", "HYPEROPT_TPU_PROBE_PERIOD": "45",
+                           "HYPEROPT_TPU_PROBE_SLO": "ask_p99_ms=750"}[name])
+    srv = ServiceHTTPServer(0, scheduler=StudyScheduler(device="cpu", wal=False))
+    assert srv.prober is None  # the knob arms it only once the server is bound
+    try:
+        assert srv.start()
+        p = srv.arm_prober()
+        if name == "HYPEROPT_TPU_PROBE":
+            assert _env.parse_probe()
+        elif name == "HYPEROPT_TPU_PROBE_PERIOD":
+            assert p.period == 45.0
+        else:
+            assert srv.slo.objectives["probe_ask_p99_ms"].threshold_ms == 750.0
+    finally:
+        srv.stop()
+    assert "hyperopt-prober" not in {t.name for t in threading.enumerate()}
+
+
+def test_profile_knob_arms_a_capture_plane_at_the_server(no_knobs, tmp_path):
+    """``HYPEROPT_TPU_PROFILE`` arms the server's capture plane (it only
+    logged before): the server's profiler is every scheduler's, an SLO fast
+    burn takes one wave capture, and unset it arms nothing."""
+    import time
+
+    assert ServiceHTTPServer(0, scheduler=StudyScheduler(device="cpu")).profiler is None
+    no_knobs.setenv("HYPEROPT_TPU_PROFILE", str(tmp_path / "caps"))
+    sched = StudyScheduler(device="cpu", wal=False)
+    srv = ServiceHTTPServer(0, scheduler=sched)
+    assert srv.profiler is not None and sched.profiler is srv.profiler
+    assert srv.profiler.out_dir == str(tmp_path / "caps")
+    sid = sched.create_study(_SPACE, seed=1, n_startup_jobs=0)
+    srv._slo_escalation()
+    deadline = time.monotonic() + 60.0
+    while not srv.profiler.captures and time.monotonic() < deadline:
+        (a,) = sched.ask(sid)
+        sched.tell(sid, a["tid"], 1.0)
+    (rec,) = srv.profiler.captures
+    assert rec["reason"] == "slo_burn" and rec["scope"] == "wave leader"
+    assert rec["waves"] == 1 and rec["kernels"] == 0  # the CPU runs no device kernel

@@ -2,8 +2,9 @@
 (on the CPU) with the port's client, both cross-wirings, the same status
 and JSON keys on every error path, a real SIGKILLed server process
 resumed bit for bit, the serving planes' routes answering as the
-reference's, and the prober, which is not ported, refusing with its
-ROADMAP item."""
+reference's, and the prober's options, once refused, honoured: ``--probe
+on`` arms a prober on a real server process, and canary studies and ``GET
+/probes`` answer as the reference's."""
 
 import os
 import signal
@@ -229,29 +230,69 @@ def test_sigkilled_server_process_resumes_bit_for_bit(tmp_path):
     assert got == want
 
 
-# the prober and its canary studies wait for ROADMAP item 14b
-UNPORTED = [
-    ("--probe", "14b", lambda d: port_server.main(["--port", "0", "--probe", "on"])),
-    ("canary", "14b", lambda d: StudyScheduler(device="cpu").create_study(
-        zoo.ZOO["quadratic1"].space, canary=True)),
-]
+def _probe_on_arms_the_server_process(root):
+    """``--probe on``: the server process probes itself once bound; its
+    verdicts show on ``GET /probes`` and in the sealed ledger under the
+    store root, and SIGTERM drains it cleanly."""
+    env = {**os.environ, "HYPEROPT_TPU_WATCHDOG": "0", "PYTHONPATH": REPO}
+    proc = subprocess.Popen([sys.executable, "-m", "hyperopt_tpu_torch.service.server",
+                             "--port", "0", "--announce", "--device", "cpu", "--store", root,
+                             "--probe", "on", "--probe-period", "30"],
+                            stdout=subprocess.PIPE, text=True, env=env, cwd=REPO)
+    try:
+        url = proc.stdout.readline().split()[-1]
+        client = RefClient(url)  # the reference's client reads the port's /probes
+        deadline = time.monotonic() + 120
+        probes = client.request("GET", "/probes")[1]
+        while not probes.get("last") and time.monotonic() < deadline:  # a finished cycle
+            time.sleep(0.1)
+            probes = client.request("GET", "/probes")[1]
+        assert probes["armed"] and probes["backend"] == "cpu", probes
+        assert probes["verdicts"]["ok"] == probes["cycles"] >= 1, probes
+        assert client.request("GET", "/healthz")[1]["probe"]["green"]
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    from hyperopt_tpu_torch.obs.prober import probes_path_for, read_probes
+
+    recs, corrupt, _ = read_probes(probes_path_for(root, "single"))
+    assert recs and corrupt == 0 and {r["verdict"] for r in recs} == {"ok"}
+
+
+def _canary_study_is_admitted(root):
+    sched = StudyScheduler(device="cpu", store_root=root)
+    sid = sched.create_study(zoo.ZOO["quadratic1"].space, canary=True,
+                             space_spec={"zoo": "quadratic1"})
+    assert sched.study_status(sid)["canary"] is True
+    assert StudyScheduler(device="cpu", store_root=root)._studies[sid].canary  # WAL replay
+
+
+# the prober's options, refused until the prober was ported, are honoured
+UNPORTED = [("--probe", _probe_on_arms_the_server_process),
+            ("canary", _canary_study_is_admitted)]
 
 
 @pytest.mark.parametrize("i", range(len(UNPORTED)))
 def test_unported_options_name_their_item(i, tmp_path):
-    what, item, call = UNPORTED[i]
-    with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
-        call(str(tmp_path))
-    assert not os.listdir(tmp_path)
+    what, check = UNPORTED[i]
+    check(str(tmp_path))
+    assert os.listdir(tmp_path), what  # the store root holds what it armed
 
 
 @pytest.mark.parametrize("request_", [("GET", "/probes", {}, {}),
                                       ("POST", "/study", {"zoo": "branin", "canary": True}, {})])
 def test_unported_planes_answer_501_over_http(request_):
+    """Both once answered 501; they answer as the reference's now."""
     method, path, body, headers = request_
-    srv = _port_server()
+    srv, ref = _port_server(), _ref_server(wal=False)
     status, payload = srv.handle(method, path, body, headers=headers)
-    assert status == 501 and "item 14" in payload["error"]
+    ref_status, ref_payload = ref.handle(method, path, body, headers=headers)
+    assert status == ref_status == 200
+    assert set(payload) == set(ref_payload)
+    if path == "/probes":
+        assert payload["armed"] is False and payload["endpoint"] == "probes"
+    else:
+        assert srv.scheduler.study_status(payload["study_id"])["canary"] is True
     assert srv.handle("GET", "/studies", {}, headers={"x-tenant": "\n"})[0] == 400
 
 
