@@ -230,6 +230,22 @@ Phases, each of which fails the run (non-zero exit) on its own:
     states the kernels it holds.
     Every ``ei_diff`` shape of the phase is held against the plain
     version afterwards.
+17. The capacity-sharded device loop (``HYPEROPT_TPU_SHARD`` past
+    ``HYPEROPT_TPU_HIST_SHARD_MIN``) on meshes that name the card 8 times
+    as this process's devices, as phase 13 (c) names it twice: every
+    entry lies on the card, so the runner keeps its state whole and
+    replays the unsharded loop's graphs.  (a) branin at 1000 evaluations
+    and 1024 candidates, the threshold at 8: ``fmin(device_loop=True)``
+    equals the unsharded run bit for bit over all 1000 trials, ``ei_diff``
+    launches from the TPE graph on every TPE step (counted from that run
+    alone), and the card follows the CPU on the first 40 steps (rtol
+    1e-4, atol 1e-5); (b) hartmann6 at the default threshold's capacity,
+    65,536 rows, 24 startup and 200 TPE steps by ``DeviceLoopRunner``
+    chunks, the unsharded runner and then the sharded one, each counted
+    and timed in its own run: rows and states bit for bit, chunk wall per
+    TPE step and peak ``torch.cuda.max_memory_allocated`` of each, then
+    one profiled chunk (device ms and kernel launches per step).  The
+    ``ei_diff`` shapes are held against the plain version afterwards.
 
 It imports neither JAX nor the JAX package.  Before the last line it
 prints one JSON line describing every kernel and the card's name and power
@@ -4687,6 +4703,268 @@ def phase_obs(report):
     return launches, shapes
 
 
+# phase 17: the capacity-sharded device loop on meshes that name the card
+# 8 times as this process's devices.  Every entry lies on the card, so the
+# runner keeps its state whole and replays the unsharded loop's graphs.
+# (a) branin at BASELINE config 2's width (1000 evaluations, 1024
+# candidates) with the split threshold at 8; (b) hartmann6 at the default
+# threshold's capacity (65,536 rows), 24 startup and 200 TPE steps by
+# runner chunks, then one profiled chunk
+SL_ENTRIES = 8
+SL_SHARD_MIN = 8
+SL_H6 = dict(cap=65536, startup=24, tpe=200, candidates=1024)
+
+
+class _ShardedLoop:
+    """``HYPEROPT_TPU_SHARD=8`` with the split threshold at ``shard_min``
+    (None: the default) and this process's devices named ``n`` times, as
+    phase 13 (c) names the card twice; ``n=1`` unsets the knob."""
+
+    def __init__(self, n, shard_min=SL_SHARD_MIN):
+        self.n, self.shard_min = n, shard_min
+
+    def __enter__(self):
+        from hyperopt_tpu_torch.parallel import sharding
+
+        self._real = real = sharding.local_devices
+        self._old = {"HYPEROPT_TPU_SHARD": _md_set_env("HYPEROPT_TPU_SHARD",
+                                                       "8" if self.n > 1 else None),
+                     "HYPEROPT_TPU_HIST_SHARD_MIN": _md_set_env(
+                         "HYPEROPT_TPU_HIST_SHARD_MIN",
+                         None if self.shard_min is None else str(self.shard_min))}
+        n = self.n
+        sharding.local_devices = lambda device=None: real(device) * n
+        return self
+
+    def __exit__(self, *exc):
+        from hyperopt_tpu_torch.parallel import sharding
+
+        sharding.local_devices = self._real
+        for k, v in self._old.items():
+            _md_set_env(k, v)
+
+
+def _sl_runner(dom, cfg, n_startup, cap, device):
+    from hyperopt_tpu_torch import device_fmin
+    from hyperopt_tpu_torch.base import Domain
+
+    return device_fmin.DeviceLoopRunner(Domain(dom.traceable, dom.space), cfg, n_startup, cap,
+                                        device=device)
+
+
+def _sl_splits(cap):
+    """True when ``cap`` splits over the suggest mesh the knob arms."""
+    from hyperopt_tpu_torch._env import parse_shard
+    from hyperopt_tpu_torch.parallel import sharding
+
+    shard = parse_shard()
+    return shard is not None and sharding.should_shard_history(
+        cap, sharding.suggest_mesh(shard, device=DEVICE))
+
+
+def _sl_rows(runner, steps, seed0=100):
+    """Rows of ``steps`` steps in chunks of ``runner.CHUNK`` (seeds
+    ``seed0 + start``)."""
+    import numpy as np
+
+    state, rows = runner.init_state(), []
+    for start in range(0, steps, runner.CHUNK):
+        state, r = runner.run_chunk(state, start, min(start + runner.CHUNK, steps),
+                                    seed=seed0 + start)
+        rows.append(r)
+    return np.concatenate(rows)
+
+
+def _sl_branin(out, launches):
+    """(a): fmin(device_loop=True) over the card named 8 times against the
+    unsharded run, its launches counted from its own run; the card
+    against the CPU on 40 steps."""
+    import numpy as np
+
+    import hyperopt_tpu_torch as port
+    from hyperopt_tpu_torch import zoo
+
+    dom = zoo.ZOO["branin"]
+    cfg = {"prior_weight": 1.0, "n_EI_candidates": MAIN_CANDIDATES, "gamma": 0.25, "LF": 25}
+    tuned = functools.partial(port.tpe.suggest, n_EI_candidates=MAIN_CANDIDATES)
+    cs = trials_cs(dom)
+    L = len(cs.labels)
+    tpe_steps = MAIN_EVALS - LOOP_STARTUP
+
+    def fmin_stream():
+        trials = port.Trials(device=DEVICE)
+        _sync()
+        t0 = time.perf_counter()
+        port.fmin(dom.traceable, dom.space, algo=tuned, max_evals=MAIN_EVALS, trials=trials,
+                  rstate=np.random.default_rng(0), show_progressbar=False, device_loop=True)
+        _sync()
+        wall = time.perf_counter() - t0
+        if not all(in_space(cs, d) for d in trials.trials):
+            raise AssertionError("phase 17 (a): a proposal outside the space")
+        return [(d["misc"]["vals"], d["result"]) for d in trials.trials], wall
+
+    with _ShardedLoop(1):
+        want, out["unsharded_fmin_wall_sec"] = fmin_stream()
+    with _ShardedLoop(SL_ENTRIES):
+        if not _sl_splits(MAIN_EVALS):
+            raise AssertionError(f"phase 17 (a): {MAIN_EVALS} rows do not split over "
+                                 f"{SL_ENTRIES} entries")
+        ei_counts_zero()
+        got, wall = fmin_stream()
+        counts = ei_counts()
+        card = _sl_rows(_sl_runner(dom, cfg, LOOP_STARTUP, MAIN_EVALS, DEVICE),
+                        LOOP_CHECK_TRIALS)
+        cpu = _sl_rows(_sl_runner(dom, cfg, LOOP_STARTUP, MAIN_EVALS, "cpu"),
+                       LOOP_CHECK_TRIALS)
+    same = 0
+    for a, b in zip(cpu, card):
+        if not (np.allclose(a[:L], b[:L], rtol=1e-4, atol=1e-5)
+                and np.array_equal(a[L:2 * L], b[L:2 * L])):
+            break
+        same += 1
+    res = out[f"{SL_ENTRIES}_entries"] = {
+        "fmin_bitwise": got == want, "fmin_wall_sec": wall, "ei_diff": counts,
+        "cpu_agreement": {"trials": LOOP_CHECK_TRIALS, "matching_prefix": same}}
+    launches[f"sharded_device_loop_{SL_ENTRIES}"] = counts["graph_launches"] + counts["launches"]
+    log(f"phase 17 (a): {out}")
+    if not res["fmin_bitwise"]:
+        raise AssertionError("phase 17 (a): the sharded fmin(device_loop=True) left the "
+                             "unsharded stream")
+    if same != LOOP_CHECK_TRIALS:
+        raise AssertionError(f"phase 17 (a): the card's loop left the CPU's at trial {same}")
+    # the unsharded run captured the loop's graphs: every TPE step of the
+    # sharded run is a replay of the graph that holds ei_diff
+    if counts["graph_launches"] != tpe_steps or counts["launches"] or counts["captures"]:
+        raise AssertionError(f"phase 17 (a): ei_diff did not launch from the TPE graph on "
+                             f"every one of {tpe_steps} steps: {counts}")
+
+
+def _sl_profiled_chunk(runner, state, start, seed):
+    """One chunk of ``CHUNK`` TPE replays under torch.profiler: device ms
+    and kernel launches per step, or None where the session recorded no
+    kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = runner.CHUNK
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        runner.run_chunk(state, start, start + steps, seed=seed)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        log("phase 17: the profiler recorded no kernel; launches per step not measured")
+        return None
+    ei = [e for e in kernels if "ei_diff_kernel" in e.name]
+    return {"steps": steps,
+            "device_ms_per_step": sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps,
+            "kernel_launches_per_step": len(kernels) / steps,
+            "ei_diff_kernels": len(ei),
+            "ei_diff_device_ms_per_step": sum(e.time_range.elapsed_us() for e in ei) / 1e3 / steps}
+
+
+def _sl_hartmann6(out, launches):
+    """(b): hartmann6 at cap 65,536, the unsharded runner and then the one
+    over the card named 8 times, each counted and timed in its own run:
+    rows and states bit for bit, chunk wall per TPE step, peak memory,
+    then one profiled chunk."""
+    import numpy as np
+    import torch
+
+    from hyperopt_tpu_torch import zoo
+
+    c = SL_H6
+    dom = zoo.ZOO["hartmann6"]
+    cfg = {"prior_weight": 1.0, "n_EI_candidates": c["candidates"], "gamma": 0.25, "LF": 25}
+    steps = c["startup"] + c["tpe"]
+    res, rows, states, runners = {}, {}, {}, {}
+    for k, n in (("unsharded", 1), ("sharded", SL_ENTRIES)):
+        with _ShardedLoop(n, shard_min=None):
+            if (k == "sharded") != _sl_splits(c["cap"]):
+                raise AssertionError(f"phase 17 (b): the {k} runner's split is not armed as "
+                                     f"asked at cap {c['cap']}")
+            r = runners[k] = _sl_runner(dom, cfg, c["startup"], c["cap"], DEVICE)
+        state, got, ms, counts, peak = r.init_state(), [], [], {}, 0
+        for start in range(0, steps, r.CHUNK):
+            limit = min(start + r.CHUNK, steps)
+            if DEVICE == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            _sync()
+            ei_counts_zero()  # this runner's chunk alone
+            t0 = time.perf_counter()
+            state, chunk_rows = r.run_chunk(state, start, limit, seed=500 + start)
+            wall = time.perf_counter() - t0
+            for name, v in ei_counts().items():
+                counts[name] = counts.get(name, 0) + v
+            got.append(chunk_rows)
+            if start >= c["startup"] + r.CHUNK:  # warm TPE chunks (no capture)
+                ms.append(1e3 * wall / (limit - start))
+            if DEVICE == "cuda":
+                peak = max(peak, torch.cuda.max_memory_allocated())
+        rows[k], states[k] = np.concatenate(got), state
+        res[k] = {"ei_diff": counts, "peak_gib": peak / 2 ** 30,
+                  "chunk_ms_per_tpe_step": {"median": statistics.median(ms), "min": min(ms),
+                                            "steps": len(ms) * r.CHUNK}}
+    loop = runners["sharded"]._loop
+    shared = loop is runners["unsharded"]._loop
+    res["capture_sec"] = dict(loop.capture_sec)
+    res["ei_diff_nodes"] = dict(loop.kernel_nodes)
+    res["rows_bitwise"] = bool(np.array_equal(rows["sharded"], rows["unsharded"],
+                                              equal_nan=True))
+
+    def leaves(state):
+        vals, active, losses, has_loss = state
+        return (*vals.values(), *active.values(), losses, has_loss)
+
+    res["states_bitwise"] = all(torch.equal(a, b) for a, b in
+                                zip(leaves(states["sharded"]), leaves(states["unsharded"])))
+    res["profiled_chunk"] = (_sl_profiled_chunk(runners["sharded"], states["sharded"], steps,
+                                                seed=900) if DEVICE == "cuda" else None)
+    counts = res["sharded"]["ei_diff"]
+    launches["sharded_device_loop_h6"] = counts["graph_launches"] + counts["launches"]
+    out["hartmann6"] = res
+    log(f"phase 17 (b): {res}")
+    if not (shared and res["rows_bitwise"] and res["states_bitwise"]):
+        raise AssertionError(f"phase 17 (b): the sharded runner left the unsharded loop "
+                             f"(shared loop {shared}, rows {res['rows_bitwise']}, states "
+                             f"{res['states_bitwise']})")
+    # the unsharded runner: one eager warm-up, then replays; the sharded
+    # one replays the unsharded runner's TPE graph on every step
+    plain = res["unsharded"]["ei_diff"]
+    if plain["graph_launches"] + plain["launches"] != c["tpe"] or plain["launches"] > 1:
+        raise AssertionError(f"phase 17 (b): the unsharded runner's ei_diff {plain} for "
+                             f"{c['tpe']} TPE steps")
+    if counts["graph_launches"] != c["tpe"] or counts["launches"] or counts["captures"]:
+        raise AssertionError(f"phase 17 (b): the sharded runner's ei_diff {counts} for "
+                             f"{c['tpe']} TPE steps")
+    pc = res["profiled_chunk"]
+    if pc is not None and pc["ei_diff_kernels"] != runners["sharded"].CHUNK:
+        raise AssertionError(f"phase 17 (b): the profiled chunk ran ei_diff "
+                             f"{pc['ei_diff_kernels']} times in {runners['sharded'].CHUNK} steps")
+
+
+def _sync():
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_sharded_loop(report):
+    """Phase 17: the capacity-sharded device loop on meshes that name the
+    card more than once."""
+    out = report["sharded_loop"] = {}
+    launches = {}
+    t_phase = time.perf_counter()
+    with LaunchLog() as shapes_log:
+        _sl_branin(out, launches)
+        _sl_hartmann6(out, launches)
+        shapes = {tuple(s[1:]) for s in shapes_log.take() if s[0] == "ei_diff"}
+    out["ei_diff_shapes"] = sorted(shapes)
+    out["phase_sec"] = time.perf_counter() - t_phase
+    log(f"phase 17: {out['phase_sec']:.1f} s; ei_diff shapes {out['ei_diff_shapes']}")
+    return launches, shapes
+
+
 def main():
     if sys.argv[1:2] == ["--md-controller"]:
         return md_controller(sys.argv[2:])
@@ -4737,13 +5015,15 @@ def main():
     svc_launches, svc_shapes, svc_fused_shapes = phase_service_plane(report)
     fleet_launches, fleet_shapes, fleet_fused_shapes = phase_fleet(report)
     obs_launches, obs_shapes = phase_obs(report)
-    # every shape the widened wave and phases 12-16 gave ei_diff is held
+    sl_launches, sl_shapes = phase_sharded_loop(report)
+    # every shape the widened wave and phases 12-17 gave ei_diff is held
     # against the plain version on every candidate: phase 1 planned them,
     # and any it missed is checked here
     planned = {tuple(r["shape"]) for r in rows}
     extra = [check_ei(P, n, m, 0, plain_cmp(P, n, m), False, report["ptxas"])
              for P, n, m in sorted(set(widened_shapes) | set(ml_shapes) | set(md_shapes)
-                                   | set(svc_shapes) | set(fleet_shapes) | set(obs_shapes))
+                                   | set(svc_shapes) | set(fleet_shapes) | set(obs_shapes)
+                                   | set(sl_shapes))
              if (P, n, m) not in planned]
     report["ei_diff_shapes_unplanned"] = [r["shape"] for r in extra]
     rows += extra
@@ -4776,7 +5056,7 @@ def main():
                                              "sharded_scheduler_fused")},
                              **{k: v["ei_diff"] for k, v in svc_launches.items()},
                              **{k: v["ei_diff"] for k, v in fleet_launches.items()},
-                             **obs_launches},
+                             **obs_launches, **sl_launches},
         "shape": tick["shape"], "max_abs_err": tick["max_abs_err"],
         "max_err": max(r["max_abs_err"] for r in rows),
         "ms": tick["ms"], "device_ms": tick["device_ms"], "plain_ms": tick["plain_ms"],

@@ -750,8 +750,11 @@ KNOBS = {
                                        "(the worker CLI's default)"),
     "HYPEROPT_TPU_CHAOS": Knob("honoured", None, "chaos (filestore's io site, the "
                                "worker's trial site)"),
-    "HYPEROPT_TPU_SHARD": Knob("honoured", None, "algos/tpe, device_fmin.DeviceLoopRunner, "
-                               "service/scheduler (parse_shard)"),
+    # past the threshold DeviceLoopRunner keeps a split that lies on its
+    # own device whole; a mesh over more than one card raises, item 12c
+    "HYPEROPT_TPU_SHARD": Knob("honoured", None, "algos/tpe, device_fmin.DeviceLoopRunner "
+                               "(the capacity-sharded loop), service/scheduler "
+                               "(parse_shard)"),
     "HYPEROPT_TPU_HIST_SHARD_MIN": Knob("honoured", None, "parallel/sharding "
                                         "(parse_hist_shard_min)"),
     "HYPEROPT_TPU_ALLGATHER_TIMEOUT": Knob("honoured", None, "parallel/driver "

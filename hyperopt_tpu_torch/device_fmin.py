@@ -322,10 +322,15 @@ class DeviceLoopRunner:
     float type (int8/fp8 degrade to bf16: the state is stored by a plain
     cast).  ``capture=False`` runs the steps eagerly on the card too.
 
-    Under ``HYPEROPT_TPU_SHARD`` the loop runs unsharded unless the
-    capacity would split over the suggest mesh
-    (``sharding.should_shard_history``: two or more devices and a cap past
-    ``HYPEROPT_TPU_HIST_SHARD_MIN``), which is not ported yet (item 12b)."""
+    Under ``HYPEROPT_TPU_SHARD``, when the capacity splits over the
+    suggest mesh (``sharding.should_shard_history``: two or more entries
+    and a cap at or past ``HYPEROPT_TPU_HIST_SHARD_MIN`` that they
+    divide), the JAX package splits the state along the capacity axis and
+    each TPE step fits the parts gathered in mesh order: the unsharded
+    history, so its trials are the unsharded loop's.  Where every entry
+    lies on the runner's device the parts would share one memory, so the
+    state stays whole and the loop is the unsharded one, bit for bit.  A
+    mesh over more than one card raises (item 12c)."""
 
     CHUNK = 10
 
@@ -340,8 +345,10 @@ class DeviceLoopRunner:
             from .parallel import sharding
 
             mesh = sharding.suggest_mesh(parse_shard(), device=self.device)
-            if sharding.should_shard_history(self.cap, mesh):
-                raise not_ported("a capacity-sharded device loop", "12b")
+            if (sharding.should_shard_history(self.cap, mesh)
+                    and not sharding.on_one_device(mesh, self.device)):
+                raise not_ported("a capacity-sharded device loop over more than one "
+                                 "card", "12c")
         self.hist_dtype = quant.mirror_float_dtype(parse_hist_dtype())
         self.capture = bool(capture)
         # the loop program is shared by runner instances: a warm rerun of

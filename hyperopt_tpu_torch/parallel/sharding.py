@@ -61,6 +61,7 @@ __all__ = [
     "suggest_batched_shardings",
     "hist_shard_threshold",
     "should_shard_history",
+    "on_one_device",
 ]
 
 TRIALS_AXIS = "trials"
@@ -404,6 +405,23 @@ def entry_history(history, i, device):
     return {"losses": leaf(history["losses"]), "has_loss": leaf(history["has_loss"]),
             "vals": {l: leaf(v) for l, v in history["vals"].items()},
             "active": {l: leaf(v) for l, v in history["active"].items()}}
+
+
+def on_one_device(mesh, device=None):
+    """True when every entry of ``mesh`` (and ``device``, when given) is
+    the same device: a mesh that only names one card, or the CPU, more
+    than once."""
+    devs = {_canonical(d) for d in mesh.devices.flat}
+    if device is not None:
+        devs.add(_canonical(device))
+    return len(devs) == 1
+
+
+def _canonical(device):
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def _fold_leaf(leaf, values, idx):

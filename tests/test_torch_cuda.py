@@ -173,6 +173,32 @@ def test_device_loop_graph_replay_equals_eager_and_follows_cpu(cuda_device):
     assert megakernel.ei_diff.graph_launches - before[1] == stats["replays"]["tpe"] == 19
 
 
+@pytest.mark.parametrize("entries", [2, 8])
+def test_sharded_device_loop_on_repeated_card_entries_equals_unsharded(cuda_device, monkeypatch,
+                                                                       entries):
+    from hyperopt_tpu_torch.parallel import sharding
+
+    plain, plain_state = _loop_rows(cuda_device, True)
+    real = sharding.local_devices
+    monkeypatch.setattr(sharding, "local_devices", lambda device=None: real(device) * entries)
+    monkeypatch.setenv("HYPEROPT_TPU_SHARD", "8")
+    monkeypatch.setenv("HYPEROPT_TPU_HIST_SHARD_MIN", "8")
+    before = (megakernel.ei_diff.captures, megakernel.ei_diff.graph_launches)
+    graph, graph_state = _loop_rows(cuda_device, True)
+    # every entry is the card: the runner replays the unsharded loop's
+    # graphs, capturing nothing, and gives its bits
+    np.testing.assert_array_equal(graph, plain)
+    for a, b in zip(_whole(graph_state), _whole(plain_state)):
+        assert torch.equal(a, b)
+    assert megakernel.ei_diff.captures == before[0]
+    assert megakernel.ei_diff.graph_launches - before[1] == 20  # every TPE step a replay
+
+
+def _whole(state):
+    vals, active, losses, has_loss = state
+    return [*vals.values(), *active.values(), losses, has_loss]
+
+
 def test_device_loop_capture_refuses_a_copy_from_the_host(cuda_device):
     def obj(d):
         # a tensor made from host data on every call: the warm-up runs it,

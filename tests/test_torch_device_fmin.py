@@ -298,19 +298,28 @@ def test_rand_suggest_matches_reference_and_unknown_kwargs_are_refused():
 
 
 def test_shard_knob_raises_not_ported(monkeypatch):
-    """Only a loop whose capacity would split over two or more devices
-    is refused (item 12b); the one-device mesh of the CPU runs it."""
+    """The capacity-sharded loop is honoured: a cap of 20 that splits over
+    a 2-entry CPU mesh builds a runner whose chunk equals the unsharded
+    runner's; only a mesh over more than one card is refused (item 12c)."""
     from hyperopt_tpu_torch.parallel import sharding
 
     monkeypatch.setenv("HYPEROPT_TPU_SHARD", "auto")
     monkeypatch.setenv("HYPEROPT_TPU_HIST_SHARD_MIN", "16")
     pdom = Domain(zoo.ZOO["branin"].traceable, zoo.ZOO["branin"].space)
-    device_fmin.DeviceLoopRunner(pdom, CFG, 5, 20, device="cpu")
+    plain = device_fmin.DeviceLoopRunner(pdom, CFG, 5, 20, device="cpu")
+    _, want = plain.run_chunk(plain.init_state(), 0, 10, seed=3)
     two = sharding.suggest_mesh(devices=["cpu", "cpu"])
+    cards = sharding.suggest_mesh(devices=["cuda:0", "cuda:1"])
     monkeypatch.setattr(sharding, "suggest_mesh", lambda n=None, devices=None, device=None: two)
-    with pytest.raises(NotImplementedError, match="capacity-sharded device loop .*item 12b"):
+    assert sharding.should_shard_history(20, two)
+    split = device_fmin.DeviceLoopRunner(pdom, CFG, 5, 20, device="cpu")
+    _, got = split.run_chunk(split.init_state(), 0, 10, seed=3)
+    np.testing.assert_array_equal(got, want)
+    monkeypatch.setattr(sharding, "suggest_mesh", lambda n=None, devices=None, device=None: cards)
+    device_fmin.DeviceLoopRunner(pdom, CFG, 5, 15, device="cpu")  # 15 < 16 rows do not split
+    with pytest.raises(NotImplementedError,
+                       match="capacity-sharded device loop over more than one card .*item 12c"):
         device_fmin.DeviceLoopRunner(pdom, CFG, 5, 20, device="cpu")
-    device_fmin.DeviceLoopRunner(pdom, CFG, 5, 15, device="cpu")  # 15 rows do not split
 
 
 def test_shard_knob_on_one_device_runs_the_loop_unchanged(monkeypatch):

@@ -54,7 +54,7 @@ def test_import_loads_neither_jax_nor_the_jax_package():
             "hyperopt_tpu_torch.obs.report, hyperopt_tpu_torch.obs.trajectory, "
             "hyperopt_tpu_torch.progress, hyperopt_tpu_torch._build, "
             "hyperopt_tpu_torch.obs.prober, hyperopt_tpu_torch.obs.top, "
-            "hyperopt_tpu_torch.plotting; "
+            "hyperopt_tpu_torch.plotting, hyperopt_tpu_torch.pallas_ei; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hyperopt_tpu')]; "
             "assert not bad, bad")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
