@@ -246,6 +246,19 @@ Phases, each of which fails the run (non-zero exit) on its own:
     TPE step and peak ``torch.cuda.max_memory_allocated`` of each, then
     one profiled chunk (device ms and kernel launches per step).  The
     ``ei_diff`` shapes are held against the plain version afterwards.
+18. The end-to-end service gates at their smallest sizes, as the operator
+    runs them (``scripts/torch_slo_smoke.py`` and
+    ``scripts/torch_store_chaos_smoke.py`` through
+    ``scripts/torch_gate_common.py``, started together as three
+    processes, the STORE gate's two phases apart, each driving its own
+    server processes on the card): one
+    traced ask whose trace id agrees across the response, the WAL, the
+    timeline, ``obs.report --study`` and the access log; seeded WAL
+    corruption that ``scrub`` finds, a restart that quarantines (410),
+    healthy studies bit for bit, ``scrub --repair``; ENOSPC answered 507
+    with ``Retry-After`` and recovered.  Each gate's in-process reference
+    must have launched both kernels, and the phase must end within
+    ``GATE_PHASE_SEC``.
 
 It imports neither JAX nor the JAX package.  Before the last line it
 prints one JSON line describing every kernel and the card's name and power
@@ -315,7 +328,9 @@ EI_SHAPES = [(1, 24, 129, 0, None, False), (4, 1000, 257, 0, None, False),
              # 3 and model selection's 5 numeric labels, 32 candidates)
              (3, 24, 129, 0, None, False), (3, 48, 129, 0, None, False),
              (3, 384, 129, 0, None, False), (3, 32, 41, 0, None, False),
-             (5, 32, 41, 0, None, False)]
+             (5, 32, 41, 0, None, False),
+             # phase 18: a one-label study's tick in the gates (cap 16)
+             (1, 24, 17, 0, None, False)]
 # fused_sample_ei shapes (P, N, m, dead components, bounded): the service
 # tick (256 slots x 6 labels, 24 candidates), the wide tick (4 x 1024
 # candidates), an unbounded group, a group with dead components, N = m = 1,
@@ -323,7 +338,8 @@ EI_SHAPES = [(1, 24, 129, 0, None, False), (4, 1000, 257, 0, None, False),
 # cap 128) unsharded and one shard of it on a 2-entry mesh
 FUSED_SHAPES = [(256 * 6, 24, 65, 0, True), (256 * 6, 4 * 1024, 129, 0, True),
                 (256 * 2, 24, 65, 0, False), (64, 1000, 300, 77, True), (64, 1, 1, 0, True),
-                (256 * 6, 4 * 24, 129, 0, True), (128 * 6, 4 * 24, 129, 0, True)]
+                (256 * 6, 4 * 24, 129, 0, True), (128 * 6, 4 * 24, 129, 0, True),
+                (1, 24, 17, 0, True)]  # phase 18: a one-label study's tick (cap 16)
 # what the kernels line keeps of each phase-1 shape
 SHAPE_KEYS = ("shape", "dead", "below_all_dead", "bounded", "max_abs_err", "ms", "device_ms",
               "device_ms_by", "plain_ms", "bound_ms", "bound_share", "per_thread", "splits",
@@ -4965,6 +4981,62 @@ def phase_sharded_loop(report):
     return launches, shapes
 
 
+GATE_PHASE_SEC = 90.0
+#: the gates phase 18 runs, at their smallest sizes (the sizes of
+#: tests/test_torch_gates.py's tier-1 cases, but two SLO studies: a gate's
+#: study 1 is on the ei_diff route, the others on the fused one)
+_STORE_SMALL = ["scripts/torch_store_chaos_smoke.py", "--n-studies", "4", "--budget", "5",
+                "--extra", "2", "--corrupt-p", "0.05", "--enospc-clients", "2",
+                "--enospc-budget", "3"]  # past the 2 startup asks: a TPE ask each
+GATES = {"slo": ["scripts/torch_slo_smoke.py", "--n-studies", "2"],
+         "store_corruption": [*_STORE_SMALL, "--phases", "1"],
+         "store_enospc": [*_STORE_SMALL, "--phases", "2"]}
+
+
+def phase_gates(report):
+    """Phase 18: the SLO and STORE gates as subprocesses, side by side."""
+    out = report["gates"] = {}
+    t_phase = time.perf_counter()
+    env = {**os.environ, "HYPEROPT_TPU_WATCHDOG": "0"}
+    env.pop("HYPEROPT_TPU_CHAOS", None)
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {name: subprocess.Popen([sys.executable, os.path.join(root, args[0]), *args[1:],
+                                     "--device", DEVICE], env=env,
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+             for name, args in GATES.items()}
+    launches = {}
+    for name, proc in procs.items():
+        try:
+            text, _ = proc.communicate(timeout=GATE_PHASE_SEC * 3)
+        except subprocess.TimeoutExpired:
+            for p in procs.values():
+                p.kill()
+            raise AssertionError(f"phase 18: the {name} gate ran past {GATE_PHASE_SEC * 3} s")
+        os.makedirs(os.path.join("chiprun_out", "gates"), exist_ok=True)
+        with open(os.path.join("chiprun_out", "gates", f"phase18_{name}.log"), "w") as f:
+            f.write(text)
+        res = [json.loads(ln.split(None, 1)[1]) for ln in text.splitlines()
+               if ln.startswith("GATE_RESULT ")]
+        if proc.returncode != 0 or not res:
+            raise AssertionError(f"phase 18: the {name} gate failed (rc {proc.returncode}):\n"
+                                 f"{text[-3000:]}")
+        out[name] = res[0]
+        k = res[0]["kernels"]
+        if DEVICE == "cuda" and not (k["ei_diff"] > 0 and k["fused_sample_ei"] > 0):
+            raise AssertionError(f"phase 18: the {name} gate's reference launched {k}")
+        launches[f"gate_{name}"] = {"ei_diff": k["ei_diff"],
+                                    "fused_sample_ei": k["fused_sample_ei"]}
+    out["phase_sec"] = time.perf_counter() - t_phase
+    log(f"phase 18: {out['phase_sec']:.1f} s; gates "
+        f"{ {k: round(v['wall_s'], 1) for k, v in out.items() if k in GATES} } s; "
+        f"reference launches {launches}")
+    if out["phase_sec"] > GATE_PHASE_SEC:
+        raise AssertionError(f"phase 18 took {out['phase_sec']:.1f} s, past its "
+                             f"{GATE_PHASE_SEC} s")
+    return launches
+
+
 def main():
     if sys.argv[1:2] == ["--md-controller"]:
         return md_controller(sys.argv[2:])
@@ -5016,6 +5088,7 @@ def main():
     fleet_launches, fleet_shapes, fleet_fused_shapes = phase_fleet(report)
     obs_launches, obs_shapes = phase_obs(report)
     sl_launches, sl_shapes = phase_sharded_loop(report)
+    gate_launches = phase_gates(report)
     # every shape the widened wave and phases 12-17 gave ei_diff is held
     # against the plain version on every candidate: phase 1 planned them,
     # and any it missed is checked here
@@ -5056,7 +5129,8 @@ def main():
                                              "sharded_scheduler_fused")},
                              **{k: v["ei_diff"] for k, v in svc_launches.items()},
                              **{k: v["ei_diff"] for k, v in fleet_launches.items()},
-                             **obs_launches, **sl_launches},
+                             **obs_launches, **sl_launches,
+                             **{k: v["ei_diff"] for k, v in gate_launches.items()}},
         "shape": tick["shape"], "max_abs_err": tick["max_abs_err"],
         "max_err": max(r["max_abs_err"] for r in rows),
         "ms": tick["ms"], "device_ms": tick["device_ms"], "plain_ms": tick["plain_ms"],
@@ -5073,7 +5147,8 @@ def main():
                              "sharded_cohort": md_launches["sharded_cohort_fused"],
                              "sharded_scheduler": md_launches["sharded_scheduler_fused"],
                              **{k: v["fused_sample_ei"] for k, v in svc_launches.items()},
-                             **{k: v["fused_sample_ei"] for k, v in fleet_launches.items()}},
+                             **{k: v["fused_sample_ei"] for k, v in fleet_launches.items()},
+                             **{k: v["fused_sample_ei"] for k, v in gate_launches.items()}},
         "shape": ftick["shape"], "max_abs_err": ftick["max_abs_err"],
         "max_err": max(r["max_abs_err"] for r in frows),
         "ms": ftick["ms"], "device_ms": ftick["device_ms"], "plain_ms": ftick["plain_ms"],

@@ -46,12 +46,19 @@ from .utils import coarse_utcnow
 __all__ = [
     "fmin",
     "FMinIter",
+    "PhaseTimings",
     "space_eval",
     "fmin_pass_expr_memo_ctrl",
     "generate_trials_to_calculate",
+    "partial",
 ]
 
 logger = logging.getLogger(__name__)
+
+# the tracer's aggregate view (obs/trace.py), re-exported as the JAX
+# package does, and functools.partial for ``from ... fmin import partial``
+PhaseTimings = obs_mod.PhaseTimings
+partial = functools.partial
 
 
 def fmin_pass_expr_memo_ctrl(f):
@@ -197,7 +204,7 @@ class FMinIter:
                     overrides["profile_full"] = full_dir
                 obs = dataclasses.replace(obs_mod.ObsConfig.resolve(obs), **overrides)
         if not hasattr(trials, "phase_timings"):
-            trials.phase_timings = obs_mod.PhaseTimings()
+            trials.phase_timings = PhaseTimings()
         self.obs = obs_mod.RunObs.resolve(obs, totals=trials.phase_timings)
         trials.obs_run_id = self.obs.run_id
         trials.obs_metrics = self.obs.metrics

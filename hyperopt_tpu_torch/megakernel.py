@@ -30,7 +30,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["mode", "supports", "armed", "build_cohort", "ei_diff", "ei_diff_plain",
-           "fused_sample_ei", "fused_sample_ei_plain", "ei_cost", "fused_cost"]
+           "ei_diff_reference", "pallas_available", "fused_sample_ei", "fused_sample_ei_plain",
+           "ei_cost", "fused_cost"]
 
 # log(sqrt(2*pi))
 _LOG_SQRT_2PI = 0.9189385332046727
@@ -52,6 +53,24 @@ def ei_diff_plain(x, wb, mb, sb, wa, ma, sa):
         return torch.logsumexp(comp, dim=1)
 
     return model(wb, mb, sb) - model(wa, ma, sa)
+
+
+#: the JAX package's name for the kernel's plain twin
+ei_diff_reference = ei_diff_plain
+
+
+def pallas_available():
+    """True where ``ei_diff`` launches its CUDA kernel (the JAX package's
+    question is whether Mosaic lowers): a card is visible and the kernel's
+    library is built or ``nvcc`` can build it."""
+    if not torch.cuda.is_available():
+        return False
+    from . import _build
+
+    try:
+        return _build._target("ei_diff")[1].exists() or bool(_build._nvcc())
+    except RuntimeError:
+        return False
 
 
 def _check(name, x, tables, rows=()):

@@ -400,6 +400,9 @@ class Prober:
         digests = {r["target"]: r.get("digest") for r in results
                    if r.get("digest") and not r.get("flagged")}
         diverged = len(set(digests.values())) > 1
+        # each target's stream judged against the golden, before the
+        # cross-replica check below can turn its verdict
+        golden_ok = [r["verdict"] != "mismatch" for r in results]
         if self.golden is None and self.golden_source == "tofu":
             clean = [r for r in results
                      if r["verdict"] == "ok" and r.get("digest")]
@@ -420,6 +423,28 @@ class Prober:
                     r["why"] = "replica stream divergence"
             if _VERDICTS.index(r["verdict"]) > _VERDICTS.index(worst):
                 worst = r["verdict"]
+        # a target is judged against the golden; with no golden (TOFU, no
+        # clean agreement yet) the replicas' divergence is the only judge.
+        # An evidence bundle, and the SLO feed below, follow that judge: a
+        # replica whose stream equals the golden writes none (ROADMAP queue
+        # 3, item 14)
+        for r, ok in zip(results, golden_ok):
+            ev = r.pop("_evidence", None)
+            if r["verdict"] == "mismatch" and ev is not None and (
+                    self.golden is None or not ok):
+                r["evidence"] = self._evidence_bundle(r, *ev) or None
+        # SLO feed: golden_match burns on mismatch only (an honest degrade
+        # is the ladder doing its job; availability burned already if
+        # requests failed)
+        if self.slo is not None:
+            for r, ok in zip(results, golden_ok):
+                try:
+                    self.slo.record_probe(
+                        "probe_golden_match",
+                        ok if self.golden is not None else r["verdict"] != "mismatch",
+                        now=self._clock())
+                except Exception:  # noqa: BLE001
+                    pass
         for r in results:
             r["ts"] = now
             r["verdict_cycle"] = worst
@@ -540,16 +565,8 @@ class Prober:
         if rec["verdict"] == "mismatch":
             rec["evidence"] = self._evidence_bundle(
                 rec, responses, timeline) or None
-        # SLO feed: golden_match burns on mismatch only (an honest
-        # degrade is the ladder doing its job; availability burned
-        # already if requests failed)
-        if self.slo is not None:
-            try:
-                self.slo.record_probe("probe_golden_match",
-                                      rec["verdict"] != "mismatch",
-                                      now=self._clock())
-            except Exception:  # noqa: BLE001
-                pass
+        else:  # the cross-replica check may still turn it (run_cycle)
+            rec["_evidence"] = (responses, timeline)
         return rec
 
     def _probe_req(self, transport, method, path, body, responses,

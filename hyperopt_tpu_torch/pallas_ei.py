@@ -10,22 +10,6 @@ whether the kernel can launch here.  New code imports ``megakernel``.
 
 from __future__ import annotations
 
-import torch
-
-from .megakernel import ei_diff
-from .megakernel import ei_diff_plain as ei_diff_reference
+from .megakernel import ei_diff, ei_diff_reference, pallas_available
 
 __all__ = ["ei_diff", "ei_diff_reference", "pallas_available"]
-
-
-def pallas_available():
-    """True where ``ei_diff`` launches its CUDA kernel: a card is visible
-    and the kernel's library is built or ``nvcc`` can build it."""
-    if not torch.cuda.is_available():
-        return False
-    from . import _build
-
-    try:
-        return _build._target("ei_diff")[1].exists() or bool(_build._nvcc())
-    except RuntimeError:
-        return False

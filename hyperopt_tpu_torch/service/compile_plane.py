@@ -15,10 +15,13 @@ process from ``csrc/``.  So here:
 * :class:`SignatureCensus` is the JAX package's, byte for byte (sealed
   JSONL next to the WAL), so a census either package wrote feeds the
   other;
-* :meth:`CompilePlane.warm_from_census` builds the CUDA kernel libraries
-  (``_build.build_all``) and runs one tick of each of the top-N census
-  cohorts at their recorded shapes on zero stacks, so the first request
-  after a restart meets built kernels and a warm caching allocator;
+* :meth:`CompilePlane.warm_from_census` readies a server process's
+  device before it listens, plane or no plane: it builds the CUDA kernel
+  libraries (``_build.build_all``) and ticks a one-label cohort on each
+  route, so the process's one-time CUDA set-up lands in no request's wave
+  and in no shard's heat; then it runs one tick of each of the top-N
+  census cohorts at their recorded shapes on zero stacks, so the first
+  request after a restart meets a warm caching allocator;
 * a WAL whose asks the JAX package's plane served while warming journals
   them as ``algo: "rand"``, and the scheduler's replay regenerates them
   through ``rand.suggest`` as it trusts every journaled algo.
@@ -153,6 +156,11 @@ def _space_from_wire(spec):
     return None
 
 
+#: the one-label space whose cohort :meth:`CompilePlane.warm_from_census`
+#: ticks on each route before the census
+_WARM_SPACE = {"x": {"dist": "uniform", "args": [0.0, 1.0]}}
+
+
 class CompilePlane:
     """The census and the pre-listener warm-up of one server process
     (module docstring).  ``device`` is where :meth:`warm_from_census`
@@ -208,16 +216,30 @@ class CompilePlane:
         return True
 
     def warm_from_census(self, top_n=None):
-        """Build the CUDA kernel libraries and run one tick of each of the
-        ``top_n`` most used census cohorts (``HYPEROPT_TPU_COMPILE_BANK_TOP_N``
-        by default) on this thread, before a server listens.  Returns
-        ``(warmed, deferred)``: the rest warm on live traffic."""
+        """Ready the device on this thread before a server listens: build
+        the CUDA kernel libraries, tick a one-label cohort on the fused
+        route and one on the grouped ``ei_diff`` route on zero stacks (on
+        the card this creates the CUDA context and loads what a tick
+        launches; without it the first wave of the process, and the heat
+        of the shard it served, carried that set-up: ROADMAP queue 3, item
+        15), then run one tick of each of the ``top_n`` most used census
+        cohorts (``HYPEROPT_TPU_COMPILE_BANK_TOP_N`` by default).  Returns
+        ``(warmed, deferred)`` census cohorts: the rest warm on live
+        traffic."""
         from .._env import parse_compile_bank_top_n
 
         if self.device.type == "cuda":
             from .._build import build_all
 
             build_all()
+        from .scheduler import tpe_cfg
+
+        for widen in (False, True):
+            self._warm({"spec": {"space": _WARM_SPACE}, "cfg": tpe_cfg({}), "widen": widen})
+        if self.device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize(self.device)
         if self.census is None:
             return 0, 0
         if top_n is None:
@@ -253,3 +275,4 @@ class CompilePlane:
             "bank_hits": 0,
             "census_path": self.census.path if self.census is not None else None,
         }
+

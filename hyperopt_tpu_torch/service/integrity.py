@@ -177,18 +177,25 @@ def seal_obj(rec):
     return out
 
 
+#: the checksum as :func:`seal` writes it: 8 lowercase hex digits
+_SEAL_VALUE = re.compile(r"[0-9a-f]{8}")
+#: the tail :func:`seal` splices onto a line, with its key damaged in place:
+#: a one-character key other than ``c`` over 8 hex digits
+_DAMAGED_SEAL = re.compile(r',"[^"c]":"[0-9a-fA-F]{8}"\}$')
+
+
 def verify_obj(rec):
     """Classify one PARSED record: pops ``c`` in place and returns
-    :data:`OK` / :data:`UNCHECKED` / :data:`CORRUPT`."""
+    :data:`OK` / :data:`UNCHECKED` / :data:`CORRUPT`.  A checksum that is
+    not 8 lowercase hex digits is corrupt: :func:`seal` never writes one
+    (an upper-case digit is a flipped bit)."""
     c = rec.pop(CHECKSUM_FIELD, None)
     if c is None:
         return UNCHECKED
-    try:
-        want = int(str(c), 16)
-    except ValueError:
+    if not isinstance(c, str) or not _SEAL_VALUE.fullmatch(c):
         return CORRUPT
     have = crc32c(_canonical(rec).encode("utf-8"))
-    return OK if have == want else CORRUPT
+    return OK if have == int(c, 16) else CORRUPT
 
 
 def iter_checked_jsonl(path):
@@ -208,7 +215,12 @@ def iter_checked_jsonl(path):
     Streams with a ONE-line lag (only the final line needs the
     is-this-the-tail lookahead) — a multi-GB WAL or event stream is
     never materialized wholesale, the contract ``iter_jsonl`` always
-    kept."""
+    kept.
+
+    A parseable line whose sealed tail lost its ``c`` key to a flipped
+    bit (``,"b":"<8 hex>"}``) is ``corrupt``, not ``unchecked``: every
+    single-bit flip of a sealed line is detected (ROADMAP queue 3, item
+    17)."""
     def classify(lineno, line, is_last):
         try:
             rec = json.loads(line)
@@ -218,7 +230,10 @@ def iter_checked_jsonl(path):
             # unparseable, or a bare scalar/list this plane never wrote
             return Checked(None, TORN if is_last else CORRUPT,
                            lineno, line)
-        return Checked(rec, verify_obj(rec), lineno, line)
+        status = verify_obj(rec)
+        if status == UNCHECKED and _DAMAGED_SEAL.search(line):
+            status = CORRUPT
+        return Checked(rec, status, lineno, line)
 
     with open(path, encoding="utf-8", errors="replace") as f:
         prev = None  # (lineno, stripped line)

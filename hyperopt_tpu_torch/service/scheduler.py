@@ -174,6 +174,22 @@ _STUDY_EVENT_CAP = 512
 _SERVED_REQ_CAP = 128
 
 
+def tpe_cfg(tpe_kwargs):
+    """``tpe.suggest_async``'s cfg, field for field, from a study's TPE
+    keyword arguments: each field it reads is popped from ``tpe_kwargs``,
+    and the others take the defaults."""
+    return {
+        "prior_weight": float(tpe_kwargs.pop("prior_weight", tpe._default_prior_weight)),
+        "n_EI_candidates": int(tpe_kwargs.pop("n_EI_candidates",
+                                              tpe._default_n_EI_candidates)),
+        "gamma": float(tpe_kwargs.pop("gamma", tpe._default_gamma)),
+        "LF": int(tpe_kwargs.pop("linear_forgetting", tpe._default_linear_forgetting)),
+        "ei_select": str(tpe_kwargs.pop("ei_select", "argmax")),
+        "ei_tau": float(tpe_kwargs.pop("ei_tau", 1.0)),
+        "prior_eps": float(tpe_kwargs.pop("prior_eps", 0.0)),
+    }
+
+
 class Study:
     """One study's serving state: compiled space, trials, RNG stream and
     quotas.  The ask/tell flow over these fields reproduces ``FMinIter``'s
@@ -213,17 +229,7 @@ class Study:
         self.n_startup_jobs = int(n_startup_jobs if n_startup_jobs is not None
                                   else tpe._default_n_startup_jobs)
         self.max_trials = None if max_trials is None else int(max_trials)
-        # tpe.suggest_async's cfg, field for field
-        self.cfg = {
-            "prior_weight": float(tpe_kwargs.pop("prior_weight", tpe._default_prior_weight)),
-            "n_EI_candidates": int(tpe_kwargs.pop("n_EI_candidates",
-                                                  tpe._default_n_EI_candidates)),
-            "gamma": float(tpe_kwargs.pop("gamma", tpe._default_gamma)),
-            "LF": int(tpe_kwargs.pop("linear_forgetting", tpe._default_linear_forgetting)),
-            "ei_select": str(tpe_kwargs.pop("ei_select", "argmax")),
-            "ei_tau": float(tpe_kwargs.pop("ei_tau", 1.0)),
-            "prior_eps": float(tpe_kwargs.pop("prior_eps", 0.0)),
-        }
+        self.cfg = tpe_cfg(tpe_kwargs)
         if tpe_kwargs:
             raise TypeError(f"unknown study kwargs: {sorted(tpe_kwargs)}")
         self.cfg_key = tuple(sorted(self.cfg.items()))

@@ -1056,13 +1056,14 @@ def main(argv=None):
     if port is None:
         p.error("no port: pass --port or set HYPEROPT_TPU_SERVICE")
     from .._env import parse_compile_plane
+    from .compile_plane import CompilePlane, census_path_for
 
-    plane = None
-    if args.compile_plane == "on" or (args.compile_plane is None and parse_compile_plane()):
-        from .compile_plane import CompilePlane, census_path_for
-
-        plane = CompilePlane(census_path=census_path_for(args.store) if args.store else None,
-                             device=args.device)
+    # the plane keeps its census only when it is on; its pre-listener
+    # warm-up readies the device either way (queue 3, item 15)
+    plane_on = args.compile_plane == "on" or (args.compile_plane is None
+                                              and parse_compile_plane())
+    plane = CompilePlane(census_path=census_path_for(args.store)
+                         if plane_on and args.store else None, device=args.device)
     wal = None  # resolved from the environment
     if args.wal is not None:
         raw = args.wal.strip().lower()
@@ -1088,9 +1089,8 @@ def main(argv=None):
             scheduler_kwargs={"max_studies": args.max_studies,
                               "max_pending": args.max_pending, "idle_sec": args.idle_sec,
                               "wave_window": 0.005,
-                              "compile_plane": plane if plane is not None else False})
-        if plane is not None:
-            plane.warm_from_census(top_n=args.bank_top_n)
+                              "compile_plane": plane if plane_on else False})
+        plane.warm_from_census(top_n=args.bank_top_n)
         server = ServiceHTTPServer(port, fleet=replica)
         if not server.start():
             return 1
@@ -1103,10 +1103,9 @@ def main(argv=None):
         sched = StudyScheduler(max_studies=args.max_studies, max_pending=args.max_pending,
                                idle_sec=args.idle_sec, device=args.device,
                                store_root=args.store, wal=wal, wave_window=0.005,
-                               compile_plane=plane if plane is not None else False)
-        if plane is not None:
-            # after the WAL resume, before the listener opens
-            plane.warm_from_census(top_n=args.bank_top_n)
+                               compile_plane=plane if plane_on else False)
+        # after the WAL resume, before the listener opens
+        plane.warm_from_census(top_n=args.bank_top_n)
         server = ServiceHTTPServer(port, scheduler=sched)
         if not server.start():
             return 1

@@ -666,8 +666,8 @@ def test_armed_obs_run_on_the_card_is_bit_for_bit_and_launches_ei_diff(cuda_devi
 def test_canary_digest_on_the_card_is_the_same_twice_on_each_route(cuda_device, monkeypatch,
                                                                    route):
     """The prober's canary, served in process on the card, digests the
-    same twice on the fused route and on grouped ``ei_diff``, and its TPE
-    asks launch that route's kernel."""
+    same twice on the fused route and on grouped ``ei_diff``, the card's
+    committed golden, and its TPE asks launch that route's kernel."""
     from hyperopt_tpu_torch.obs import prober
 
     monkeypatch.setenv("HYPEROPT_TPU_MEGAKERNEL", route)
@@ -676,6 +676,7 @@ def test_canary_digest_on_the_card_is_the_same_twice_on_each_route(cuda_device, 
     first = prober.local_digest(device=cuda_device)
     assert kernel.launches - before >= prober.CANARY["asks"] - prober.CANARY["n_startup"]
     assert prober.local_digest(device=cuda_device) == first and not first[1]
+    assert first[0] == prober.load_golden(backend="cuda")
 
 
 def test_server_capture_from_another_thread_holds_the_wave_kernels(cuda_device, tmp_path,

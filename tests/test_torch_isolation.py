@@ -174,3 +174,44 @@ def test_port_tests_leave_the_jax_package_tests_alone(files):
          "-p", "no:randomly", *files],
         env=env, cwd=str(REPO), capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stdout[-4000:]
+
+
+GATE_SCRIPTS = sorted((REPO / "scripts").glob("torch_*.py"))
+#: the JAX package's scripts a port script may reuse: the scrape lint and
+#: the operator's rolling-restart tool (neither imports JAX)
+REUSABLE_SCRIPTS = {"validate_scrape", "fleet_restart"}
+
+
+def test_there_is_a_port_gate_script_per_ported_gate():
+    names = {p.stem for p in GATE_SCRIPTS}
+    for stem in ("slo_smoke", "store_chaos_smoke", "service_chaos_smoke", "fleet_smoke",
+                 "tenant_smoke", "load_smoke", "probe_smoke", "quality_smoke",
+                 "kernel_smoke", "coldstart_smoke", "service_smoke"):
+        assert f"torch_{stem}" in names
+        assert (REPO / "scripts" / f"{stem}.py").exists()
+
+
+@pytest.mark.parametrize("path", GATE_SCRIPTS, ids=[p.name for p in GATE_SCRIPTS])
+def test_port_scripts_import_neither_jax_nor_the_jax_package(path):
+    local = {p.stem for p in (REPO / "scripts").glob("*.py")}
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "hyperopt_tpu"), (path.name, name)
+            if top in local:  # a sibling script: the port's own, or a reusable one
+                assert top.startswith("torch_") or top in REUSABLE_SCRIPTS, (path.name, name)
+
+
+def test_importing_the_port_scripts_loads_no_jax():
+    mods = ", ".join(p.stem for p in GATE_SCRIPTS)
+    code = (f"import sys; sys.path.insert(0, {str(REPO / 'scripts')!r}); import {mods}; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'hyperopt_tpu')]; assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=str(REPO), timeout=120,
+                   env={**os.environ, "PYTHONPATH": str(REPO)})

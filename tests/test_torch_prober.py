@@ -97,7 +97,10 @@ def test_cpu_digest_equals_the_reference_live_digest(live):
     assert not port_flagged and not ref_flagged
     assert port_digest == ref_digest
     assert load_golden(CANARY, backend="cpu") == port_digest
-    assert load_golden(CANARY, backend="cuda") is None  # the card trusts its first stream
+    # the card's entry: the H100 gave this stream on both routes (ROADMAP
+    # queue 3, item 16); a backend with no entry trusts its first stream
+    assert load_golden(CANARY, backend="cuda") == port_digest
+    assert load_golden(CANARY, backend="xpu") is None
 
 
 def test_local_digest_is_deterministic(live):
@@ -249,11 +252,83 @@ def test_fleet_divergence_turns_mismatch(servers):
     assert s["diverged"] and s["verdict"] == "mismatch"
 
 
+def test_fleet_divergence_burns_golden_match_without_a_golden(servers, tmp_path):
+    """With no golden to judge against (TOFU: a backend with no committed
+    entry), two
+    replicas' diverging streams are mismatches, and the correctness
+    objective burns for them and each writes its evidence bundle, not only
+    the verdicts (queue 3, item 14)."""
+    srv_a, srv_b = _local_server(servers), _local_server(servers)
+
+    class Skewed(_LocalTransport):
+        def request(self, method, path, body=None):
+            if path == "/study" and body:
+                body = dict(body, seed=int(body["seed"]) + 1)
+            return super().request(method, path, body)
+
+    plane = SLOPlane(clock=lambda: 1000.0)
+    for name, spec in PROBE_TARGETS.items():
+        plane.add_objective(name, spec)
+    transports = {"local://a": _LocalTransport(srv_a), "local://b": Skewed(srv_b)}
+    p = Prober(["local://a", "local://b"], period=30.0, backend="xpu", slo=plane,
+               transport_factory=lambda url: transports[url], profile_capture=False,
+               evidence_dir=str(tmp_path), ledger_path=str(tmp_path / "ledger.jsonl"))
+    assert p.golden is None and p.golden_source == "tofu"
+    s = p.run_cycle(now=1000.0)
+    assert s["diverged"] and s["verdict"] == "mismatch"
+    assert len(p.evidence_bundles) == 2
+    for d in p.evidence_bundles:
+        with open(os.path.join(d, "bundle.json")) as f:
+            bundle = json.load(f)
+        assert bundle["verdict"] == "mismatch" and bundle["responses"]
+    recs, corrupt, _ = read_probes(str(tmp_path / "ledger.jsonl"))
+    assert corrupt == 0 and [r["verdict"] for r in recs] == ["mismatch", "mismatch"]
+    assert all(r["evidence"] and "_evidence" not in r for r in recs)
+    g = plane.status()["probe_golden_match"]
+    assert g["window_events"] == 2
+    assert g["budget_remaining_frac"] < 1.0
+    assert plane.status()["probe_avail"]["budget_remaining_frac"] == pytest.approx(1.0)
+
+
+def test_fleet_divergence_with_a_golden_bundles_only_the_wrong_replica(servers, live,
+                                                                      tmp_path):
+    """With a golden, a replica whose stream equals it is turned to
+    ``mismatch`` by the divergence but writes no evidence bundle and burns
+    no golden-match budget: only the replica the golden judged wrong does."""
+    srv_a, srv_b = _local_server(servers), _local_server(servers)
+
+    class Skewed(_LocalTransport):
+        def request(self, method, path, body=None):
+            if path == "/study" and body:
+                body = dict(body, seed=int(body["seed"]) + 1)
+            return super().request(method, path, body)
+
+    plane = SLOPlane(clock=lambda: 1000.0)
+    for name, spec in PROBE_TARGETS.items():
+        plane.add_objective(name, spec)
+    transports = {"local://a": _LocalTransport(srv_a), "local://b": Skewed(srv_b)}
+    p = Prober(["local://a", "local://b"], period=30.0, backend="cpu", slo=plane,
+               transport_factory=lambda url: transports[url], profile_capture=False,
+               evidence_dir=str(tmp_path), ledger_path=str(tmp_path / "ledger.jsonl"))
+    assert p.golden == live["port"][0]
+    s = p.run_cycle(now=1000.0)
+    assert s["diverged"] and s["verdict"] == "mismatch"
+    recs, corrupt, _ = read_probes(str(tmp_path / "ledger.jsonl"))
+    by_target = {r["target"]: r for r in recs}
+    assert corrupt == 0 and {r["verdict"] for r in recs} == {"mismatch"}
+    assert by_target["local://a"]["digest"] == p.golden
+    assert not by_target["local://a"].get("evidence")
+    assert by_target["local://b"]["evidence"]
+    assert len(p.evidence_bundles) == 1
+    g = plane.status()["probe_golden_match"]
+    assert g["window_events"] == 2 and g["budget_remaining_frac"] < 1.0
+
+
 def test_tofu_pins_first_clean_digest(servers, live):
     srv = _local_server(servers)
-    p = Prober(["local://srv"], period=30.0, backend="cuda",
+    p = Prober(["local://srv"], period=30.0, backend="xpu",
                transport_factory=lambda url: _LocalTransport(srv))
-    assert p.golden is None and p.golden_source == "tofu"  # no committed card entry
+    assert p.golden is None and p.golden_source == "tofu"  # no committed entry
     assert p.run_cycle(now=1.0)["verdict"] == "ok"
     assert p.golden == live["port"][0]
     assert p.run_cycle(now=2.0)["verdict"] == "ok" and p.golden == live["port"][0]

@@ -337,3 +337,42 @@ def test_fleet_cli_refuses_what_the_reference_refuses(argv, tmp_path, capsys):
         assert exc.value.code == 2
         assert "--fleet" in capsys.readouterr().err
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("fleet", [False, True])
+def test_server_main_warms_its_device_before_the_listener_opens(fleet, tmp_path, monkeypatch):
+    """Queue 3, item 15: the server readies its device (on the card: the
+    CUDA context, the kernels, one tick of each route) before it listens,
+    so no request's wave and no shard's heat carries that set-up, with the
+    compile plane off too."""
+    from hyperopt_tpu_torch.service.compile_plane import CompilePlane
+
+    order = []
+    monkeypatch.setattr(CompilePlane, "warm_from_census", lambda self, top_n=None: order.append(
+        ("warm", self.device.type, self.census)))
+    monkeypatch.setattr(ServiceHTTPServer, "start", lambda self: order.append("start") or False)
+    argv = ["--port", "0", "--device", "cpu", "--compile-plane", "off"]
+    if fleet:
+        argv += ["--fleet", "--store", str(tmp_path / "root"), "--lease-ttl", "5"]
+    assert port_server.main(argv) == 1
+    assert order == [("warm", "cpu", None), "start"]
+
+
+@pytest.mark.parametrize("census", [False, True])
+def test_warm_from_census_ticks_each_route_first(census, tmp_path, monkeypatch):
+    from hyperopt_tpu_torch.algos import tpe
+    from hyperopt_tpu_torch.service.compile_plane import CompilePlane
+
+    seen = []
+    build = tpe.build_suggest_batched
+
+    def spy(*a, **kw):
+        seen.append(kw.get("fused"))
+        return build(*a, **kw)
+
+    monkeypatch.setattr(tpe, "build_suggest_batched", spy)
+    plane = CompilePlane(census_path=str(tmp_path / "census.jsonl") if census else None,
+                         device="cpu")
+    assert plane.warm_from_census() == (0, 0)
+    assert seen == [True, False]  # the fused route, then the grouped ei_diff route
+    assert plane.compiled == 0

@@ -374,3 +374,33 @@ def test_suggest_many_gives_each_ask_the_docs_of_suggest(name):
         one = rand.suggest(*ask)
         assert [d["tid"] for d in docs] == [d["tid"] for d in one]
         assert [d["misc"]["vals"] for d in docs] == [d["misc"]["vals"] for d in one]
+
+
+@pytest.mark.parametrize("rec", [
+    {"kind": "admit", "sid": "study-f1b5f801ebf7", "seed": 5, "kwargs": {"n_startup_jobs": 1},
+     "spec": {"space": {"x": {"dist": "uniform", "args": [-5, 5]}}}, "ts": 1792287302.07},
+    {"algo": "tpe", "kind": "ask", "req": "6c54f66720957bcd", "seed": 1728730614,
+     "sid": "study-f1b5f801ebf7", "tids": [1], "trace": "6d86af8997766119da1ec0e56f2f2024",
+     "ts": 1792287302.119059},
+    {"kind": "tell", "loss": 0.25, "sid": "study-f1b5f801ebf7", "status": None, "tid": 0},
+], ids=["admit", "ask", "tell"])
+def test_every_single_bit_flip_of_a_sealed_line_is_detected(rec, tmp_path):
+    """Queue 3, item 17: a flip in the seal's key turned a record into an
+    unsealed one (``unchecked``), and an upper-cased checksum digit
+    verified; the STORE gate's scrub count missed both.  Every flipped bit
+    of a sealed line, mid-file or at the tail, is now ``corrupt``."""
+    line = (integrity.seal(rec) + "\n").encode()
+    tail = (integrity.seal({"kind": "close", "sid": "s"}) + "\n").encode()
+    path = tmp_path / "w.jsonl"
+    missed = []
+    for pos in range((len(line) - 1) * 8):
+        flipped = bytearray(line)
+        flipped[pos // 8] ^= 1 << (pos % 8)
+        for body, at in ((bytes(flipped) + tail, 0), (tail + bytes(flipped), 1)):
+            path.write_bytes(body)
+            got = [c.status for c in integrity.iter_checked_jsonl(str(path))][at]
+            if got not in (integrity.CORRUPT, integrity.TORN if at else integrity.CORRUPT):
+                missed.append((pos, at, got))
+    assert not missed
+    path.write_bytes(line + tail)
+    assert [c.status for c in integrity.iter_checked_jsonl(str(path))] == ["ok", "ok"]
