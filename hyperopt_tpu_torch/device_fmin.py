@@ -29,11 +29,19 @@ and capture is the counterpart of XLA's compile, recorded as
 ``chunk.compile_sec`` (and a ``device.compile`` event in the run's
 stream when the runner has a run bundle); a chunk's
 ``chunk.execute_sec`` is the device time of its replayed steps, from
-CUDA events around each replay (the wall time on the CPU);
+CUDA events around each run of back-to-back replays (the wall time on
+the CPU);
 ``chunk.flops`` / ``chunk.bytes`` are the analytic ``ei_diff`` cost of a
-chunk of TPE steps (``obs/health.py``).  All in the process-global
-``"device"`` metrics namespace, beside watchdog beats and, under an
-armed capture plane, a ``device.chunk`` timeline annotation.
+chunk of TPE steps (``obs/health.py``).  The chunk cycle, from the same
+events and one more at each end of the host's turn (the host clock on
+the CPU): ``chunk.span_sec``, the first replay's start to the last
+replay's end, and ``chunk.gap_sec``, the previous chunk's last replay
+to this chunk's first, split into ``chunk.gap.readback_sec`` (until the
+host holds the rows), ``chunk.gap.host_sec`` (until the next
+``run_chunk``) and ``chunk.gap.dispatch_sec`` (the base key and the
+state's copy in).  All in the process-global ``"device"`` metrics
+namespace, beside watchdog beats and, under an armed capture plane, a
+``device.chunk`` timeline annotation.
 """
 
 from __future__ import annotations
@@ -229,16 +237,8 @@ class _Loop:
         torch.cuda.synchronize(self.device)
         self.capture_sec[branch] = time.perf_counter() - t0
 
-    def _replay(self, branch, events=None):
-        if events is None:
-            self.graphs[branch].replay()
-        else:
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            self.graphs[branch].replay()
-            t1.record()
-            events.append((t0, t1))
+    def _replay(self, branch):
+        self.graphs[branch].replay()
         self.replays[branch] += 1
         megakernel.ei_diff.graph_launches += self.kernel_nodes[branch]
 
@@ -246,14 +246,27 @@ class _Loop:
         """Steps ``start .. limit-1`` on ``state`` (updated in place) from
         the ``[2]`` key ``key`` (the base key, or the first key of a chain;
         it is read, not written); returns the ``[limit-start, 2L+1]`` rows
-        as one host array.  On a card with ``capture`` the
-        steps are graph replays on the loop's static buffers, between
-        which ``state`` is copied in and out; ``capture=False`` runs the
-        step eagerly (the reference the replays are held to).  ``events``
-        (a list) collects a pair of CUDA events around each replay."""
+        as one host array: :meth:`enqueue`, then :meth:`read`, under the
+        loop's lock."""
+        with self._lock:
+            return self.read(self.enqueue(state, key, start, limit, capture, events),
+                             start, limit)
+
+    def enqueue(self, state, key, start, limit, capture=True, events=None):
+        """The steps of :meth:`run` without the read-back; returns the
+        buffers :meth:`read` reads.  The caller holds ``self._lock`` until
+        it has read.  On a card with ``capture`` the steps are graph
+        replays on the loop's static buffers, between which ``state`` is
+        copied in and out; ``capture=False`` runs the step eagerly (the
+        reference the replays are held to).  ``events`` (a list) gets a
+        pair of marks around each run of back-to-back replays (CUDA
+        events) and None for each step that captured its branch; on the
+        CPU one pair of ``time.perf_counter()`` readings around the eager
+        steps."""
         graphs = capture and self.device.type == "cuda"
-        with self._lock, (torch.cuda.device(self.device) if graphs
-                          else contextlib.nullcontext()):
+        now = _recorded if graphs else time.perf_counter
+        t0 = None  # the running replays' first mark
+        with (torch.cuda.device(self.device) if graphs else contextlib.nullcontext()):
             if graphs:
                 if self._static is None:
                     self._static = self._buffers(self.new_state())
@@ -266,15 +279,31 @@ class _Loop:
             bufs[3].copy_(key)
             for j in range(start, limit):
                 branch = "prior" if j < self.n_startup else "tpe"
-                if not graphs:
-                    self.step(bufs, branch)
-                elif branch in self.graphs:
-                    self._replay(branch, events)
-                else:
+                if graphs and branch not in self.graphs:
+                    if t0 is not None:
+                        events.append((t0, now()))
+                        t0 = None
                     self._capture(branch, bufs)
+                    if events is not None:
+                        events.append(None)
+                    continue
+                if events is not None and t0 is None:
+                    t0 = now()
+                if graphs:
+                    self._replay(branch)
+                else:
+                    self.step(bufs, branch)
+            if t0 is not None:
+                events.append((t0, now()))
             if graphs:
                 _copy_state(state, bufs[0])
-            return bufs[1][start:limit].cpu().numpy()
+        return bufs
+
+    @staticmethod
+    def read(bufs, start, limit):
+        """The rows of steps ``start .. limit-1`` on the host: the one
+        read-back, which waits for the steps."""
+        return bufs[1][start:limit].cpu().numpy()
 
     def stats(self):
         return {"kind": "whole_run" if self.chain else "chunk", "cap": self.cap,
@@ -357,6 +386,9 @@ class DeviceLoopRunner:
                                self.hist_dtype, self.device)
         self._n_startup = int(n_startup)
         self._cost_cfg = cfg  # until the chunk cost is recorded, once
+        self._prev = None  # the last chunk's (last replay's end, read-back) marks
+        self._stream = (torch.cuda.current_stream(self.device) if self.device.type == "cuda"
+                        else None)
 
     def init_state(self):
         """A fresh ``(vals, active, losses, has_loss)`` loop state."""
@@ -367,46 +399,104 @@ class DeviceLoopRunner:
         ``fold_in(fold_in(PRNGKey(lo), hi), i)`` (``lo``/``hi`` the words
         of ``seed``); returns ``(state, rows[limit-start, 2L+1])``, the
         state updated in place and the rows on the host (the one
-        readback)."""
-        lo, hi = prng.seed_words(seed)
-        base = prng.fold_in(prng.PRNGKey(lo, self.device), hi)
+        readback).  With a run bundle, ``suggest.dispatch`` spans the call
+        up to the read-back and ``suggest.readback`` the wait for the
+        rows."""
+        entry = self._mark()
         obs = self._obs
         loop = self._loop
-        if limit > self._n_startup and self._cost_cfg is not None:
-            # the analytic cost of a chunk of TPE steps (CHUNK ticks of one
-            # key over capacity cap)
-            from .obs import health
-
-            shapes = tpe._get_propose(self.cs, self._cost_cfg).ei_shapes(1, self.cap)
-            ops, nbytes = health.ei_launch_cost(shapes)
-            health.record_program_cost("chunk", ops * self.CHUNK, nbytes * self.CHUNK,
-                                       _METRICS)
-            self._cost_cfg = None
-        captured = set(loop.graphs)
-        events = [] if self.device.type == "cuda" and self.capture else None
-        # execute-boundary beats: a quiet period after "pre" that never
-        # reaches "post" is a hung replay or read-back
-        _wd_beat("device.execute", stage="chunk", start=int(start), mark="pre")
+        span = obs.span if obs is not None else _no_span
+        events = None if entry is None else []
         ann = (obs.annotate("device.chunk", step=int(start), start=int(start),
                             limit=int(limit)) if obs is not None else contextlib.nullcontext())
-        t0 = time.perf_counter()
-        with ann:
-            rows = loop.run(state, base, int(start), int(limit), capture=self.capture,
-                            events=events)
+        with ann, loop._lock:
+            with span("suggest.dispatch"):
+                lo, hi = prng.seed_words(seed)
+                base = prng.fold_in(prng.PRNGKey(lo, self.device), hi)
+                if limit > self._n_startup and self._cost_cfg is not None:
+                    # the analytic cost of a chunk of TPE steps (CHUNK ticks
+                    # of one key over capacity cap)
+                    from .obs import health
+
+                    shapes = tpe._get_propose(self.cs, self._cost_cfg).ei_shapes(1, self.cap)
+                    ops, nbytes = health.ei_launch_cost(shapes)
+                    health.record_program_cost("chunk", ops * self.CHUNK, nbytes * self.CHUNK,
+                                               _METRICS)
+                    self._cost_cfg = None
+                captured = set(loop.graphs)
+                # execute-boundary beats: a quiet period after "pre" that
+                # never reaches "post" is a hung replay or read-back
+                _wd_beat("device.execute", stage="chunk", start=int(start), mark="pre")
+                t0 = time.perf_counter()
+                bufs = loop.enqueue(state, base, int(start), int(limit), self.capture, events)
+            with span("suggest.readback"):
+                rows = loop.read(bufs, int(start), int(limit))
+            back = self._mark()
         wall = time.perf_counter() - t0
         for branch in set(loop.graphs) - captured:
             # a branch's warm-up and capture: the counterpart of XLA's compile
             _METRICS.histogram("chunk.compile_sec").observe(loop.capture_sec[branch])
             if obs is not None:
                 obs.event("device.compile", branch=branch, sec=loop.capture_sec[branch])
-        if events is None:
+        if events is None or self.device.type != "cuda":
             sec = wall
         else:  # the rows' read-back synchronized the card: the events are done
-            sec = sum(a.elapsed_time(b) for a, b in events) / 1e3
+            sec = sum(_seconds(*p) for p in events if p is not None)
         _METRICS.histogram("chunk.execute_sec").observe(sec)
-        _METRICS.counter("chunk.dispatches").inc()
+        if events:
+            self._cycle(entry, events, back)
         _wd_beat("device.execute", stage="chunk", start=int(start), mark="post")
         return state, rows
+
+    def _mark(self):
+        """Now, as a mark :func:`_seconds` reads: on a card a CUDA event
+        recorded on the runner's stream (nothing is queued there at the
+        chunk boundary, so it stamps the host's moment), on the CPU the
+        host clock; None on a card without graphs (``capture=False``)."""
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        return _recorded(self._stream) if self.capture else None
+
+    def _cycle(self, entry, events, back):
+        """The chunk cycle's counters, from this chunk's marks (``entry``,
+        the steps' ``events``, ``back``) and the previous chunk's last
+        replay and read-back, which this chunk's read-back has
+        synchronized: ``chunk.span_sec`` (first replay's start to last
+        replay's end), ``chunk.gap_sec`` (previous last replay's end to
+        this first replay's start) and the gap's parts
+        ``chunk.gap.readback_sec`` (to the previous rows on the host),
+        ``chunk.gap.host_sec`` (to this call) and
+        ``chunk.gap.dispatch_sec`` (to the first replay).  The first chunk
+        of a runner and a chunk that captured a graph record none."""
+        prev = self._prev
+        self._prev = None if events[-1] is None else (events[-1][1], back)
+        if prev is None or None in events:
+            return
+        end, got = prev
+        first = events[0][0]
+        hist = _METRICS.histogram
+        hist("chunk.span_sec").observe(_seconds(first, events[-1][1]))
+        hist("chunk.gap_sec").observe(_seconds(end, first))
+        hist("chunk.gap.readback_sec").observe(_seconds(end, got))
+        hist("chunk.gap.host_sec").observe(_seconds(got, entry))
+        hist("chunk.gap.dispatch_sec").observe(_seconds(entry, first))
+
+
+def _recorded(stream=None):
+    """A timing CUDA event recorded on ``stream`` (the current one)."""
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(stream)
+    return ev
+
+
+def _seconds(a, b):
+    """Seconds from mark ``a`` to mark ``b``: two CUDA events, or two
+    host clock readings."""
+    return b - a if isinstance(a, float) else a.elapsed_time(b) / 1e3
+
+
+def _no_span(name):
+    return contextlib.nullcontext()
 
 
 def fmin_device(

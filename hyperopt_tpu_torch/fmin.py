@@ -539,7 +539,11 @@ class FMinIter:
         trials per call of ``device_fmin.DeviceLoopRunner``, one readback
         each; reference-shaped docs, and the timeout, early stop, loss
         threshold and checkpoint at chunk granularity.  A later ``run()``
-        continues from the device-side state this one leaves."""
+        continues from the device-side state this one leaves.  A chunk's
+        spans: ``suggest`` (the runner's ``suggest.dispatch`` and
+        ``suggest.readback`` inside it), ``record`` (the documents, their
+        trial events and the insert), ``refresh``, ``save`` and
+        ``early_stop``."""
         from .algos import rand as _rand
         from .device_fmin import DeviceLoopRunner
 
@@ -578,25 +582,26 @@ class FMinIter:
                     self._device_n_done = 0
                     raise
                 k = limit - n_done
-                new_ids = trials.new_trial_ids(k)
-                now = coarse_utcnow()
-                flats = _rand.unpack_flats(cs, rows[:, :L], k)
-                docs = _rand.flat_to_new_trial_docs(self.domain, trials, new_ids, flats)
-                for j, doc in enumerate(docs):
-                    loss = float(rows[j][2 * L])
-                    if np.isfinite(loss):
-                        best_loss = min(best_loss, loss)
-                        doc["result"] = {"loss": loss, "status": STATUS_OK}
-                    else:
-                        doc["result"] = {"status": "fail"}
-                    doc["state"] = JOB_STATE_DONE
-                    doc["book_time"] = now
-                    doc["refresh_time"] = now
-                    self.obs.trial_event(obs_mod.events_mod.TRIAL_FINISHED, doc["tid"],
-                                         status=doc["result"].get("status", "ok"),
-                                         source="device_loop")
-                self.obs.counter("trials.completed").inc(len(docs))
-                trials.insert_trial_docs(docs)
+                with self.obs.span("record"):
+                    new_ids = trials.new_trial_ids(k)
+                    now = coarse_utcnow()
+                    flats = _rand.unpack_flats(cs, rows[:, :L], k)
+                    docs = _rand.flat_to_new_trial_docs(self.domain, trials, new_ids, flats)
+                    for j, doc in enumerate(docs):
+                        loss = float(rows[j][2 * L])
+                        if np.isfinite(loss):
+                            best_loss = min(best_loss, loss)
+                            doc["result"] = {"loss": loss, "status": STATUS_OK}
+                        else:
+                            doc["result"] = {"status": "fail"}
+                        doc["state"] = JOB_STATE_DONE
+                        doc["book_time"] = now
+                        doc["refresh_time"] = now
+                        self.obs.trial_event(obs_mod.events_mod.TRIAL_FINISHED, doc["tid"],
+                                             status=doc["result"].get("status", "ok"),
+                                             source="device_loop")
+                    self.obs.counter("trials.completed").inc(len(docs))
+                    trials.insert_trial_docs(docs)
                 with self.obs.span("refresh"):
                     trials.refresh()
                 n_done = limit
@@ -604,7 +609,8 @@ class FMinIter:
                     with self.obs.span("save"):
                         self._save_trials()
                 if self.early_stop_fn is not None:
-                    stop, kw = self.early_stop_fn(trials, *self.early_stop_args)
+                    with self.obs.span("early_stop"):
+                        stop, kw = self.early_stop_fn(trials, *self.early_stop_args)
                     self.early_stop_args = kw
                     if stop:
                         logger.info("Early stop triggered")

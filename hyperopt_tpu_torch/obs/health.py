@@ -230,14 +230,15 @@ def utilization_snapshot(wall_sec=None, stages=("chunk", "whole_run"),
     achieved FLOP/s, arithmetic intensity and (given the enclosing wall
     clock) device-busy fraction.
 
-    ``execute_sec`` spans are wall clock around dispatch→readback, so
-    "busy fraction" is an *upper bound proxy*: the share of ``wall_sec``
-    spent inside device-program round trips (host dispatch overhead
-    included).  Honest enough to answer "was the run device-bound or
-    host-bound" from the artifacts alone.  Caveat: the ``"device"``
-    namespace is process-cumulative — in a process running several stages,
-    the execute totals cover every stage so far, and the clip keeps the
-    fraction sane rather than exact."""
+    ``chunk.execute_sec`` is the device time of a chunk's graph replays
+    on a card (CUDA events around its runs of replays) and the wall clock
+    around dispatch→readback on the CPU, where "busy fraction" is an
+    *upper bound proxy* (host dispatch overhead included).  Honest enough
+    to answer "was the run device-bound or host-bound" from the artifacts
+    alone.  Caveat: the ``"device"`` namespace is process-cumulative — in
+    a process running several stages, the execute totals cover every
+    stage so far, and the clip keeps the fraction sane rather than
+    exact."""
     reg = metrics if metrics is not None else get_metrics("device")
     return utilization_from_metrics(reg.snapshot()["metrics"],
                                     wall_sec=wall_sec, stages=stages)

@@ -5,6 +5,8 @@ runs on a machine without them:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -213,6 +215,36 @@ def test_device_loop_capture_refuses_a_copy_from_the_host(cuda_device):
     best, loss = port.fmin_device(zoo.ZOO["quadratic1"].traceable, zoo.ZOO["quadratic1"].space,
                                   30, device=cuda_device)
     assert np.isfinite(loss)
+
+
+CYCLE = ("chunk.span_sec", "chunk.gap_sec", "chunk.gap.readback_sec", "chunk.gap.host_sec",
+         "chunk.gap.dispatch_sec")
+
+
+def test_device_loop_chunk_cycle_on_the_card(cuda_device, monkeypatch):
+    from hyperopt_tpu_torch.obs.metrics import MetricsRegistry
+
+    reg = MetricsRegistry("device")
+    monkeypatch.setattr(device_fmin, "_METRICS", reg)
+    dom = zoo.ZOO["branin"]
+    algo = functools.partial(port.tpe.suggest, n_EI_candidates=48)
+    counts = []
+    for seed in (5, 6):  # 6 chunks each; the first search may capture
+        port.fmin(dom.traceable, dom.space, max_evals=60, trials=port.Trials(device=cuda_device),
+                  rstate=np.random.default_rng(seed), show_progressbar=False, device_loop=True,
+                  algo=algo)
+        counts.append({name: reg.histogram(name).count for name in CYCLE})
+    # a capturing search captures the prior graph in chunk 0 (no gap there
+    # anyway) and the TPE graph in chunk 2, which records no cycle
+    captured = reg.histogram("chunk.compile_sec").count == 2
+    assert counts[0] == dict.fromkeys(CYCLE, 5 - captured)
+    assert counts[1] == dict.fromkeys(CYCLE, 10 - captured)
+    rings = {name: list(reg.histogram(name)._ring) for name in CYCLE}
+    for i, gap in enumerate(rings["chunk.gap_sec"]):
+        parts = [rings[f"chunk.gap.{p}_sec"][i] for p in ("readback", "host", "dispatch")]
+        assert min(parts) > 0 and abs(sum(parts) - gap) < 1e-6
+    # ten graph replays a chunk: each over a millisecond of device work
+    assert min(rings["chunk.span_sec"]) > 10 * 1e-4
 
 
 def _fmin_vals(device, name, algo, n, seed):

@@ -30,6 +30,7 @@ from hyperopt_tpu_torch.base import Domain
 from hyperopt_tpu_torch.utils import evaluation_device
 from hyperopt_tpu_torch.exceptions import InvalidAnnotatedParameter
 from hyperopt_tpu_torch.fmin import FMinIter
+from hyperopt_tpu_torch.obs.metrics import MetricsRegistry
 
 RTOL, ATOL = 1e-5, 1e-6
 CFG = {"prior_weight": 1.0, "n_EI_candidates": 24, "gamma": 0.25, "LF": 25}
@@ -269,6 +270,55 @@ def test_device_loop_checkpoints_at_each_chunk(tmp_path):
         saved = pickle.load(f)
     assert len(saved.trials) == len(t.trials) == 25
     assert saved.losses() == t.losses()
+
+
+CYCLE = ("chunk.span_sec", "chunk.gap_sec", "chunk.gap.readback_sec", "chunk.gap.host_sec",
+         "chunk.gap.dispatch_sec")
+
+
+def _cycle_counters(monkeypatch, captured=()):
+    """The chunk-cycle observations of a 40-evaluation branin
+    ``fmin(device_loop=True)`` on the CPU (20 startup trials: 4 chunks),
+    recorded in a fresh ``"device"`` registry: ``{name: [seconds]}``.
+    A step in ``captured`` is reported as a card reports a step that
+    captured its branch's graph: None between the marks of the replays
+    before and after it."""
+    reg = MetricsRegistry("device")
+    monkeypatch.setattr(device_fmin, "_METRICS", reg)
+    enqueue = device_fmin._Loop.enqueue
+
+    def marked(self, state, key, start, limit, capture=True, events=None):
+        bufs = enqueue(self, state, key, start, limit, capture, events)
+        for j in captured:
+            if start <= j < limit:
+                pair = events[0]
+                events[:] = [pair] * (j > start) + [None] + [pair] * (j < limit - 1)
+        return bufs
+
+    monkeypatch.setattr(device_fmin._Loop, "enqueue", marked)
+    _fmin(port, zoo, "branin", 40, 0, fn=zoo.ZOO["branin"].traceable, device_loop=True)
+    assert reg.histogram("chunk.execute_sec").count == 4
+    return {name: list(reg.histogram(name)._ring) for name in CYCLE}
+
+
+def test_chunk_cycle_counts_every_boundary_but_the_first(monkeypatch):
+    got = _cycle_counters(monkeypatch)
+    assert {name: len(v) for name, v in got.items()} == dict.fromkeys(CYCLE, 4 - 1)
+    for name, values in got.items():
+        assert all(v > 0 for v in values), name
+    parts = zip(got["chunk.gap.readback_sec"], got["chunk.gap.host_sec"],
+                got["chunk.gap.dispatch_sec"])
+    for gap, (readback, host, dispatch) in zip(got["chunk.gap_sec"], parts):
+        assert abs(readback + host + dispatch - gap) < 1e-6
+
+
+@pytest.mark.parametrize("captured, n", [((0, 20), 2), ((0, 25), 2), ((0, 29), 1)])
+def test_a_chunk_that_captures_records_no_cycle(monkeypatch, captured, n):
+    # on a card the first step of each branch captures (steps 0 and 20 here):
+    # such a chunk's replays do not span it, and a chunk whose last step
+    # captured leaves the next no replay to measure its gap from
+    got = _cycle_counters(monkeypatch, captured)
+    assert {name: len(v) for name, v in got.items()} == dict.fromkeys(CYCLE, n)
 
 
 def test_auto_takes_the_host_loop_when_ineligible(caplog):

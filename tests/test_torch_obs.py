@@ -284,6 +284,35 @@ def test_device_loop_records_its_compile_execute_split_and_cost(tmp_path):
     assert "chunk" in text and text == ref_report.render(obs.read_jsonl(str(tmp_path / "d.jsonl")))
 
 
+def test_device_loop_chunk_spans_split_suggest_and_record(tmp_path):
+    dom = port_zoo.ZOO["branin"]
+    path = str(tmp_path / "d.jsonl")
+    runs = {}
+    for armed in (False, True):
+        t = port.Trials(device="cpu")
+        port.fmin(dom.traceable, dom.space, max_evals=40, trials=t, rstate=3,
+                  show_progressbar=False, device_loop=True, obs=path if armed else None,
+                  early_stop_fn=lambda trials, *args: (False, list(args)),
+                  algo=functools.partial(port.tpe.suggest, n_EI_candidates=32))
+        runs[armed] = t
+        names = ("suggest", "suggest.dispatch", "suggest.readback", "record", "refresh",
+                 "early_stop")
+        assert {k: t.phase_timings[k]["count"] for k in names} == dict.fromkeys(names, 4)
+    assert ([d["misc"]["vals"] for d in runs[True].trials]
+            == [d["misc"]["vals"] for d in runs[False].trials])
+    assert runs[True].losses() == runs[False].losses()
+    recs = obs.read_jsonl(path)
+    spans = [r for r in recs if r.get("kind") == "span"]
+    name_of = {r["span_id"]: r["name"] for r in spans}
+    inner = [r for r in spans if r["name"] in ("suggest.dispatch", "suggest.readback")]
+    assert len(inner) == 8 and {name_of[r["parent_id"]] for r in inner} == {"suggest"}
+    outer = [r for r in spans if r["name"] in ("record", "early_stop")]
+    assert len(outer) == 8 and "suggest" not in {name_of.get(r["parent_id"]) for r in outer}
+    assert report.render(recs) == ref_report.render(recs)
+    streams = [("d.jsonl", recs)]
+    assert report.json_report(streams) == ref_report.json_report(streams)
+
+
 def test_trials_pickle_drops_the_live_obs_handles(runs):
     t = pickle.loads(pickle.dumps(runs["branin"]["armed"]))
     assert getattr(t, "obs_health", None) is None and getattr(t, "obs_profiler", None) is None
