@@ -276,13 +276,19 @@ import sys
 import time
 
 REPLACES = {"ei_diff": "hyperopt_tpu/megakernel.py:516",
-            "fused_sample_ei": "hyperopt_tpu/megakernel.py:271"}
+            "fused_sample_ei": "hyperopt_tpu/megakernel.py:271",
+            # no TPU kernel: the JAX package leaves the bin masses to XLA
+            "q_mass_diff": None}
 SOURCES = {"ei_diff": "hyperopt_tpu_torch/csrc/ei_diff.cu",
-           "fused_sample_ei": "hyperopt_tpu_torch/csrc/fused_sample_ei.cu"}
+           "fused_sample_ei": "hyperopt_tpu_torch/csrc/fused_sample_ei.cu",
+           "q_mass_diff": "hyperopt_tpu_torch/csrc/q_mass.cu"}
 # H100 SXM: 132 SMs x 16 special-function results per clock (exp2, log2,
 # rcp; CUDA C programming guide, compute capability 9.0) at the 1.98 GHz
 # boost clock; 3.35 TB/s of HBM3 (NVIDIA data sheet)
 SFU_PER_S = 132 * 16 * 1.98e9
+# and one warp instruction per clock in each of an SM's 4 sub-partitions:
+# 128 lane-instructions per SM per clock
+INSTR_PER_S = 132 * 128 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 TOL = 1e-4
 # the plain ei_diff materializes [P, n, m] float32 tensors, a few at once:
@@ -340,10 +346,28 @@ FUSED_SHAPES = [(256 * 6, 24, 65, 0, True), (256 * 6, 4 * 1024, 129, 0, True),
                 (256 * 2, 24, 65, 0, False), (64, 1000, 300, 77, True), (64, 1, 1, 0, True),
                 (256 * 6, 4 * 24, 129, 0, True), (128 * 6, 4 * 24, 129, 0, True),
                 (1, 24, 17, 0, True)]  # phase 18: a one-label study's tick (cap 16)
+# q_mass_diff's row kinds, (q, low, high, islog) with t-space bounds:
+# LCBench's quantized group (batch size and max units log int, layers
+# int) and hpob_surrogate's (dropout quniform(0, 0.9, 0.1), depth 1-8 int)
+Q_ROWS = {"lcbench": ((1.0, math.log(16), math.log(512), True), (1.0, 0.5, 5.5, False),
+                      (1.0, math.log(64), math.log(1024), True)),
+          "hpob": ((0.1, 0.0, 0.9, False), (1.0, 0.5, 8.5, False))}
+# q_mass_diff shapes (row kind, P rows, N, m, bounded, has_log, compare on
+# the first n_cmp candidates): the batch driver's TPE generation on
+# LCBench (1024 ids x 64 candidates over a 4096-slot history) and its
+# epsilon-prior draws, phase 13 (d)'s on hpob_surrogate, then the
+# service's cohorts of 256 studies at 24 candidates over 17 components
+Q_SHAPES = [("lcbench", 3, 65536, 4097, True, True, 8192),
+            ("lcbench", 3, 1024, 4097, True, True, None),
+            ("hpob", 2, 65536, 4097, True, False, 8192),
+            ("hpob", 2, 1024, 4097, True, False, None),
+            ("lcbench", 768, 24, 17, True, True, None),
+            ("hpob", 512, 24, 17, True, False, None)]
+Q_CMP = 8192  # candidates of a wider unplanned shape held against the plain version
 # what the kernels line keeps of each phase-1 shape
 SHAPE_KEYS = ("shape", "dead", "below_all_dead", "bounded", "max_abs_err", "ms", "device_ms",
               "device_ms_by", "plain_ms", "bound_ms", "bound_share", "per_thread", "splits",
-              "cols", "rows", "blocks", "registers", "smem_bytes")
+              "cols", "rows", "lanes", "per_block", "blocks", "registers", "smem_bytes")
 
 
 def log(*a):
@@ -470,6 +494,90 @@ def fused_inputs(P, N, m, seed, dead=0, bounded=True):
                                       tabs["wa"], tabs["ma"], tabs["sa"], low, high)]
 
 
+def q_mass_bound(P, N, m):
+    """Least time for ``q_mass_diff`` at (P, N, m): each candidate,
+    component and mixture needs two erf evaluations of 19 float32
+    operations (10 Horner FMAs, z * z, z * p, two divisions, the two
+    clamps, t - mu, 1 + erf, 0.5 *) and a subtraction, a product and a
+    sum, 41 instruction slots, at one slot a division although an IEEE division
+    takes several; or its 8 reciprocals (MUFU.RCP, one per division) on
+    the special-function units; or its bytes over HBM."""
+    instr_ms = 82 * P * N * m / INSTR_PER_S * 1e3
+    sfu_ms = 8 * P * N * m / SFU_PER_S * 1e3
+    bytes_ms = 4 * (2 * P * N + 6 * P * m + 3 * P) / HBM_BYTES_PER_S * 1e3
+    return max((instr_ms, "instructions"), (sfu_ms, "special_function"), (bytes_ms, "bytes"))
+
+
+def q_mass_inputs(rows, P, N, m, seed, bounded=True):
+    """Arguments of ``q_mass_diff`` for ``P`` rows of a row kind's group
+    (its labels in turn): value-space candidates on each row's grid, over
+    and past its bounds, seeded below/above tables in t-space and their
+    in-bounds masses (an unbounded group carries zero bounds, as the group
+    statics do)."""
+    import torch
+
+    from hyperopt_tpu_torch.algos import tpe
+
+    kind = Q_ROWS[rows]
+    spec = torch.tensor([kind[i % len(kind)][:3] for i in range(P)], dtype=torch.float32,
+                        device="cuda")
+    q, lo, hi = spec.unbind(1)
+    islog = torch.tensor([kind[i % len(kind)][3] for i in range(P)], device="cuda")
+    G = q.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rand = lambda *shape: torch.rand(*shape, device="cuda", generator=g)  # noqa: E731
+    tabs = []
+    for _ in range(2):
+        w = rand(G, m) + 0.1
+        tabs += [w / w.sum(1, keepdim=True), lo[:, None] + (hi - lo)[:, None] * (1.4 * rand(G, m) - 0.2),
+                 (hi - lo)[:, None] * (0.5 * rand(G, m) + 0.01)]
+    t = lo[:, None] + (hi - lo)[:, None] * (1.2 * rand(G, N) - 0.1)
+    x = torch.round(torch.where(islog[:, None], torch.exp(t), t) / q[:, None]) * q[:, None]
+    if not bounded:
+        lo, hi = torch.zeros_like(lo), torch.zeros_like(hi)
+    p_b = tpe._p_accept_group(*tabs[:3], lo, hi, bounded)
+    p_a = tpe._p_accept_group(*tabs[3:], lo, hi, bounded)
+    return [a.contiguous() for a in (x, *tabs, q, lo, hi, islog, p_b, p_a)]
+
+
+def check_q_mass(rows, P, N, m, bounded, has_log, n_cmp, usage):
+    """Hold ``q_mass_diff`` at (P, N, m) against its plain version (on the
+    first ``n_cmp`` candidates, or all) at the card tolerance, twice
+    launched bit for bit, and time both; raises when they disagree."""
+    import torch
+
+    from hyperopt_tpu_torch import megakernel
+
+    args = q_mass_inputs(rows, P, N, m, seed=P + N + m, bounded=bounded)
+    run = lambda: megakernel.q_mass_diff(*args, bounded, has_log)  # noqa: E731
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    part = list(args)
+    if n_cmp is not None:
+        part[0] = args[0][:, :n_cmp].contiguous()
+    want = megakernel.q_mass_diff_plain(*part, bounded, has_log)
+    gs = got if n_cmp is None else got[:, :n_cmp]
+    err = (gs - want).abs()
+    ok = (bool(torch.isfinite(got).all()) and torch.equal(got, again)
+          and bool((err <= 1e-5 + TOL * want.abs()).all()))
+    ms = cuda_ms(run)
+    dev_ms, dev_by = device_ms(run, "q_mass_kernel")
+    plain_ms = cuda_ms(lambda: megakernel.q_mass_diff_plain(*part, bounded, has_log), reps=5)
+    bound_ms, bound_by = q_mass_bound(P, N, m)
+    row = {"shape": [P, N, m], "group": rows, "bounded": bounded, "has_log": has_log,
+           "compared_candidates": part[0].shape[1], "max_abs_err": float(err.max()), "ok": ok,
+           "ms": ms, "device_ms": dev_ms, "device_ms_by": dev_by, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / dev_ms,
+           **megakernel._launch_plan("q_mass_diff", P, N, m),
+           **usage_of(usage, "q_mass_kernel")}
+    log(f"q_mass_diff {row}")
+    del args, part, got, again, want, err
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"q_mass_diff disagrees with its plain version at {row}")
+    return row
+
+
 def ei_inputs(P, n, m, seed, dead=0, below_dead=False):
     import torch
 
@@ -490,7 +598,7 @@ def ei_inputs(P, n, m, seed, dead=0, below_dead=False):
 
 
 def phase_kernels(report):
-    """Build the kernels and hold both against their plain versions."""
+    """Build the kernels and hold each against its plain version."""
     from hyperopt_tpu_torch import _build
 
     t0 = time.perf_counter()
@@ -508,7 +616,10 @@ def phase_kernels(report):
 
     frows = [check_fused(*shape, usage) for shape in FUSED_SHAPES]
     report["fused_sample_ei_shapes"] = frows
-    return rows, frows
+
+    qrows = [check_q_mass(*shape, usage) for shape in Q_SHAPES]
+    report["q_mass_diff_shapes"] = qrows
+    return rows, frows, qrows
 
 
 def plain_cmp(P, n, m):
@@ -1966,6 +2077,10 @@ MD_FMIN_EVALS, MD_FMIN_QUEUE, MD_KNOB_EVALS = 64, 16, 40
 MD_COHORT = dict(studies=256, cap=128, ids=4, candidates=24, ticks=3)
 MD_BATCH, MD_EVALS, MD_SEED = 1024, 4096, 0
 MD_FLEET_GENS = 2
+# q_mass_diff launches of a TPE generation on hpob_surrogate: its one
+# quantized group (depth, dropout) scores the candidates and the
+# driver's epsilon-prior draws
+MD_Q_PER_GEN = 2
 MD_CONTROLLER_SEC = 600  # a controller process's limit; collectives time out before it
 MD_TOL = (1e-4, 1e-5)  # rtol, atol of a comparison held at the card tolerance
 
@@ -1974,12 +2089,13 @@ class LaunchLog:
     """The shapes ``(name, P, n, m)`` ``ei_diff`` and ``fused_sample_ei``
     launch at, in order, read from the launch checks every CUDA launch
     passes (from any thread); the CPU's plain twins pass none.  With
-    ``tag``, each entry is ``(tag(), name, P, n, m)``."""
+    ``tag``, each entry is ``(tag(), name, P, n, m)``.  ``q_mass_diff``'s
+    launches go to ``q_shapes`` instead."""
 
     def __init__(self, tag=None):
         from hyperopt_tpu_torch import megakernel
 
-        self.shapes = []
+        self.shapes, self.q_shapes = [], []
         self._mk = megakernel
         self._real = megakernel._launchable
         self._tag = tag
@@ -1990,7 +2106,8 @@ class LaunchLog:
         def recording(name, P, tensors):
             shape = (name, P, tensors[0].shape[1],
                      tensors[-1 if name == "ei_diff" else 2].shape[1])
-            self.shapes.append(shape if tag is None else (tag(), *shape))
+            (self.q_shapes if name == "q_mass_diff" else self.shapes).append(
+                shape if tag is None else (tag(), *shape))
             return real(name, P, tensors)
 
         self._mk._launchable = recording
@@ -2001,6 +2118,63 @@ class LaunchLog:
 
     def take(self):
         out, self.shapes = self.shapes, []
+        return out
+
+
+class QMassLedger:
+    """Every quantized group this process scores on the card against the
+    ``q_mass_diff`` launches it makes, from any thread: ``expected`` counts
+    one launch per ``tpe._propose_numeric_group`` call on a quantized
+    group of CUDA tensors (its candidates) and one more where the call's
+    ``prior_eps`` draws epsilon-prior proposals; ``launched`` counts the
+    launch checks ``q_mass_diff`` passes (eager launches and CUDA-graph
+    captures, never replays), whose shapes ``(P, N, m)`` go to
+    ``shapes``.  :meth:`read` returns the counts and shapes, :meth:`take`
+    the counts, and restarts them."""
+
+    def __init__(self):
+        import threading
+
+        from hyperopt_tpu_torch import megakernel
+        from hyperopt_tpu_torch.algos import tpe
+
+        self._mk, self._tpe = megakernel, tpe
+        self._real = megakernel._launchable, tpe._propose_numeric_group
+        self._lock = threading.Lock()
+        self.expected = self.launched = 0
+        self.shapes = set()
+
+    def __enter__(self):
+        launchable, propose = self._real
+
+        def recording(name, P, tensors):
+            if name == "q_mass_diff":
+                with self._lock:
+                    self.launched += 1
+                    self.shapes.add((P, tensors[0].shape[1], tensors[1].shape[1]))
+            return launchable(name, P, tensors)
+
+        def counted(keys, obs, below, above, statics, cfg, quantized, *a, **kw):
+            if quantized and obs.device.type == "cuda":
+                with self._lock:
+                    self.expected += 1 + (float(cfg.get("prior_eps", 0.0)) > 0.0)
+            return propose(keys, obs, below, above, statics, cfg, quantized, *a, **kw)
+
+        self._mk._launchable, self._tpe._propose_numeric_group = recording, counted
+        return self
+
+    def __exit__(self, *exc):
+        self._mk._launchable, self._tpe._propose_numeric_group = self._real
+
+    def read(self):
+        with self._lock:
+            return {"expected": self.expected, "launched": self.launched,
+                    "shapes": sorted(self.shapes)}
+
+    def take(self):
+        with self._lock:
+            out = {"expected": self.expected, "launched": self.launched}
+            self.expected = self.launched = 0
         return out
 
 
@@ -2359,7 +2533,7 @@ def _md_instrument(driver, per_gen, profile_call):
             if DEVICE == "cuda":
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-            before = megakernel.ei_diff.launches
+            before = megakernel.ei_diff.launches, megakernel.q_mass_diff.launches
             prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
                     if i == profile_call and DEVICE == "cuda" else None)
             with LaunchLog() as log_:
@@ -2373,8 +2547,10 @@ def _md_instrument(driver, per_gen, profile_call):
                 if prof is not None:
                     prof.__exit__(None, None, None)
             row = {"ms": ms, "keys": int(keys.shape[0]),
-                   "ei_diff_launches": megakernel.ei_diff.launches - before,
+                   "ei_diff_launches": megakernel.ei_diff.launches - before[0],
+                   "q_mass_diff_launches": megakernel.q_mass_diff.launches - before[1],
                    "shapes": [list(s) for s in log_.take()],
+                   "q_shapes": [list(s[1:]) for s in log_.q_shapes],
                    "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
                                 if DEVICE == "cuda" else None)}
             if prof is not None:
@@ -2426,7 +2602,7 @@ def _md_run(max_evals, fleet_dir=None, single=True, per_gen=MD_BATCH, profile_ca
     from hyperopt_tpu_torch.parallel import driver
 
     rec, objective, restore, obs = _md_instrument(driver, per_gen, profile_call)
-    megakernel.ei_diff.launches = 0
+    megakernel.ei_diff.launches = megakernel.q_mass_diff.launches = 0
     try:
         t0 = time.perf_counter()
         res = driver.fmin_multihost(objective, zoo.ZOO["hpob_surrogate"].space, max_evals,
@@ -2440,6 +2616,7 @@ def _md_run(max_evals, fleet_dir=None, single=True, per_gen=MD_BATCH, profile_ca
         restore()
     return {"checksum": res.checksum, "n_evals": res.n_evals, "best_loss": res.best_loss,
             "wall_sec": wall, "ei_diff_launches": megakernel.ei_diff.launches,
+            "q_mass_diff_launches": megakernel.q_mass_diff.launches,
             "propose": rec["propose"], "spans": dict(rec.get("spans", {})),
             "evaluate_ms": [1e3 * (b - a) for _, (a, b) in sorted(rec["evaluate"].items())]}
 
@@ -2526,6 +2703,22 @@ def _md_free_port():
     return port
 
 
+def _md_q_check(what, runs, shapes):
+    """Each TPE generation of each run launched ``q_mass_diff``
+    ``MD_Q_PER_GEN`` times, counted from 0 before its run; every shape
+    ``(P, N, m)`` joins ``shapes``.  Returns the runs' launches."""
+    for run in runs:
+        for row in run["propose"]:
+            shapes.update(tuple(s) for s in row["q_shapes"])
+        per_gen = [r["q_mass_diff_launches"] for r in run["propose"]]
+        if DEVICE == "cuda" and (not per_gen or any(n != MD_Q_PER_GEN for n in per_gen)
+                                 or run["q_mass_diff_launches"] != sum(per_gen)):
+            raise AssertionError(f"{what}: q_mass_diff launched {per_gen} times a TPE "
+                                 f"generation ({run['q_mass_diff_launches']} in the run), "
+                                 f"not {MD_Q_PER_GEN}")
+    return sum(run["q_mass_diff_launches"] for run in runs)
+
+
 def _md_driver(out, launches, shapes):
     """(d) fmin_multihost at the driver's defaults, batch 1024, 4096
     evaluations: in this process (_force_single), then as two controller
@@ -2551,6 +2744,11 @@ def _md_driver(out, launches, shapes):
         for row in c["propose"]:
             shapes.update(tuple(s[1:]) for s in row["shapes"] if s[0] == "ei_diff")
     launches["fmin_multihost_controllers"] = sum(c["ei_diff_launches"] for c in ctl)
+    q_shapes = set()
+    out["q_mass_launches"] = {
+        "fmin_multihost": _md_q_check("fmin_multihost", [single, profiled], q_shapes),
+        "fmin_multihost_controllers": _md_q_check("two controllers", ctl, q_shapes)}
+    out["q_mass_shapes"] = sorted(q_shapes)
     res = out["fmin_multihost"]
     res.update(batch=MD_BATCH, evals=MD_EVALS, controllers=ctl,
                two_controller_wall_sec=wall2,
@@ -2587,6 +2785,10 @@ def _md_fleet(out, launches, shapes):
         wall = time.perf_counter() - t0
         resumed = _md_run(n2, fleet_dir=store, per_gen=None)
     launches["fleet"] = sum(c["ei_diff_launches"] for c in ctl) + resumed["ei_diff_launches"]
+    q_shapes = set(out["q_mass_shapes"])
+    out["q_mass_launches"]["fmin_multihost_fleet"] = _md_q_check("the fleet", ctl + [resumed],
+                                                                 q_shapes)
+    out["q_mass_shapes"] = sorted(q_shapes)
     for run in ctl + [resumed]:
         for row in run["propose"]:
             shapes.update(tuple(s[1:]) for s in row["shapes"] if s[0] == "ei_diff")
@@ -2683,13 +2885,15 @@ def _svc_reset_counts():
     from hyperopt_tpu_torch import megakernel
 
     megakernel.ei_diff.launches = megakernel.fused_sample_ei.launches = 0
+    megakernel.q_mass_diff.launches = 0
 
 
 def _svc_counts():
     from hyperopt_tpu_torch import megakernel
 
     return {"fused_sample_ei": megakernel.fused_sample_ei.launches,
-            "ei_diff": megakernel.ei_diff.launches}
+            "ei_diff": megakernel.ei_diff.launches,
+            "q_mass_diff": megakernel.q_mass_diff.launches}
 
 
 def _svc_route(cs):
@@ -3378,7 +3582,10 @@ def _svc_ladder(out, shapes, fused_shapes):
            "climb_waves": climb, "final_level": ladder.level(), "launches": launches,
            "launches_by_level_and_shape": {
                LADDER_LEVELS[lv]["name"]: {k: sorted(v.items()) for k, v in s.items()}
-               for lv, s in sorted(level_shapes.items())}}
+               for lv, s in sorted(level_shapes.items())},
+           "q_mass_diff_launches_by_level": {
+               LADDER_LEVELS[lv]["name"]: sum(1 for s in sl.q_shapes if s[0] == lv)
+               for lv in sorted({s[0] for s in sl.q_shapes})}}
     out["ladder"] = res
     log(f"phase 14 (c): {res}")
     for s in level_shapes.values():
@@ -3639,6 +3846,7 @@ def fleet_replica(argv):
     lock = threading.Lock()
     rec = LaunchLog()
     rec.__enter__()
+    ledger = QMassLedger().__enter__()
 
     real_adopt = fleet.FleetReplica.adopt
 
@@ -3688,6 +3896,7 @@ def fleet_replica(argv):
             by_shape = _svc_shape_counts(list(rec.shapes))
             snap = {**stats, "launches": _svc_counts(),
                     "shapes": sorted(by_shape["ei_diff"].items()),
+                    "q_mass_ledger": ledger.read(),
                     "fused_shapes": sorted(by_shape["fused_sample_ei"].items())}
         if replicas:
             r = replicas[0]
@@ -3707,6 +3916,7 @@ def fleet_replica(argv):
                       "--fleet-shards", str(FLEET_SHARDS), "--replica-id", rid,
                       "--lease-ttl", str(FLEET_LEASE_TTL), "--device", DEVICE])
     done.set()
+    ledger.__exit__()
     rec.__exit__()
     print("FLEET_REPLICA " + json.dumps({**snapshot(), "rc": rc}, default=str), flush=True)
     return rc
@@ -4207,9 +4417,19 @@ def phase_fleet(report):
             raise AssertionError(f"{rid}'s TPE waves asked {missed} but it launched none: "
                                  f"{r['route_waves']}, {r['launches']}")
     if not all(reps["r0"]["launches"][k] + reps["r2"]["launches"][k]
-               for k in ("fused_sample_ei", "ei_diff")):
-        raise AssertionError(f"the surviving replicas did not launch both kernels: "
+               for k in ("fused_sample_ei", "ei_diff", "q_mass_diff")):
+        raise AssertionError(f"the surviving replicas did not launch each kernel: "
                              f"{reps['r0']['launches']}, {reps['r2']['launches']}")
+    # each quantized group a surviving replica scored went through the
+    # kernel (a record written before the exit, as r1's last one, may fall
+    # inside a group call)
+    for rid in ("r0", "r2"):
+        q = reps[rid]["q_mass_ledger"]
+        if DEVICE == "cuda" and "rc" in reps[rid] and q["launched"] != q["expected"]:
+            raise AssertionError(f"{rid} launched q_mass_diff {q['launched']} times for "
+                                 f"{q['expected']} quantized group scores")
+    out["q_mass_shapes"] = sorted({tuple(s) for r in reps.values()
+                                   for s in r["q_mass_ledger"]["shapes"]})
     shapes = {tuple(s) for r in reps.values() for s, _ in r["shapes"]}
     fused_shapes = {tuple(s) for r in reps.values() for s, _ in r["fused_shapes"]}
     launches = {f"fleet_{rid}": r["launches"] for rid, r in reps.items()}
@@ -5023,10 +5243,12 @@ def phase_gates(report):
                                  f"{text[-3000:]}")
         out[name] = res[0]
         k = res[0]["kernels"]
-        if DEVICE == "cuda" and not (k["ei_diff"] > 0 and k["fused_sample_ei"] > 0):
+        if DEVICE == "cuda" and not (k["ei_diff"] > 0 and k["fused_sample_ei"] > 0
+                                     and k["q_mass_diff"] > 0):
             raise AssertionError(f"phase 18: the {name} gate's reference launched {k}")
         launches[f"gate_{name}"] = {"ei_diff": k["ei_diff"],
-                                    "fused_sample_ei": k["fused_sample_ei"]}
+                                    "fused_sample_ei": k["fused_sample_ei"],
+                                    "q_mass_diff": k["q_mass_diff"]}
     out["phase_sec"] = time.perf_counter() - t_phase
     log(f"phase 18: {out['phase_sec']:.1f} s; gates "
         f"{ {k: round(v['wall_s'], 1) for k, v in out.items() if k in GATES} } s; "
@@ -5071,24 +5293,49 @@ def main():
     card = card_line()
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
     t_start = time.perf_counter()
-    rows, frows = phase_kernels(report)
-    phase_cpu_agreement(report)
-    main_launches, trials, tuned = phase_main(report)
-    wide_launches = phase_wide(report)
-    phase_profile(report, trials, tuned)
-    phase_cohort_agreement(report)
-    service_launches = phase_service(report)
-    phase_wide_cohort(report)
-    loop_launches = phase_device_loop(report)
-    suggest_launches = phase_suggesters(report)
-    widened_launches, widened_shapes = phase_widened_service(report)
-    ml_launches, ml_shapes = phase_ml_backends(report)
-    md_launches, md_shapes, md_fused_shapes = phase_multi_device(report)
-    svc_launches, svc_shapes, svc_fused_shapes = phase_service_plane(report)
-    fleet_launches, fleet_shapes, fleet_fused_shapes = phase_fleet(report)
-    obs_launches, obs_shapes = phase_obs(report)
-    sl_launches, sl_shapes = phase_sharded_loop(report)
-    gate_launches = phase_gates(report)
+    from hyperopt_tpu_torch import megakernel
+
+    rows, frows, qrows = phase_kernels(report)
+    # phases 2-18 each count their quantized groups' q_mass_diff launches
+    # in this process from 0 (QMassLedger), and every shape it launched at
+    ledger = QMassLedger().__enter__()
+    q_by_phase = {}
+
+    def counted(name, phase, *args):
+        out = phase(*args)
+        q_by_phase[name] = ledger.take()
+        return out
+
+    counted("cpu_agreement", phase_cpu_agreement, report)
+    main_launches, trials, tuned = counted("fmin", phase_main, report)
+    wide_launches = counted("wide_ask", phase_wide, report)
+    counted("profile", phase_profile, report, trials, tuned)
+    counted("cohort_agreement", phase_cohort_agreement, report)
+    service_launches = counted("service_wave", phase_service, report)
+    counted("wide_cohort", phase_wide_cohort, report)
+    loop_launches = counted("device_loop", phase_device_loop, report)
+    suggest_launches = counted("suggesters", phase_suggesters, report)
+    widened_launches, widened_shapes = counted("widened_service_wave", phase_widened_service,
+                                               report)
+    ml_launches, ml_shapes = counted("ml_backends", phase_ml_backends, report)
+    md_launches, md_shapes, md_fused_shapes = counted("multi_device", phase_multi_device,
+                                                      report)
+    svc_launches, svc_shapes, svc_fused_shapes = counted("service_plane",
+                                                         phase_service_plane, report)
+    fleet_launches, fleet_shapes, fleet_fused_shapes = counted("fleet", phase_fleet, report)
+    obs_launches, obs_shapes = counted("obs", phase_obs, report)
+    sl_launches, sl_shapes = counted("sharded_loop", phase_sharded_loop, report)
+    gate_launches = counted("gates", phase_gates, report)
+    ledger.__exit__()
+    report["q_mass_diff_by_phase"] = q_by_phase
+    # every quantized group scored on the card went through the kernel,
+    # and the mix's hpob_surrogate studies and the batch driver scored some
+    unrouted = {k: v for k, v in q_by_phase.items() if v["launched"] != v["expected"]}
+    idle = [k for k in ("service_wave", "multi_device", "service_plane")
+            if not q_by_phase[k]["launched"]]
+    if DEVICE == "cuda" and (unrouted or idle):
+        raise AssertionError(f"q_mass_diff launches against quantized groups: {unrouted}; "
+                             f"none in {idle}")
     # every shape the widened wave and phases 12-17 gave ei_diff is held
     # against the plain version on every candidate: phase 1 planned them,
     # and any it missed is checked here
@@ -5109,6 +5356,17 @@ def main():
               if (P, N, m) not in fplanned]
     report["fused_sample_ei_shapes_unplanned"] = [r["shape"] for r in fextra]
     frows += fextra
+    # and every shape phases 2-18 gave q_mass_diff, in this process or in
+    # phase 13's controllers and phase 15's replicas, on LCBench's rows
+    # (log and linear labels, bounded)
+    qplanned = {tuple(r["shape"]) for r in qrows}
+    qseen = ledger.shapes | {tuple(s) for phase in ("multi_device", "fleet")
+                             for s in report[phase]["q_mass_shapes"]}
+    qextra = [check_q_mass("lcbench", P, N, m, True, True, Q_CMP if N > Q_CMP else None,
+                           report["ptxas"])
+              for P, N, m in sorted(qseen) if P and N and (P, N, m) not in qplanned]
+    report["q_mass_diff_shapes_unplanned"] = [r["shape"] for r in qextra]
+    qrows += qextra
     report["total_sec"] = time.perf_counter() - t_start
 
     tick, ftick = rows[4], frows[0]  # the branin ask's and the service tick's shapes
@@ -5155,6 +5413,23 @@ def main():
         "bound_ms": ftick["bound_ms"], "bound_by": ftick["bound_by"],
         "bound_share": ftick["bound_share"], "library_ms": None,
         "shapes": [{k: r[k] for k in SHAPE_KEYS if k in r} for r in frows],
+    }, {
+        "name": "q_mass_diff", "route": "cuda", "source": SOURCES["q_mass_diff"],
+        "replaces": REPLACES["q_mass_diff"],
+        "launches": sum(v["launched"] for v in q_by_phase.values()),
+        "launches_by_path": {
+            **{k: v["launched"] for k, v in q_by_phase.items()},
+            **report["multi_device"]["q_mass_launches"],
+            **{f"{k} (in service_plane)": v["q_mass_diff"] for k, v in svc_launches.items()},
+            **{k: v["q_mass_diff"] for k, v in fleet_launches.items()},
+            **{k: v["q_mass_diff"] for k, v in gate_launches.items()}},
+        "shape": qrows[0]["shape"], "max_abs_err": qrows[0]["max_abs_err"],
+        "max_err": max(r["max_abs_err"] for r in qrows),
+        "ms": qrows[0]["ms"], "device_ms": qrows[0]["device_ms"],
+        "plain_ms": qrows[0]["plain_ms"], "bound_ms": qrows[0]["bound_ms"],
+        "bound_by": qrows[0]["bound_by"], "bound_share": qrows[0]["bound_share"],
+        "library_ms": None,
+        "shapes": [{k: r[k] for k in SHAPE_KEYS if k in r} for r in qrows],
     }]
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

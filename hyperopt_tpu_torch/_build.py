@@ -42,6 +42,8 @@ _SIGNATURES = {
                 "ei_diff_plan": ([_I, _I, _I, _P], ctypes.c_int)},
     "fused_sample_ei": {"fused_sample_ei_f32": ([_P] * 15 + [_I] * 4 + [_P], ctypes.c_int),
                         "fused_sample_ei_plan": ([_I, _I, _I, _P], ctypes.c_int)},
+    "q_mass": {"q_mass_diff_f32": ([_P] * 12 + [_I] * 5 + [_P], ctypes.c_int),
+               "q_mass_diff_plan": ([_I, _I, _I, _P], ctypes.c_int)},
 }
 
 

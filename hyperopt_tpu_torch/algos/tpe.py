@@ -19,7 +19,9 @@ the ask shares them; the candidate draws and EI scores are
 ``[G, B, n_EI_candidates]``.  Un-quantized numeric EI scores go through
 the CUDA kernel ``megakernel.ei_diff``, one launch per group covering all
 its ids and labels; a cohort of a space ``megakernel.supports`` draws and
-scores them in ``megakernel.fused_sample_ei`` instead.  Component picks
+scores them in ``megakernel.fused_sample_ei`` instead.  A group of
+quantized labels scores its bins in ``megakernel.q_mass_diff``, one launch
+for the candidates and one for the epsilon-prior draws.  Component picks
 are gathers (``torch.gather`` after ``searchsorted``) where the JAX
 package used a one-hot matmul, so no matrix product, and hence no TF32
 rounding, is involved.  ``erf`` and ``ndtri`` are the float32 formulas
@@ -534,11 +536,12 @@ def _in_support(x, low, high, log_space):
 
 
 def _q_lpdf_group(x, weights, mus, sigmas, lo, hi, q, islog, bounded,
-                  has_log=True):
+                  has_log=True, p_accept=None):
     """Quantized-bin log-density for a group: ``x[G, ...]`` against tables
     ``[G, m]`` and per-label statics ``[G]``, bin for bin the per-label
     q-paths (normal cdf on the bounded support for linear labels,
-    lognormal cdf with the lower edge at 0 for log labels)."""
+    lognormal cdf with the lower edge at 0 for log labels).  ``p_accept``
+    is the tables' :func:`_p_accept_group`, computed here when None."""
     G = x.shape[0]
     flat = x.reshape(G, -1)
     q2 = (q / 2)[:, None]
@@ -557,7 +560,8 @@ def _q_lpdf_group(x, weights, mus, sigmas, lo, hi, q, islog, bounded,
             ubl = ub
         pl = _q_prob(ubl, lbl, weights, mus, sigmas, lognormal_cdf)
         prob = torch.where(islog[:, None], pl, prob)
-    p_accept = _p_accept_group(weights, mus, sigmas, lo, hi, bounded)
+    if p_accept is None:
+        p_accept = _p_accept_group(weights, mus, sigmas, lo, hi, bounded)
     out = (torch.log(torch.clamp(prob, min=EPS))
            - torch.log(torch.clamp(p_accept, min=EPS))[:, None])
     return out.reshape(x.shape)
@@ -874,16 +878,17 @@ def _propose_numeric_group(keys, obs, below, above, statics, cfg,
     if not fused:
         z = _draw_from_tables(uc, u0, cdf, tb[1], tb[2], alpha, beta, lo, hi, bounded)
 
+    p_b = _p_accept_group(*tb, lo, hi, bounded)
+    p_a = _p_accept_group(*ta, lo, hi, bounded)
     if quantized:
         sel = torch.round(to_value(z) / _lead(q, 3)) * _lead(q, 3)
 
         def score(xs):
-            return (_q_lpdf_group(xs, *tb, lo, hi, q, islog, bounded, has_log)
-                    - _q_lpdf_group(xs, *ta, lo, hi, q, islog, bounded, has_log))
+            G = xs.shape[0]
+            ei = megakernel.q_mass_diff(xs.reshape(G, -1).contiguous(), *tb, *ta, q, lo, hi,
+                                        islog, p_b, p_a, bounded, has_log)
+            return ei.reshape(xs.shape)
     else:
-        p_b = _p_accept_group(*tb, lo, hi, bounded)
-        p_a = _p_accept_group(*ta, lo, hi, bounded)
-
         def score(xs):
             ei = _ei_kernel(xs, tb, ta, p_b, p_a)
             if not bounded:

@@ -13,10 +13,11 @@ for a prior step and one for a TPE step (the JAX package's ``lax.cond``
 branch is known on the host).  A graph reads and writes static buffers
 (the loop state, a ``[cap, 2L+1]`` row buffer, a step counter and a key),
 so a step is one graph launch in place of the ~1,660 launches of the
-eager step, and its TPE step launches ``csrc/ei_diff.cu`` from inside the
-graph.  The first step of each branch runs eagerly on a side stream (the
-warm-up, which makes every cached constant the step reads) and the
-branch is captured right after.  A failed capture or replay raises;
+eager step, and its TPE step launches ``csrc/ei_diff.cu`` (and, for a
+group of quantized labels, ``csrc/q_mass.cu``) from inside the graph.
+The first step of each branch runs eagerly on a side stream (the warm-up,
+which makes every cached constant the step reads) and the branch is
+captured right after.  A failed capture or replay raises;
 nothing falls back to an eager loop.  On the CPU the same step function
 runs eagerly.
 
@@ -151,6 +152,7 @@ class _Loop:
             cs, cfg, with_tpe=self.n_startup < self.cap)
         self.graphs = {}        # branch -> torch.cuda.CUDAGraph
         self.kernel_nodes = {}  # branch -> ei_diff kernel nodes in its graph
+        self.q_mass_nodes = {}  # branch -> q_mass_diff kernel nodes in its graph
         self.replays = {"prior": 0, "tpe": 0}
         self.capture_sec = {}   # branch -> warm-up step + capture, seconds
         self._static = None
@@ -229,10 +231,11 @@ class _Loop:
             self.step(bufs, branch)
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        before = megakernel.ei_diff.captures
+        before = megakernel.ei_diff.captures, megakernel.q_mass_diff.captures
         with torch.cuda.graph(graph):
             self.step(bufs, branch)
-        self.kernel_nodes[branch] = megakernel.ei_diff.captures - before
+        self.kernel_nodes[branch] = megakernel.ei_diff.captures - before[0]
+        self.q_mass_nodes[branch] = megakernel.q_mass_diff.captures - before[1]
         self.graphs[branch] = graph
         torch.cuda.synchronize(self.device)
         self.capture_sec[branch] = time.perf_counter() - t0
@@ -241,6 +244,7 @@ class _Loop:
         self.graphs[branch].replay()
         self.replays[branch] += 1
         megakernel.ei_diff.graph_launches += self.kernel_nodes[branch]
+        megakernel.q_mass_diff.graph_launches += self.q_mass_nodes[branch]
 
     def run(self, state, key, start, limit, capture=True, events=None):
         """Steps ``start .. limit-1`` on ``state`` (updated in place) from
@@ -309,6 +313,7 @@ class _Loop:
         return {"kind": "whole_run" if self.chain else "chunk", "cap": self.cap,
                 "n_startup": self.n_startup, "device": str(self.device),
                 "replays": dict(self.replays), "ei_diff_nodes": dict(self.kernel_nodes),
+                "q_mass_diff_nodes": dict(self.q_mass_nodes),
                 "capture_sec": dict(self.capture_sec)}
 
 
@@ -334,7 +339,8 @@ def _get_loop(kind, cs, fn, cfg, n_startup, cap, dtype, device):
 def loop_stats():
     """Per cached loop program: its kind (``whole_run`` or ``chunk``),
     capacity, startup count, device, graph replays per branch, ``ei_diff``
-    kernel nodes per graph and capture seconds (warm-up step included)."""
+    and ``q_mass_diff`` kernel nodes per graph and capture seconds (warm-up
+    step included)."""
     return [loop.stats() for loop in _RUN_CACHE.values()]
 
 

@@ -13,13 +13,21 @@ The study-batched cohort runs it for every space :func:`supports`, one
 launch per group of a tick, when :func:`armed`; ``build_cohort`` is that
 build of ``tpe.build_suggest_batched``.
 
+``q_mass_diff(x, wb, mb, sb, wa, ma, sa, q, lo, hi, islog, p_b, p_a,
+bounded, has_log)`` scores a group of quantized labels: each candidate's
+bin mass under the below mixture against the above one's, in logs, with
+the truncation terms of the in-bounds masses ``p_b``, ``p_a``
+(``csrc/q_mass.cu``; no TPU kernel: the JAX package leaves the bin
+masses to XLA).
+
 On a CUDA tensor each wrapper launches its hand-written kernel (and counts
 the launch in ``<wrapper>.launches``, or in ``<wrapper>.captures`` when
 the launch is recorded into a CUDA graph; the device loop counts the
 graph's replays in ``<wrapper>.graph_launches``); on a CPU tensor it computes the
 plain torch version beside it (``ei_diff_plain``,
-``fused_sample_ei_plain``); any other device raises.  A build or launch
-failure raises: nothing falls back.  Both kernels score with the loop of
+``fused_sample_ei_plain``, ``q_mass_diff_plain``); any other device
+raises.  A build or launch failure raises: nothing falls back.
+``ei_diff`` and ``fused_sample_ei`` score with the loop of
 ``csrc/mixture_lse.cuh`` (per-component constants hoisted, one exp2 per
 term on a base-2 carry); the plain versions stay the function the JAX
 package computes.
@@ -31,7 +39,7 @@ import torch
 
 __all__ = ["mode", "supports", "armed", "build_cohort", "ei_diff", "ei_diff_plain",
            "ei_diff_reference", "pallas_available", "fused_sample_ei", "fused_sample_ei_plain",
-           "ei_cost", "fused_cost"]
+           "q_mass_diff", "q_mass_diff_plain", "ei_cost", "fused_cost"]
 
 # log(sqrt(2*pi))
 _LOG_SQRT_2PI = 0.9189385332046727
@@ -167,22 +175,87 @@ def _count(wrapper, capturing):
 ei_diff.launches = ei_diff.captures = ei_diff.graph_launches = 0
 
 
+# ---------------------------------------------------------------------------
+# the quantized-bin score
+# ---------------------------------------------------------------------------
+
+
+def q_mass_diff_plain(x, wb, mb, sb, wa, ma, sa, q, lo, hi, islog, p_b, p_a, bounded,
+                      has_log):
+    """Plain torch version of :func:`q_mass_diff`: the below mixture's
+    quantized-bin log-density minus the above one's, each with its
+    truncation term (``tpe._q_lpdf_group``, the float32 function the JAX
+    package computes, its FMAs rounded once through float64 products)."""
+    from .algos import tpe
+
+    return (tpe._q_lpdf_group(x, wb, mb, sb, lo, hi, q, islog, bounded, has_log, p_b)
+            - tpe._q_lpdf_group(x, wa, ma, sa, lo, hi, q, islog, bounded, has_log, p_a))
+
+
+def q_mass_diff(x, wb, mb, sb, wa, ma, sa, q, lo, hi, islog, p_b, p_a, bounded, has_log):
+    """Quantized-bin EI score of value-space candidates ``x[G, N]`` under
+    the below/above component tables ``[G, m]`` (float32), with per-label
+    rows ``q``, ``lo``, ``hi`` (float32 ``[G]``; t-space bounds, read when
+    ``bounded``), ``islog`` (bool ``[G]``, read when ``has_log``) and the
+    tables' in-bounds masses ``p_b``, ``p_a`` (float32 ``[G]``,
+    ``tpe._p_accept_group``): ``log max(M_b, EPS) - log max(M_a, EPS) -
+    log p_b + log p_a`` ``[G, N]``, ``M`` a mixture's mass of each
+    candidate's bin.  CUDA tensors launch ``csrc/q_mass.cu`` for the bin
+    masses (counted in ``q_mass_diff.launches``) and add the truncation
+    terms as ``tpe._normalize_ei`` does for ``ei_diff``; CPU tensors take
+    :func:`q_mass_diff_plain`; any other device raises."""
+    tables = (wb, mb, sb, wa, ma, sa)
+    P, N, m = _check("q_mass_diff", x, tables, (q, lo, hi, p_b, p_a))
+    if islog.dtype != torch.bool or tuple(islog.shape) != (P,) or islog.device != x.device:
+        raise ValueError(f"q_mass_diff: islog must be bool [P={P}] on {x.device}")
+    if x.device.type == "cpu":
+        return q_mass_diff_plain(x, *tables, q, lo, hi, islog, p_b, p_a, bounded, has_log)
+    if x.device.type != "cuda":
+        raise ValueError(f"q_mass_diff: no kernel for device {x.device}")
+    _launchable("q_mass_diff", P, (x, *tables, q, lo, hi, islog))
+    from ._build import library
+    from .algos import tpe
+
+    raw = torch.empty_like(x)
+    if P and N:
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = library("q_mass").q_mass_diff_f32(
+                x.data_ptr(), *(t.data_ptr() for t in tables), q.data_ptr(), lo.data_ptr(),
+                hi.data_ptr(), islog.data_ptr(), raw.data_ptr(), P, N, m,
+                int(bool(bounded)), int(bool(has_log)), stream)
+            capturing = torch.cuda.is_current_stream_capturing()
+        if err != 0:
+            raise RuntimeError(f"q_mass_diff kernel launch failed: CUDA error {err}")
+        _count(q_mass_diff, capturing)
+    return tpe._normalize_ei(raw, p_b, p_a)
+
+
+q_mass_diff.launches = q_mass_diff.captures = q_mass_diff.graph_launches = 0
+
+# the library and the plan's keys of each kernel's C entry
+_PLANS = {"ei_diff": ("ei_diff", ("per_thread", "splits")),
+          "fused_sample_ei": ("fused_sample_ei", ("cols", "rows")),
+          "q_mass_diff": ("q_mass", ("lanes", "per_block"))}
+
+
 def _launch_plan(kernel, P, n, m):
-    """The launch the C entry of ``kernel`` (``"ei_diff"`` or
-    ``"fused_sample_ei"``) makes at shape ``(P, n, m)`` on the current
-    card, for reports: ``{"per_thread" | "cols", "splits" | "rows",
-    "blocks", "threads"}``.  Builds the kernel; needs the CUDA toolkit.
-    Raises if the card cannot be queried."""
+    """The launch the C entry of ``kernel`` (``"ei_diff"``,
+    ``"fused_sample_ei"`` or ``"q_mass_diff"``) makes at shape
+    ``(P, n, m)`` on the current card, for reports: ``{"per_thread" |
+    "cols" | "lanes", "splits" | "rows" | "per_block", "blocks",
+    "threads"}``.  Builds the kernel; needs the CUDA toolkit.  Raises if
+    the card cannot be queried."""
     import ctypes
 
     from ._build import library
 
+    stem, keys = _PLANS[kernel]
     out = (ctypes.c_int * 4)()
-    err = getattr(library(kernel), f"{kernel}_plan")(P, n, m,
-                                                     ctypes.cast(out, ctypes.c_void_p))
+    err = getattr(library(stem), f"{kernel}_plan")(P, n, m,
+                                                   ctypes.cast(out, ctypes.c_void_p))
     if err != 0:
         raise RuntimeError(f"{kernel}: launch plan failed: CUDA error {err}")
-    keys = (("per_thread", "splits") if kernel == "ei_diff" else ("cols", "rows"))
     return dict(zip(keys + ("blocks", "threads"), out))
 
 

@@ -66,14 +66,14 @@ CARD_RTOL, CARD_ATOL = 1e-4, 1e-5
 X_SPEC = {"x": {"dist": "uniform", "args": [-5, 5]}}
 #: the uniform label beside a quantized one: ``megakernel.supports`` keeps
 #: the space off the fused kernel, and its TPE ticks score ``x`` in
-#: ``ei_diff`` (a quantized or discrete label takes neither kernel)
+#: ``ei_diff`` and ``q`` in ``q_mass_diff``
 EI_DIFF_SPEC = {"x": {"dist": "uniform", "args": [-5, 5]},
                 "q": {"dist": "quniform", "args": [0, 4, 1]}}
 #: the study of a gate that :func:`spec_of` puts on :data:`EI_DIFF_SPEC`
 EI_DIFF_STUDY = 1
 #: the kernels' launches in this process's undisturbed references
 #: (:func:`reference_streams`), which :func:`run` checks and reports
-LAUNCHES = {"ei_diff": 0, "fused_sample_ei": 0}
+LAUNCHES = {"ei_diff": 0, "fused_sample_ei": 0, "q_mass_diff": 0}
 
 
 class GateFailure(AssertionError):
@@ -412,7 +412,8 @@ def kernel_counts():
     from hyperopt_tpu_torch import megakernel
 
     return {"ei_diff": megakernel.ei_diff.launches,
-            "fused_sample_ei": megakernel.fused_sample_ei.launches}
+            "fused_sample_ei": megakernel.fused_sample_ei.launches,
+            "q_mass_diff": megakernel.q_mass_diff.launches}
 
 
 @contextlib.contextmanager
@@ -462,6 +463,7 @@ def reference_streams(studies, device, rounds=None):
     from hyperopt_tpu_torch import megakernel
 
     megakernel.ei_diff.launches = megakernel.fused_sample_ei.launches = 0
+    megakernel.q_mass_diff.launches = 0
     with megakernel_route(None):
         streams = drive_in_process(studies, device, rounds)
     for k, v in kernel_counts().items():
@@ -473,13 +475,13 @@ def reference_streams(studies, device, rounds=None):
 
 
 def check_kernel_counts(counts, device):
-    """On CUDA a gate's references must have launched both hand-written
-    kernels: a stream equal to them bit for bit was proposed by the same
-    kernels.  On the CPU the wrappers take their plain versions and count
-    nothing."""
+    """On CUDA a gate's references must have launched the three
+    hand-written kernels: a stream equal to them bit for bit was proposed
+    by the same kernels.  On the CPU the wrappers take their plain versions
+    and count nothing."""
     if device != "cuda":
         return
-    for k in ("ei_diff", "fused_sample_ei"):
+    for k in ("ei_diff", "fused_sample_ei", "q_mass_diff"):
         check(counts.get(k, 0) > 0, f"the in-process reference launched {k} "
                                     f"{counts.get(k, 0)} times on the card: the gate's "
                                     "path never reached the hand-written kernel")

@@ -58,4 +58,4 @@ def test_build_all_reads_back_the_kept_log(csrc, monkeypatch, tmp_path):
         _build._target(stem)[1].write_bytes(b"")
     kept = "ptxas info    : Used 40 registers, 10240 bytes smem"
     _build._target("ei_diff")[1].with_suffix(".log").write_text(kept)
-    assert _build.build_all() == {"ei_diff": kept, "fused_sample_ei": ""}
+    assert _build.build_all() == {"ei_diff": kept, "fused_sample_ei": "", "q_mass": ""}

@@ -16,6 +16,7 @@ from hyperopt_tpu_torch import device_fmin, hp, megakernel, zoo
 from hyperopt_tpu_torch.algos import tpe
 from hyperopt_tpu_torch.base import Domain
 from hyperopt_tpu_torch.service import StudyScheduler
+from test_torch_q_mass import q_inputs, quantized_loop_domain
 
 pytestmark = pytest.mark.cuda
 
@@ -66,6 +67,69 @@ def test_kernel_rejects_strided_input(cuda_device):
     x, *tabs = _inputs(2, 64, 17, cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         megakernel.ei_diff(x.t().contiguous().t(), *tabs)
+
+
+# (row kinds, N, m, dead components, bounded, has_log, candidates held
+# against the plain twin): LCBench's generation and its epsilon-prior
+# draws, groups without log labels and all-log, the service's cohorts of
+# 24 candidates over 17 components, and one component
+LCBENCH_ROWS = ("logint", "int", "logint")
+Q_CASES = [(LCBENCH_ROWS, 65536, 4097, 0, True, True, 4096),
+           (LCBENCH_ROWS, 1024, 4097, 0, True, True, None),
+           (("int", "q2"), 1024, 1001, 100, True, False, None),
+           (("logq", "logq"), 1024, 1001, 0, False, True, None),
+           (("q2", "q2"), 1000, 257, 7, False, False, None),
+           (LCBENCH_ROWS * 256, 24, 17, 0, True, True, None),
+           (("logint",), 24, 17, 3, True, True, None),
+           (("logint", "int"), 300, 1, 0, True, True, None)]
+
+
+@pytest.mark.parametrize("kinds,N,m,dead,bounded,has_log,n_cmp", Q_CASES)
+def test_q_mass_kernel_matches_plain_and_counts_launches(cuda_device, kinds, N, m, dead,
+                                                         bounded, has_log, n_cmp):
+    args = q_inputs(kinds, N, m, bounded, seed=N + m, dead=dead, device=cuda_device)
+    before = megakernel.q_mass_diff.launches
+    got = megakernel.q_mass_diff(*args, bounded, has_log)
+    again = megakernel.q_mass_diff(*args, bounded, has_log)
+    torch.cuda.synchronize()
+    assert megakernel.q_mass_diff.launches == before + 2
+    assert torch.equal(got, again)  # a fixed order of every sum
+    if n_cmp is not None:
+        args[0], got = args[0][:, :n_cmp].contiguous(), got[:, :n_cmp]
+    want = megakernel.q_mass_diff_plain(*args, bounded, has_log)
+    assert torch.isfinite(got).all()
+    assert bool(((got - want).abs() <= 1e-5 + 1e-4 * want.abs()).all()), \
+        float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("P,N,m,lanes", [(3, 65536, 4097, 1), (3, 1024, 4097, 16),
+                                         (768, 24, 17, 4), (1, 24, 17, 16), (3, 100, 1, 1)])
+def test_q_mass_plan_fills_the_card_from_the_shape(cuda_device, P, N, m, lanes):
+    plan = megakernel._launch_plan("q_mass_diff", P, N, m)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert plan["lanes"] == lanes and plan["per_block"] * lanes == plan["threads"]
+    if P * N >= sms * plan["per_block"]:
+        assert plan["blocks"] >= sms  # at least one wave of blocks
+
+
+def test_q_mass_graph_replay_equals_eager_and_counts_captures(cuda_device):
+    args = q_inputs(LCBENCH_ROWS, 1024, 4097, True, device=cuda_device)
+    eager = megakernel.q_mass_diff(*args, True, True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        megakernel.q_mass_diff(*args, True, True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (megakernel.q_mass_diff.launches, megakernel.q_mass_diff.captures)
+    with torch.cuda.graph(graph):
+        out = megakernel.q_mass_diff(*args, True, True)
+    assert (megakernel.q_mass_diff.launches, megakernel.q_mass_diff.captures) == (
+        before[0], before[1] + 1)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 def test_fmin_on_the_card_follows_the_cpu_path(cuda_device):
@@ -173,6 +237,27 @@ def test_device_loop_graph_replay_equals_eager_and_follows_cpu(cuda_device):
     # the first TPE step is the eager warm-up, the other 19 are replays
     assert megakernel.ei_diff.captures - before[0] == 1
     assert megakernel.ei_diff.graph_launches - before[1] == stats["replays"]["tpe"] == 19
+
+
+def test_device_loop_over_a_quantized_group_replays_q_mass_and_follows_cpu(cuda_device):
+    cfg = {"prior_weight": 1.0, "n_EI_candidates": 24, "gamma": 0.25, "LF": 25}
+    domain = quantized_loop_domain()  # one objective: the eager and graph runs share a loop
+
+    def rows(device, capture):
+        runner = device_fmin.DeviceLoopRunner(domain, cfg, 10, 30, device=device,
+                                              capture=capture)
+        return runner.run_chunk(runner.init_state(), 0, 30, seed=3)[1]
+
+    cpu, eager = rows("cpu", True), rows(cuda_device, False)
+    before = (megakernel.q_mass_diff.captures, megakernel.q_mass_diff.graph_launches)
+    graph = rows(cuda_device, True)
+    np.testing.assert_array_equal(graph, eager)
+    np.testing.assert_allclose(graph, cpu, rtol=1e-4, atol=1e-5)
+    stats, = [s for s in device_fmin.loop_stats()
+              if s["kind"] == "chunk" and s["cap"] == 30 and s["device"].startswith("cuda")]
+    assert stats["q_mass_diff_nodes"] == {"prior": 0, "tpe": 1}
+    assert megakernel.q_mass_diff.captures - before[0] == 1
+    assert megakernel.q_mass_diff.graph_launches - before[1] == stats["replays"]["tpe"] == 19
 
 
 @pytest.mark.parametrize("entries", [2, 8])
@@ -516,7 +601,8 @@ def test_service_resume_on_the_card_is_bit_for_bit(cuda_device, tmp_path, store)
 
 def test_ladder_rungs_launch_the_kernels_at_scaled_candidates(cuda_device, monkeypatch):
     """``half_candidates`` and ``small_caps`` scale ``n_EI_candidates`` by
-    0.5 and 0.25 for the tick: both kernels launch at those widths."""
+    0.5 and 0.25 for the tick: the three kernels launch at those widths
+    (``hpob_surrogate``'s quantized group in ``q_mass_diff``)."""
     sched = StudyScheduler(device=cuda_device, degrade=100)
     doms = [zoo.ZOO["branin"], zoo.ZOO["hpob_surrogate"]]
     sids = [sched.create_study(d.space, seed=90 + i, n_startup_jobs=2)
@@ -524,7 +610,7 @@ def test_ladder_rungs_launch_the_kernels_at_scaled_candidates(cuda_device, monke
     objective_of = dict(zip(sids, (d.objective for d in doms)))
     _service_stream(sched, sids, objective_of, 2)
     shapes = []
-    ei, fused = megakernel.ei_diff, megakernel.fused_sample_ei
+    ei, fused, qm = megakernel.ei_diff, megakernel.fused_sample_ei, megakernel.q_mass_diff
     real = megakernel._launchable
 
     def recording(name, P, tensors):  # every CUDA launch passes this check
@@ -535,11 +621,12 @@ def test_ladder_rungs_launch_the_kernels_at_scaled_candidates(cuda_device, monke
     for level, n in ((0, 24), (1, 12), (2, 6)):
         sched.degrade._level = level
         shapes.clear()
-        before = (ei.launches, fused.launches)
+        before = (ei.launches, fused.launches, qm.launches)
         answers = sched.ask_many([(sid, 1) for sid in sids])
         assert all(not a[0].get("degraded") for a in answers.values()) == (level == 0)
-        assert sorted(set(shapes)) == [("ei_diff", n), ("fused_sample_ei", n)]
-        assert (ei.launches - before[0], fused.launches - before[1]) == (1, 1)
+        assert sorted(set(shapes)) == [("ei_diff", n), ("fused_sample_ei", n), ("q_mass_diff", n)]
+        assert (ei.launches - before[0], fused.launches - before[1],
+                qm.launches - before[2]) == (1, 1, 1)
         for sid, (a,) in answers.items():
             sched.tell(sid, a["tid"], float(objective_of[sid](a["params"])))
 

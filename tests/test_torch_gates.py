@@ -56,11 +56,12 @@ def test_canon_is_the_json_round_trip():
 
 
 @pytest.mark.parametrize("launches,device,ok", [
-    ({"ei_diff": 0, "fused_sample_ei": 0}, "cuda", False),
-    ({"ei_diff": 3, "fused_sample_ei": 0}, "cuda", False),
-    ({"ei_diff": 0, "fused_sample_ei": 7}, "cuda", False),
-    ({"ei_diff": 3, "fused_sample_ei": 7}, "cuda", True),
-    ({"ei_diff": 0, "fused_sample_ei": 0}, "cpu", True),
+    ({"ei_diff": 0, "fused_sample_ei": 0, "q_mass_diff": 0}, "cuda", False),
+    ({"ei_diff": 3, "fused_sample_ei": 0, "q_mass_diff": 3}, "cuda", False),
+    ({"ei_diff": 0, "fused_sample_ei": 7, "q_mass_diff": 3}, "cuda", False),
+    ({"ei_diff": 3, "fused_sample_ei": 7, "q_mass_diff": 0}, "cuda", False),
+    ({"ei_diff": 3, "fused_sample_ei": 7, "q_mass_diff": 3}, "cuda", True),
+    ({"ei_diff": 0, "fused_sample_ei": 0, "q_mass_diff": 0}, "cpu", True),
 ])
 def test_kernel_counter_check_refuses_a_card_run_without_launches(launches, device, ok):
     if ok:
@@ -145,19 +146,20 @@ def _run_gate(stem, *args, timeout=240):
 def test_slo_gate_end_to_end_at_one_study():
     res = _run_gate("torch_slo_smoke", "--n-studies", 1)
     assert res["studies"] == 1
-    assert res["kernels"] == {"ei_diff": 0, "fused_sample_ei": 0}  # plain versions here
+    assert res["kernels"] == {"ei_diff": 0, "fused_sample_ei": 0, "q_mass_diff": 0}  # plain here
 
 
 @pytest.mark.parametrize("i", [0, g.EI_DIFF_STUDY, 2])
 def test_each_gate_serves_one_study_on_the_ei_diff_route(i, monkeypatch):
     """On the default route a TPE ask of study ``EI_DIFF_STUDY`` calls the
     ``ei_diff`` wrapper and no other study's does (they call the fused
-    one), so a gate's servers, held bit for bit against its reference,
-    cross both kernels.  The wrappers are counted here, where they take
-    their plain versions."""
+    one), and its quantized label calls ``q_mass_diff``, so a gate's
+    servers, held bit for bit against its reference, cross the three
+    kernels.  The wrappers are counted here, where they take their plain
+    versions."""
     from hyperopt_tpu_torch import megakernel
 
-    calls = {"ei_diff": 0, "fused_sample_ei": 0}
+    calls = {"ei_diff": 0, "fused_sample_ei": 0, "q_mass_diff": 0}
 
     def counted(name):
         fn = getattr(megakernel, name)
@@ -173,8 +175,8 @@ def test_each_gate_serves_one_study_on_the_ei_diff_route(i, monkeypatch):
     g.reference_streams([g.Study(seed=5, budget=3, n_startup=1, loss=g.x_loss(0.5),
                                  spec=g.spec_of(i))], "cpu")
     on_ei_diff = i == g.EI_DIFF_STUDY
-    assert (calls["ei_diff"] > 0, calls["fused_sample_ei"] > 0) == (on_ei_diff,
-                                                                    not on_ei_diff)
+    assert (calls["ei_diff"] > 0, calls["fused_sample_ei"] > 0, calls["q_mass_diff"] > 0) == (
+        on_ei_diff, not on_ei_diff, on_ei_diff)
 
 
 def test_reference_counts_only_its_own_default_route_run(monkeypatch):
@@ -182,15 +184,16 @@ def test_reference_counts_only_its_own_default_route_run(monkeypatch):
     made before it (another route, a comparison) never reach ``kernels``."""
     from hyperopt_tpu_torch import megakernel
 
-    monkeypatch.setattr(g, "LAUNCHES", {"ei_diff": 0, "fused_sample_ei": 0})
+    monkeypatch.setattr(g, "LAUNCHES", {"ei_diff": 0, "fused_sample_ei": 0, "q_mass_diff": 0})
     monkeypatch.setattr(megakernel.ei_diff, "launches", 41)
     monkeypatch.setattr(megakernel.fused_sample_ei, "launches", 17)
+    monkeypatch.setattr(megakernel.q_mass_diff, "launches", 5)
     monkeypatch.setenv("HYPEROPT_TPU_MEGAKERNEL", "off")
     studies = [g.Study(seed=5 + i, budget=3, n_startup=1, loss=g.x_loss(0.5),
                        spec=g.spec_of(i)) for i in range(2)]
     streams = g.reference_streams(studies, "cpu")
     assert [len(s) for s in streams] == [3, 3]
-    assert g.LAUNCHES == {"ei_diff": 0, "fused_sample_ei": 0}
+    assert g.LAUNCHES == {"ei_diff": 0, "fused_sample_ei": 0, "q_mass_diff": 0}
     assert os.environ["HYPEROPT_TPU_MEGAKERNEL"] == "off"  # restored after the run
 
 

@@ -47,15 +47,14 @@ RCS = ref_spaces.compile_space(_space(ref_hp))
 PCS = spaces.compile_space(_space(hp))
 
 
-def _history(n=70, seed=0):
+def _history(n=70, seed=0, rcs=RCS, cap=128):
     """A reference padded history (cap 128) from prior draws: tied losses,
     some trials without a loss, conditional labels inactive half the time."""
     rng = np.random.default_rng(seed)
-    cap = 128
     keys = jax.vmap(lambda i: jax.random.fold_in(jax.random.PRNGKey(seed), i))(
         jnp.arange(cap, dtype=jnp.uint32))
-    flats = jax.vmap(RCS.sample_flat)(keys)
-    acts = RCS.active_flat({l: np.asarray(v) for l, v in flats.items()})
+    flats = jax.vmap(rcs.sample_flat)(keys)
+    acts = rcs.active_flat({l: np.asarray(v) for l, v in flats.items()})
     live = np.arange(cap) < n
     has = live & (rng.uniform(size=cap) > 0.1)
     losses = np.round(rng.normal(size=cap), 1).astype(np.float32)  # many ties
@@ -63,8 +62,8 @@ def _history(n=70, seed=0):
         "losses": np.where(has, losses, np.inf).astype(np.float32),
         "has_loss": has,
         "vals": {l: np.where(live, np.asarray(flats[l], np.float32), 0.0).astype(np.float32)
-                 for l in RCS.labels},
-        "active": {l: np.asarray(acts[l]) * np.ones(cap, bool) & live for l in RCS.labels},
+                 for l in rcs.labels},
+        "active": {l: np.asarray(acts[l]) * np.ones(cap, bool) & live for l in rcs.labels},
     }
     return out, n
 
@@ -75,8 +74,8 @@ def _ref_hist(h):
             "active": {l: jnp.asarray(v) for l, v in h["active"].items()}}
 
 
-def _port_hist(h, n):
-    ph = convert.padded_history_from_numpy(RCS.labels, h["vals"], h["active"],
+def _port_hist(h, n, rcs=RCS):
+    ph = convert.padded_history_from_numpy(rcs.labels, h["vals"], h["active"],
                                            h["losses"], h["has_loss"], device="cpu", n=n)
     return ph.device_view()
 
@@ -146,6 +145,44 @@ def test_proposals_match_reference(group, cfg_name):
     ref = _ref_propose(group, cfg_name)(ref_hist, rkeys)
     port = tpe.build_propose_with_scores(PCS, cfg, group=group)(_port_hist(h, n), pkeys)
     _check(ref, port, ref_hist, rkeys, cfg)
+
+
+def _lcbench_space(h):
+    """LCBench's seven hyperparameters (Zimmer et al.): its quantized group
+    is bounded and holds two log-int labels beside one int label."""
+    return {"batch_size": h.qloguniform("batch_size", np.log(16), np.log(512), 1),
+            "learning_rate": h.loguniform("learning_rate", np.log(1e-4), np.log(1e-1)),
+            "momentum": h.uniform("momentum", 0.1, 0.99),
+            "weight_decay": h.uniform("weight_decay", 1e-5, 0.1),
+            "num_layers": h.uniformint("num_layers", 1, 5),
+            "max_units": h.qloguniform("max_units", np.log(64), np.log(1024), 1),
+            "max_dropout": h.uniform("max_dropout", 0.0, 1.0)}
+
+
+def test_lcbench_quantized_group_proposes_bit_for_bit_like_reference():
+    """The batch driver's configuration (64 candidates, gamma 1, LF 100,
+    softmax at tau 0.5, prior_eps 0.1) on LCBench's space: the quantized
+    group's proposals, scored through ``megakernel.q_mass_diff``'s plain
+    twin, equal the reference's bit for bit and their EI at the parity
+    standard; the other labels at the parity standard."""
+    rcs = ref_spaces.compile_space(_lcbench_space(ref_hp))
+    pcs = spaces.compile_space(_lcbench_space(hp))
+    cfg = {"prior_weight": 1.0, "n_EI_candidates": 64, "gamma": 1.0, "LF": 100,
+           "ei_select": "softmax", "ei_tau": 0.5, "prior_eps": 0.1}
+    h, n = _history(n=200, seed=9, rcs=rcs, cap=256)
+    ids = np.arange(16) * 7 + 1
+    rkeys, pkeys = _keys(ids, seed=(11, 5))
+    ref = jax.jit(jax.vmap(ref_tpe.build_propose_with_scores(rcs, cfg, group=True),
+                           in_axes=(None, 0)))(_ref_hist(h), rkeys)
+    port = tpe.build_propose_with_scores(pcs, cfg, group=True)(_port_hist(h, n, rcs), pkeys)
+    for label in rcs.labels:
+        rv, rei = (np.asarray(a) for a in ref[label])
+        pv, pei = (a.numpy() for a in port[label])
+        if label in ("batch_size", "num_layers", "max_units"):
+            np.testing.assert_array_equal(pv, rv, err_msg=label)
+        else:
+            np.testing.assert_allclose(pv, rv, rtol=RTOL, atol=ATOL, err_msg=label)
+        np.testing.assert_allclose(pei, rei, rtol=RTOL, atol=ATOL, err_msg=f"{label} ei")
 
 
 @pytest.mark.parametrize("label", ["u0", "lu1", "qu0", "qlu1", "ui0", "n1", "ln0",
