@@ -1,9 +1,8 @@
-"""``ei_diff``'s share (%) of its roofline in the traced part of a
-batch cell's window (its TPE generations): ``roofline.ei_diff_share``."""
+"""``ei_diff``'s share (%) of its roofline over the traced search of a
+batch cell, counted from the configuration: ``roofline.ei_diff_batch_share``."""
 
 
 def read(art):
     if not art.get("events"):
         return None
-    return art["roofline"].ei_diff_share(art["events"], art["cfg"]["ei_diff_shapes"],
-                                         art.get("tpe_steps", 0))
+    return art["roofline"].ei_diff_batch_share(art["events"], art["cfg"])

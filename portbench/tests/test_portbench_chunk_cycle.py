@@ -31,7 +31,7 @@ def test_traced_loop_cell_reports_the_chunk_cycle(tiny):
 
 
 def test_traced_batch_cell_reports_no_chunk_cycle(tiny):
-    assert not set(CYCLE) & set(_traced(tiny, "lcbench.batch1024"))
+    assert not set(CYCLE) & set(_traced(tiny, "lcbench.batch10240"))
 
 
 @pytest.mark.parametrize("name", CYCLE)

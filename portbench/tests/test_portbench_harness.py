@@ -14,7 +14,7 @@ import pytest
 
 from conftest import REPO, make_tiny_copy, run_harness
 
-RATE = {"branin.device_loop": "trials_per_s.loop", "lcbench.batch1024": "trials_per_s.batch"}
+RATE = {"branin.device_loop": "trials_per_s.loop", "lcbench.batch10240": "trials_per_s.batch"}
 CELLS = list(RATE)
 
 
@@ -70,7 +70,7 @@ FAULTS = {
 
 
 @pytest.mark.parametrize("cell, fault", [(c, f) for c in CELLS for f in ("proposal", "loss")]
-                         + [("lcbench.batch1024", "half_batch")])
+                         + [("lcbench.batch10240", "half_batch")])
 def test_planted_fault_is_not_correct(tiny, cell, fault):
     rc, out, err = run_harness(tiny, _args(cell), prelude=FAULTS[fault])
     assert rc == 0, err[-3000:]
